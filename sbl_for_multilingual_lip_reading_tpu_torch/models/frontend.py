@@ -1,0 +1,174 @@
+"""Visual frontend: Conv3D stem + per-frame ResNet-18 trunk, eval mode
+(counterpart of the JAX package's ``models/frontend.py``).
+
+    5-frame temporal stack (kernel K2) -> 2-D stem conv (the reference's
+    Conv3d(1->64, k=(5,7,7), s=(1,2,2), p=(2,3,3)) with time folded into
+    batch) -> BN -> ReLU -> 3x3/s2 max pool -> ResNet-18 (BasicBlock
+    [2,2,2,2]) -> global average pool -> (B, T, 512)
+
+Layout is NCHW with frames folded into the batch: K2's output
+(B, T, 5, S, S) reshaped to (B*T, 5, S, S) is the stem conv's input, the
+same NCHW form the JAX Pallas path feeds its conv.  The stem weight keeps
+the reference's conv3d meaning as a conv2d weight (C, kt, 7, 7).  Convs run
+in the compute dtype; BatchNorm runs in f32 on the running statistics and
+its output is rounded to the compute dtype, as in JAX.  The JAX package's
+default-off or train-only BN variants (GroupedBatchNorm, FastBatchNorm,
+DotBatchNorm, FusedBNAct) and its Pallas BasicBlock are not ported.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.stem import stack_frames, stack_frames_plain
+
+STEM_KT = 5
+
+
+def _he_normal_fan_out(w: torch.Tensor, g: torch.Generator) -> None:
+    """He-normal fan-out init of an OIHW weight (JAX
+    variance_scaling(2.0, "fan_out", "normal"); reference normal_(0,
+    sqrt(2/n)) with n = prod(kernel) * out_channels)."""
+    fan_out = w.shape[0] * math.prod(w.shape[2:])
+    with torch.no_grad():
+        w.copy_(torch.empty(w.shape).normal_(0.0, math.sqrt(2.0 / fan_out),
+                                             generator=g))
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm in f32 with flax's formula
+    y = (x - mean) * (scale * rsqrt(var + eps)) + bias over NCHW channels."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    @torch.no_grad()
+    def init_weights(self, g: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = x.to(torch.float32, copy=True)
+        y.sub_(self.running_mean[:, None, None])
+        y.mul_(mul[:, None, None])
+        return y.add_(self.bias[:, None, None])
+
+
+def _conv(c_in: int, c_out: int, k: int, stride: int, dtype) -> nn.Conv2d:
+    return nn.Conv2d(c_in, c_out, k, stride=stride, padding=k // 2,
+                     bias=False, dtype=dtype)
+
+
+class BasicBlock(nn.Module):
+    """ResNet BasicBlock (reference video_frontend.py:15-41)."""
+
+    def __init__(self, c_in: int, filters: int, stride: int = 1,
+                 bn_epsilon: float = 1e-5, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv1 = _conv(c_in, filters, 3, stride, dtype)
+        self.bn1 = BatchNorm(filters, bn_epsilon)
+        self.conv2 = _conv(filters, filters, 3, 1, dtype)
+        self.bn2 = BatchNorm(filters, bn_epsilon)
+        self.has_downsample = stride != 1 or c_in != filters
+        if self.has_downsample:
+            self.downsample_conv = _conv(c_in, filters, 1, stride, dtype)
+            self.downsample_bn = BatchNorm(filters, bn_epsilon)
+
+    def init_weights(self, g: torch.Generator) -> None:
+        for conv in (self.conv1, self.conv2):
+            _he_normal_fan_out(conv.weight, g)
+        if self.has_downsample:
+            _he_normal_fan_out(self.downsample_conv.weight, g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)).to(self.dtype))
+        y = self.bn2(self.conv2(y)).to(self.dtype)
+        residual = x
+        if self.has_downsample:
+            residual = self.downsample_bn(self.downsample_conv(x)).to(self.dtype)
+        return F.relu(y + residual)
+
+
+class ResNetTrunk(nn.Module):
+    """Stemless ResNet-18 trunk: four stages at strides 1/2/2/2, global
+    average pool (in f32) to the feature dim.  Blocks are named
+    ``layer{stage}_block{b}`` as in JAX."""
+
+    def __init__(self, c_in: int, channels: Sequence[int] = (64, 128, 256, 512),
+                 blocks: Sequence[int] = (2, 2, 2, 2), bn_epsilon: float = 1e-5,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.names = []
+        for stage, (ch, nblocks) in enumerate(zip(channels, blocks)):
+            for b in range(nblocks):
+                stride = 2 if (stage > 0 and b == 0) else 1
+                name = f"layer{stage + 1}_block{b}"
+                self.add_module(name, BasicBlock(c_in, ch, stride, bn_epsilon,
+                                                 dtype))
+                self.names.append(name)
+                c_in = ch
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for name in self.names:
+            x = getattr(self, name)(x)
+        return x.to(torch.float32).mean(dim=(2, 3)).to(self.dtype)
+
+
+class VisualFrontend(nn.Module):
+    """(B, T, S, S) normalized grayscale clip -> (B, T, feature_dim)."""
+
+    def __init__(self, conv3d_channels: int = 64,
+                 resnet_channels: Sequence[int] = (64, 128, 256, 512),
+                 resnet_blocks: Sequence[int] = (2, 2, 2, 2),
+                 feature_dim: int = 512, bn_epsilon: float = 1e-5,
+                 dtype=torch.float32, use_kernels: bool = True):
+        super().__init__()
+        self.dtype, self.use_kernels = dtype, use_kernels
+        self.feature_dim = feature_dim
+        self.conv3d_weight = nn.Parameter(torch.empty(
+            (conv3d_channels, STEM_KT, 7, 7), dtype=dtype))
+        self.bn3d = BatchNorm(conv3d_channels, bn_epsilon)
+        self.resnet = ResNetTrunk(conv3d_channels, resnet_channels,
+                                  resnet_blocks, bn_epsilon, dtype)
+
+    def init_weights(self, g: torch.Generator) -> None:
+        _he_normal_fan_out(self.conv3d_weight, g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, H, W = x.shape
+        stack = stack_frames if self.use_kernels else stack_frames_plain
+        xs = stack(x.to(self.dtype).contiguous(), STEM_KT)
+        xs = xs.reshape(B * T, STEM_KT, H, W)
+        y = F.conv2d(xs, self.conv3d_weight, stride=2, padding=3)
+        y = F.relu(self.bn3d(y)).to(self.dtype)
+        # the reference's MaxPool3d(k=(1,3,3), s=(1,2,2), p=(0,1,1)) with
+        # time folded into batch (the forward of JAX ops/maxpool.py)
+        y = F.max_pool2d(y, 3, 2, 1)
+        return self.resnet(y).reshape(B, T, self.feature_dim)
+
+
+def frontend_from_config(cfg, dtype=torch.float32,
+                         use_kernels: bool = True) -> VisualFrontend:
+    return VisualFrontend(
+        conv3d_channels=cfg.conv3d_channels,
+        resnet_channels=tuple(cfg.resnet_channels),
+        resnet_blocks=tuple(cfg.resnet_blocks),
+        feature_dim=cfg.feature_dim,
+        bn_epsilon=cfg.bn_epsilon,
+        dtype=dtype,
+        use_kernels=use_kernels,
+    )

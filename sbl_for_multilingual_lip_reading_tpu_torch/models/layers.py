@@ -1,0 +1,241 @@
+"""Core transformer building blocks (counterpart of the JAX package's
+``models/layers.py``).
+
+* ``Dense`` / ``LayerNorm`` -- the flax layers these modules are made of.
+  ``dirs=2`` gives them a leading direction axis (weights (2, out, in)),
+  the form the JAX decoder gets from ``nn.vmap`` over its two directions:
+  the projections then run as one ``torch.bmm`` over (2, B*L, D).
+* ``MultiHeadAttention`` -- post-LN residual
+  ``LayerNorm(fc(attn) + q)``; the projections stay FLAT (B, T, H*d) and go
+  to kernel K1 (``ops/attention.py``), which splits the heads itself.
+* ``CrossKV`` / ``CachedCrossAttention`` -- cross-attention with the
+  encoder's K/V projected once per clip instead of once per decode step.
+* ``PositionwiseFeedForward``, ``EncoderLayer``,
+  ``sinusoid_position_encoding``.
+
+Numerics follow the JAX modules: matmuls in the compute dtype, rounded
+before the bias is added, LayerNorm in f32 with flax's eps 1e-6 (torch's
+default is 1e-5), each sublayer's output rounded to the compute dtype.
+Masks arrive as additive f32 biases (``ops.mask_to_bias``).  Inference only
+(no dropout).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import small_mha_flat, small_mha_flat_plain
+
+LN_EPS = 1e-6  # flax nn.LayerNorm default
+
+
+def sinusoid_position_encoding(max_len: int, d_model: int) -> torch.Tensor:
+    """(max_len, d_model) float32 sinusoidal table, computed in numpy exactly
+    as the JAX package computes it (reference module.py:16-26)."""
+    position = np.arange(max_len, dtype=np.float32)[:, None]
+    div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float32)
+                      * -(np.log(10000.0) / d_model))
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return torch.from_numpy(pe)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: y = x W^T + b with weight (out, in), or with
+    ``dirs`` set, a per-direction stack (dirs, out, in) applied to inputs
+    (dirs, ..., in).  ``init`` names the JAX initializer it mirrors."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True,
+                 dirs: Optional[int] = None, dtype=torch.float32,
+                 init: str = "xavier_uniform", std: float = 1.0):
+        super().__init__()
+        shape = (d_out, d_in) if dirs is None else (dirs, d_out, d_in)
+        self.dirs, self.init, self.std = dirs, init, std
+        self.weight = nn.Parameter(torch.empty(shape, dtype=dtype))
+        self.bias = (nn.Parameter(torch.zeros(shape[:-1], dtype=dtype))
+                     if bias else None)
+
+    @torch.no_grad()
+    def init_weights(self, g: torch.Generator) -> None:
+        w = torch.empty(self.weight.shape, dtype=torch.float32)
+        for wi in (w if self.dirs is not None else [w]):
+            if self.init == "normal":
+                wi.normal_(0.0, self.std, generator=g)
+            elif self.init == "xavier_normal":
+                nn.init.xavier_normal_(wi, generator=g)
+            else:
+                nn.init.xavier_uniform_(wi, generator=g)
+        self.weight.copy_(w)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # flax rounds the product to the compute dtype, then adds the bias
+        # (a fused addmm would round once, after the add)
+        if self.dirs is None:
+            y = F.linear(x, self.weight)
+            return y if self.bias is None else y + self.bias
+        x2 = x.reshape(self.dirs, -1, x.shape[-1])
+        y = torch.bmm(x2, self.weight.transpose(1, 2))
+        if self.bias is not None:
+            y = y + self.bias.unsqueeze(1)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+class LayerNorm(nn.Module):
+    """f32 LayerNorm (flax defaults: eps 1e-6, scale and bias), optionally
+    with a leading direction axis on its parameters."""
+
+    def __init__(self, d: int, dirs: Optional[int] = None, eps: float = LN_EPS):
+        super().__init__()
+        shape = (d,) if dirs is None else (dirs, d)
+        self.d, self.dirs, self.eps = d, dirs, eps
+        self.weight = nn.Parameter(torch.ones(shape))
+        self.bias = nn.Parameter(torch.zeros(shape))
+
+    @torch.no_grad()
+    def init_weights(self, g: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dirs is None:
+            return F.layer_norm(x, (self.d,), self.weight, self.bias, self.eps)
+        y = F.layer_norm(x, (self.d,), None, None, self.eps)
+        shape = (self.dirs,) + (1,) * (x.dim() - 2) + (self.d,)
+        return y * self.weight.view(shape) + self.bias.view(shape)
+
+
+def attend(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor, n_head: int,
+           bias: Optional[torch.Tensor], scale: float,
+           use_kernels: bool) -> torch.Tensor:
+    """Flat attention over (..., T, H*d) projections: every leading axis
+    (batch, and the decoder's direction axis) folds into the kernel's batch,
+    so one K1 launch covers both directions."""
+    fn = small_mha_flat if use_kernels else small_mha_flat_plain
+    ctx = fn(q2.reshape(-1, *q2.shape[-2:]), k2.reshape(-1, *k2.shape[-2:]),
+             v2.reshape(-1, *v2.shape[-2:]), n_head, bias=bias, scale=scale)
+    return ctx.reshape(*q2.shape[:-1], ctx.shape[-1])
+
+
+def _post_ln(ln: LayerNorm, out: torch.Tensor, residual: torch.Tensor,
+             dtype) -> torch.Tensor:
+    return ln(out.to(torch.float32) + residual.to(torch.float32)).to(dtype)
+
+
+def _qk_std(d_model: int, d: int) -> float:
+    # reference attention.py:19-21: N(0, 2/(d_model+d_k))
+    return math.sqrt(2.0 / (d_model + d))
+
+
+class MultiHeadAttention(nn.Module):
+    """Post-LN multi-head attention; submodule names match the JAX module
+    (w_qs/w_ks/w_vs/fc/layer_norm)."""
+
+    def __init__(self, d_model: int, n_head: int, d_k: int, d_v: int,
+                 dtype=torch.float32, use_kernels: bool = True,
+                 dirs: Optional[int] = None):
+        super().__init__()
+        if d_k != d_v:
+            raise ValueError("flat attention needs d_k == d_v")
+        self.n_head, self.dtype, self.use_kernels = n_head, dtype, use_kernels
+        self.scale = 1.0 / math.sqrt(d_k)
+        kw = dict(dirs=dirs, dtype=dtype, init="normal")
+        self.w_qs = Dense(d_model, n_head * d_k, std=_qk_std(d_model, d_k), **kw)
+        self.w_ks = Dense(d_model, n_head * d_k, std=_qk_std(d_model, d_k), **kw)
+        self.w_vs = Dense(d_model, n_head * d_v, std=_qk_std(d_model, d_v), **kw)
+        self.fc = Dense(n_head * d_v, d_model, dirs=dirs, dtype=dtype,
+                        init="xavier_normal")
+        self.layer_norm = LayerNorm(d_model, dirs)
+
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """q/k/v: (..., T, d_model); bias: additive (1|B, Tq, Tk) f32."""
+        ctx = attend(self.w_qs(q), self.w_ks(k), self.w_vs(v), self.n_head,
+                     bias, self.scale, self.use_kernels)
+        return _post_ln(self.layer_norm, self.fc(ctx), q, self.dtype)
+
+
+class CrossKV(nn.Module):
+    """Cross-attention K/V projections, split out so the decoder projects
+    the encoder sequence once per clip.  Returns FLAT (..., Tk, H*d)."""
+
+    def __init__(self, d_model: int, n_head: int, d_k: int, d_v: int,
+                 dtype=torch.float32, dirs: Optional[int] = None):
+        super().__init__()
+        self.dirs = dirs
+        kw = dict(dirs=dirs, dtype=dtype, init="normal")
+        self.w_ks = Dense(d_model, n_head * d_k, std=_qk_std(d_model, d_k), **kw)
+        self.w_vs = Dense(d_model, n_head * d_v, std=_qk_std(d_model, d_v), **kw)
+
+    def forward(self, enc: torch.Tensor):
+        """enc: (B, Tk, d_model), shared by every direction."""
+        x = enc if self.dirs is None else enc.expand(self.dirs, *enc.shape)
+        return self.w_ks(x), self.w_vs(x)
+
+
+class CachedCrossAttention(nn.Module):
+    """Multi-head cross-attention over precomputed ``CrossKV`` outputs:
+    ``MultiHeadAttention`` minus the per-call K/V projections."""
+
+    def __init__(self, d_model: int, n_head: int, d_k: int, d_v: int,
+                 dtype=torch.float32, use_kernels: bool = True,
+                 dirs: Optional[int] = None):
+        super().__init__()
+        if d_k != d_v:
+            raise ValueError("flat attention needs d_k == d_v")
+        self.n_head, self.dtype, self.use_kernels = n_head, dtype, use_kernels
+        self.scale = 1.0 / math.sqrt(d_k)
+        self.w_qs = Dense(d_model, n_head * d_k, dirs=dirs, dtype=dtype,
+                          init="normal", std=_qk_std(d_model, d_k))
+        self.fc = Dense(n_head * d_v, d_model, dirs=dirs, dtype=dtype,
+                        init="xavier_normal")
+        self.layer_norm = LayerNorm(d_model, dirs)
+
+    def forward(self, q: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ctx = attend(self.w_qs(q), k2, v2, self.n_head, bias, self.scale,
+                     self.use_kernels)
+        return _post_ln(self.layer_norm, self.fc(ctx), q, self.dtype)
+
+
+class PositionwiseFeedForward(nn.Module):
+    """w_2(relu(w_1(x))) with post-LN residual."""
+
+    def __init__(self, d_model: int, d_inner: int, dtype=torch.float32,
+                 dirs: Optional[int] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.w_1 = Dense(d_model, d_inner, dirs=dirs, dtype=dtype)
+        self.w_2 = Dense(d_inner, d_model, dirs=dirs, dtype=dtype)
+        self.layer_norm = LayerNorm(d_model, dirs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.w_2(F.relu(self.w_1(x)))
+        return _post_ln(self.layer_norm, h, x, self.dtype)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, d_model: int, d_inner: int, n_head: int, d_k: int,
+                 d_v: int, dtype=torch.float32, use_kernels: bool = True):
+        super().__init__()
+        self.slf_attn = MultiHeadAttention(d_model, n_head, d_k, d_v, dtype,
+                                           use_kernels)
+        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, dtype)
+
+    def forward(self, x: torch.Tensor,
+                non_pad_mask: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.slf_attn(x, x, x, bias=bias)
+        if non_pad_mask is not None:
+            x = x * non_pad_mask.to(x.dtype)
+        x = self.pos_ffn(x)
+        if non_pad_mask is not None:
+            x = x * non_pad_mask.to(x.dtype)
+        return x

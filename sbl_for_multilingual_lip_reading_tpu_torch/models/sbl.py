@@ -1,0 +1,37 @@
+"""Top-level SBL model: frontend -> encoder -> bidirectional decoder
+(counterpart of the JAX package's ``models/sbl.py::SBLTransformer``),
+inference path."""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from .decoder_sbl import SBLDecoder
+from .encoder import Encoder
+from .frontend import VisualFrontend
+
+
+class SBLTransformer(nn.Module):
+    """Synchronous bidirectional multilingual lip-reading model."""
+
+    def __init__(self, frontend: VisualFrontend, encoder: Encoder,
+                 decoder: SBLDecoder):
+        super().__init__()
+        self.frontend, self.encoder, self.decoder = frontend, encoder, decoder
+
+    def encode(self, video: torch.Tensor) -> torch.Tensor:
+        """video: (B, T, H, W) normalized grayscale -> encoder output
+        (B, T, d_model)."""
+        return self.encoder(self.frontend(video))
+
+    def decode(self, video: torch.Tensor):
+        """Greedy bidirectional decode with the per-step logits:
+        (ys_l2r, ys_r2l, logits_l2r, logits_r2l)."""
+        return self.decoder.decode(self.encode(video))
+
+    def recognize(self, video: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Greedy bidirectional decode: (ys_l2r, ys_r2l), (B, maxlen+1) ids
+        with the leading sos."""
+        return self.decoder.recognize(self.encode(video))

@@ -1,0 +1,18 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
+version, plus the mask helpers.  Kernels build at first use (``_build``)."""
+from .attention import (MASK_FILL, mask_to_bias, small_mha_flat,
+                        small_mha_flat_plain)
+from .stem import stack_frames, stack_frames_plain
+
+KERNELS = (small_mha_flat, stack_frames)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """{wrapper name: kernel launches since the last reset}."""
+    return {fn.__name__: fn.launches for fn in KERNELS}

@@ -1,0 +1,109 @@
+"""Build the port's hand-written CUDA kernels and load them with ctypes.
+
+All ``csrc/*.cu`` files compile with one ``nvcc`` call into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds).  The library is built at first use into ``_build/`` beside the
+package, named by a hash of the sources and flags, so an edited kernel is
+rebuilt and an unchanged one is loaded as it is.  The build writes to a
+temporary name and renames it into place, so a build that is cut off never
+leaves a library that looks finished.  nvcc's output (``-Xptxas -v``:
+registers, shared memory and spills per kernel) is kept beside the library
+as ``<name>.log``.
+
+Each C entry point returns ``cudaGetLastError()`` of its launch; the
+wrappers in ``ops/`` raise when it is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    # q, k, v, bias, out, B, Tq, Tk, H, D, bias_per_batch, scale, dtype,
+    # device, stream
+    "sbl_small_mha_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           ctypes.c_float, _I, _I, _P],
+    # in, out, B, T, plane_bytes, kt, device, stream
+    "sbl_stack_frames": [_P, _P, _LL, _I, _LL, _I, _I, _P],
+}
+
+
+def find_nvcc() -> Optional[str]:
+    """nvcc on PATH, else the CUDA toolkit's default location, else None."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    return str(default) if default.exists() else None
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libsbl_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _compile(target: Path) -> None:
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+            "build only on a machine with the CUDA toolkit")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+           *[str(s) for s in sources() if s.suffix == ".cu"]]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
+                               f"\n{res.stdout}\n{res.stderr}")
+        target.with_suffix(".log").write_text(res.stdout + res.stderr)
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; cached per process."""
+    target = library_path()
+    if not target.exists():
+        _compile(target)
+    lib = ctypes.CDLL(str(target))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

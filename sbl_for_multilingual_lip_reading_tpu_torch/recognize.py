@@ -1,0 +1,44 @@
+"""The port's entry function: recognize a batch of uint8 clips.
+
+The path the JAX package's ``bench.py`` times (``recognize_batch``) and its
+``test.py`` evaluates:
+
+    uint8 clips -> eval ingest (center crop + ColorNormalize)
+    -> visual frontend (K2 frame stack, stem conv, ResNet-18)
+    -> encoder (K1 attention) -> greedy bidirectional decode (K1)
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import torch
+
+from .data.ingest import device_ingest
+from .models.sbl import SBLTransformer
+
+
+class Recognition(NamedTuple):
+    ys_l2r: torch.Tensor       # (B, maxlen+1) ids, leading sos
+    ys_r2l: torch.Tensor
+    logits_l2r: torch.Tensor   # (B, maxlen, V) f32, one row per decode step
+    logits_r2l: torch.Tensor
+
+
+def recognize_batch(model: SBLTransformer, clips_u8: torch.Tensor,
+                    crop: int) -> Recognition:
+    """clips_u8: (B, T, H, W) uint8 on the model's device; ``crop`` is the
+    config's ``data.crop_size``.  Ingests in the model's compute dtype and
+    decodes greedily in both directions."""
+    with torch.inference_mode():
+        video = device_ingest(clips_u8, crop, model.frontend.dtype)
+        return Recognition(*model.decode(video))
+
+
+def expected_launches(cfg) -> Dict[str, int]:
+    """Kernel launches one ``recognize_batch`` makes on the kernel path:
+    one frame stack, and one attention per encoder layer plus two (self and
+    cross, both directions folded into one launch) per decoder layer and
+    decode step."""
+    dims, d = cfg.dims, cfg.decoder
+    return {"small_mha_flat": dims.n_enc_layers + 2 * d.maxlen * dims.n_dec_layers,
+            "stack_frames": 1}

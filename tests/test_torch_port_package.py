@@ -1,0 +1,240 @@
+"""Package-level checks of the PyTorch port: it never loads JAX or the JAX
+package, its copies of the config and vocabulary agree with the JAX
+package's, its weight mapping covers the full-size model, its kernel build
+and launch accounting behave, and chip_smoke.py refuses to run without a
+CUDA card."""
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import traverse_util
+
+from sbl_for_multilingual_lip_reading_tpu import config as C
+from sbl_for_multilingual_lip_reading_tpu import vocab as jax_vocab
+from sbl_for_multilingual_lip_reading_tpu.models import (
+    build_model as build_jax_model)
+from sbl_for_multilingual_lip_reading_tpu_torch import config as port_config
+from sbl_for_multilingual_lip_reading_tpu_torch import ops
+from sbl_for_multilingual_lip_reading_tpu_torch import vocab as port_vocab
+from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
+from sbl_for_multilingual_lip_reading_tpu_torch.models import frontend, layers
+from sbl_for_multilingual_lip_reading_tpu_torch.ops import _build
+from sbl_for_multilingual_lip_reading_tpu_torch.recognize import (
+    expected_launches, recognize_batch)
+from sbl_for_multilingual_lip_reading_tpu_torch.utils import (
+    state_dict_from_jax)
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "sbl_for_multilingual_lip_reading_tpu_torch"
+
+_NO_JAX_SCRIPT = """
+import importlib, pkgutil, sys
+import torch
+import sbl_for_multilingual_lip_reading_tpu_torch as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
+from sbl_for_multilingual_lip_reading_tpu_torch.recognize import recognize_batch
+cfg = C.tiny_test()
+clips = torch.randint(0, 256, (2, cfg.data.frames, cfg.data.raw_size,
+                               cfg.data.raw_size), dtype=torch.uint8)
+r = recognize_batch(build_model(cfg), clips, cfg.data.crop_size)
+assert r.ys_l2r.shape == (2, cfg.decoder.maxlen + 1)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "flax", "sbl_for_multilingual_lip_reading_tpu"))
+assert not loaded, loaded
+print("NO_JAX_OK")
+"""
+
+
+def _run(args, cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run(args, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_port_never_imports_jax():
+    res = _run([sys.executable, "-c", _NO_JAX_SCRIPT], REPO)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "NO_JAX_OK" in res.stdout
+
+
+def test_port_sources_have_no_jax_import():
+    # neither JAX nor the JAX package, in the port or in chip_smoke.py
+    pattern = re.compile(r"^\s*(import|from) (jax|flax|"
+                         r"sbl_for_multilingual_lip_reading_tpu)\b(?!_torch)")
+    sources = [p for p in PORT.rglob("*.py")
+               if "_build" not in p.relative_to(PORT).parts]
+    sources.append(REPO / "chip_smoke.py")
+    offenders = [f"{p}:{i}" for p in sources
+                 for i, line in enumerate(p.read_text().splitlines(), 1)
+                 if pattern.match(line)]
+    assert sources
+    assert not offenders
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_a_card(where, tmp_path):
+    # without a CUDA device it must refuse; alone, the package is missing too
+    script = REPO / "chip_smoke.py"
+    cwd = REPO
+    if where == "repo" and torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py runs for real")
+    if where == "alone":
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    res = _run([sys.executable, str(script)], cwd)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+
+
+def _assert_fields_match(port_cfg, jax_cfg, path="cfg"):
+    """Every field of the port's dataclass equals the JAX one's."""
+    for f in dataclasses.fields(port_cfg):
+        mine, theirs = getattr(port_cfg, f.name), getattr(jax_cfg, f.name)
+        if dataclasses.is_dataclass(mine):
+            _assert_fields_match(mine, theirs, f"{path}.{f.name}")
+        else:
+            assert mine == theirs, f"{path}.{f.name}: {mine!r} != {theirs!r}"
+
+
+@pytest.mark.parametrize("preset", ["sbl", "tiny_test"])
+def test_port_config_matches_jax(preset):
+    if preset == "tiny_test":
+        mine, theirs = port_config.tiny_test(), C.tiny_test("sbl")
+    else:
+        mine, theirs = port_config.sbl(), C.sbl()
+    _assert_fields_match(mine, theirs)
+
+
+def test_port_vocab_matches_jax():
+    assert port_vocab.TOTAL_PHONEMES == jax_vocab.TOTAL_PHONEMES
+    assert ((port_vocab.SOS_ID, port_vocab.EOS_ID, port_vocab.IGNORE_ID)
+            == (jax_vocab.SOS_ID, jax_vocab.EOS_ID, jax_vocab.IGNORE_ID))
+    ids = [0, 5, 57, 1, -1, 58, 12]
+    assert port_vocab.decode_ids(ids) == jax_vocab.decode_ids(ids)
+    assert (port_vocab.decode_ids(ids, strip_special=False)
+            == jax_vocab.decode_ids(ids, strip_special=False))
+
+
+def test_port_config_builds_the_same_model_as_jax_config():
+    # either package's config drives build_model to the same weights
+    a = build_model(port_config.tiny_test()).state_dict()
+    b = build_model(C.tiny_test("sbl")).state_dict()
+    assert a.keys() == b.keys()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_profile_recognize_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the profile runs for real")
+    res = _run([sys.executable, "-m",
+                "sbl_for_multilingual_lip_reading_tpu_torch.profile_recognize",
+                "--batch", "2"], REPO)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+
+
+@pytest.mark.parametrize("name", ["lrw", "lrw1000", "classify"])
+def test_build_model_refuses_unported_workloads(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(C.tiny_test(name))
+
+
+def test_state_dict_mapping_complete_full_dims():
+    cfg = C.sbl()
+    model = build_jax_model(cfg)
+    key = jax.random.PRNGKey(0)
+    labels = jnp.zeros((2, cfg.decoder.target_pad_len), jnp.int32)
+    T, crop = cfg.data.frames, cfg.data.crop_size
+    shapes = jax.eval_shape(lambda: model.init(
+        {"params": key, "dropout": key, "teacher": key},
+        jnp.zeros((2, T, crop, crop)), labels, labels, train=False))
+    # zero-stride views: the full-size shapes without their memory
+    zeros = jax.tree_util.tree_map(
+        lambda s: np.lib.stride_tricks.as_strided(
+            np.zeros(1, np.float32), s.shape, (0,) * len(s.shape)), shapes)
+    n_leaves = (len(traverse_util.flatten_dict(zeros["params"]))
+                + len(traverse_util.flatten_dict(zeros["batch_stats"])))
+    got = {k: tuple(v.shape) for k, v in state_dict_from_jax(
+        zeros["params"], zeros["batch_stats"]).items()}
+    want = {k: tuple(v.shape) for k, v in build_model(cfg).state_dict().items()}
+    assert len(got) == n_leaves
+    assert sorted(set(want) ^ set(got)) == []
+    assert got == want
+
+
+def test_recognize_calls_each_kernel_wrapper_as_counted(monkeypatch):
+    """On the kernel path every attention goes through the K1 wrapper and
+    the stem through the K2 wrapper, as many times as chip_smoke.py expects
+    launches; on the plain path neither wrapper is called."""
+    calls = {"small_mha_flat": 0, "stack_frames": 0}
+
+    def spy(name, fn):
+        def wrapped(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(layers, "small_mha_flat",
+                        spy("small_mha_flat", layers.small_mha_flat))
+    monkeypatch.setattr(frontend, "stack_frames",
+                        spy("stack_frames", frontend.stack_frames))
+    cfg = C.tiny_test("sbl")
+    clips = torch.randint(0, 256, (2, cfg.data.frames, cfg.data.raw_size,
+                                   cfg.data.raw_size), dtype=torch.uint8)
+    recognize_batch(build_model(cfg), clips, cfg.data.crop_size)
+    assert calls == expected_launches(cfg)
+    assert calls["small_mha_flat"] == (cfg.dims.n_enc_layers
+                                       + 2 * cfg.decoder.maxlen
+                                       * cfg.dims.n_dec_layers)
+
+    calls.update(small_mha_flat=0, stack_frames=0)
+    plain = dataclasses.replace(cfg, use_pallas_attention=False)
+    recognize_batch(build_model(plain), clips, cfg.data.crop_size)
+    assert calls == {"small_mha_flat": 0, "stack_frames": 0}
+
+
+def test_launch_counts_reset_and_read():
+    ops.small_mha_flat.launches = 3
+    ops.stack_frames.launches = 1
+    assert ops.launch_counts() == {"small_mha_flat": 3, "stack_frames": 1}
+    ops.reset_launch_counts()
+    assert ops.launch_counts() == {"small_mha_flat": 0, "stack_frames": 0}
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    _build.library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _build.library()
+    finally:
+        _build.library.cache_clear()
+    assert not list(tmp_path.rglob("*.so"))
+
+
+def test_kernel_library_is_keyed_by_its_sources(monkeypatch, tmp_path):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("// one")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    first = _build.library_path()
+    assert first == _build.library_path()
+    assert first.parent == _build.BUILD_DIR and first.suffix == ".so"
+    (csrc / "a.cu").write_text("// two")
+    assert _build.library_path() != first
+    # the port's own sources: every .cu under csrc/ is in the build
+    monkeypatch.undo()
+    names = {p.name for p in _build.sources()}
+    assert {"attention.cu", "stem.cu"} <= names
