@@ -2,18 +2,18 @@
 
 A subset of the JAX package's ``config.py``, with the same dataclass,
 field and preset names and the same defaults, so that a config of either
-package can be handed to ``models.build_model``.  The port keeps its own
-copy because the machine it runs on has no JAX; the JAX package remains
-the source of truth, and ``tests/test_torch_port_package.py`` checks that
-every field here equals its JAX counterpart in every preset.
+package can be handed to ``models.build_model`` and the training step.  The
+port keeps its own copy because the machine it runs on has no JAX; the JAX
+package remains the source of truth, and ``tests/test_torch_port_package.py``
+checks that every field here equals its JAX counterpart in every preset.
 
-Only the ``sbl`` workload's recognize path is ported so far.  Its training
-stages (``sbl_stage2`` in JAX) differ only in training fields.
+The ``sbl`` workload's recognize path and its train step are ported;
+``sbl_stage2`` is the same model with teacher forcing annealed to 0.1.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 from .vocab import TOTAL_PHONEMES
 
@@ -27,6 +27,7 @@ class TransformerDims:
     d_inner: int = 2048
     n_enc_layers: int = 6
     n_dec_layers: int = 6
+    dropout: float = 0.1
     pe_maxlen: int = 5000
 
 
@@ -36,6 +37,8 @@ class FrontendConfig:
     resnet_channels: Tuple[int, int, int, int] = (64, 128, 256, 512)
     resnet_blocks: Tuple[int, int, int, int] = (2, 2, 2, 2)
     feature_dim: int = 512
+    dropout: float = 0.5
+    bn_momentum: float = 0.9   # share of the running statistic kept
     bn_epsilon: float = 1e-5
 
 
@@ -44,6 +47,7 @@ class DecoderConfig:
     vocab_size: int = 58
     maxlen: int = 16
     fusion_mode: str = "symmetric"      # or "reference_aliased"
+    teacher_forcing_rate: float = 0.5   # P(gold token) per decode step
     decode_segments: int = 8
 
 
@@ -54,6 +58,23 @@ class DataConfig:
     crop_size: int = 88
     mean: float = 0.413621      # ColorNormalize
     std: float = 0.1700239
+    frame_removal_p: float = 0.05   # FrameRemoval
+    max_crop_offset: int = 8        # RandomCrop offset range
+    random_drop_p: float = 0.0      # the LRW project's RandomDrop
+    per_clip_crop: bool = False     # one crop offset per clip (LRW protocol)
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """Noam schedule + Adam."""
+    k: float = 0.2
+    warmup_steps: int = 4000
+    lr_base_dim: int = 512
+    adam_b1: float = 0.9
+    adam_b2: float = 0.98
+    adam_eps: float = 1e-9
+    label_smoothing: float = 0.1
+    grad_clip: Optional[float] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,11 +84,18 @@ class WorkloadConfig:
     frontend: FrontendConfig = FrontendConfig()
     decoder: DecoderConfig = DecoderConfig()
     data: DataConfig = DataConfig()
+    optim: OptimConfig = OptimConfig()
+    batch_size: int = 240
     seed: int = 7
     compute_dtype: str = "bfloat16"
-    # the hand-written kernels (K1 attention, K2 frame stack) instead of
-    # their plain versions, as the field selects the Pallas kernels in JAX
+    # the hand-written kernels (K1-K5) instead of their plain versions, as
+    # the field selects the Pallas kernels in JAX
     use_pallas_attention: bool = True
+    # checkpoint each decode step for the backward
+    remat_decoder: bool = True
+    # top-level parameter subtrees ("frontend", "encoder", "decoder") whose
+    # gradients are zeroed
+    freeze_prefixes: Tuple[str, ...] = ()
 
 
 def sbl() -> WorkloadConfig:
@@ -76,16 +104,30 @@ def sbl() -> WorkloadConfig:
                           decoder=DecoderConfig(vocab_size=len(TOTAL_PHONEMES)))
 
 
+def sbl_stage2() -> WorkloadConfig:
+    """SBL fine-tuning stage: teacher forcing annealed 0.5 -> 0.1."""
+    return WorkloadConfig(name="sbl", decoder=DecoderConfig(
+        vocab_size=len(TOTAL_PHONEMES), teacher_forcing_rate=0.1))
+
+
 def tiny_test() -> WorkloadConfig:
     """CPU-runnable miniature of ``sbl`` for tests: 2 layers, d_model 64."""
     base = sbl()
+    dims = TransformerDims(d_model=64, n_head=4, d_k=16, d_v=16, d_inner=128,
+                           n_enc_layers=2, n_dec_layers=2)
     return dataclasses.replace(
         base,
-        dims=TransformerDims(d_model=64, n_head=4, d_k=16, d_v=16, d_inner=128,
-                             n_enc_layers=2, n_dec_layers=2),
+        dims=dims,
         frontend=FrontendConfig(conv3d_channels=8, resnet_channels=(8, 16, 32, 64),
                                 resnet_blocks=(1, 1, 1, 1), feature_dim=64),
         decoder=dataclasses.replace(base.decoder, maxlen=8, decode_segments=1),
         data=dataclasses.replace(base.data, raw_size=40, crop_size=32),
+        batch_size=2,
         compute_dtype="float32",
+        # short warmup so a handful of test steps sees a usable lr
+        optim=dataclasses.replace(base.optim, k=0.1, warmup_steps=20,
+                                  lr_base_dim=dims.d_model),
     )
+
+
+PRESETS = {"sbl": sbl, "sbl_stage2": sbl_stage2}

@@ -27,7 +27,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
+
+using sbl::from_f32;
+using sbl::to_f32;
+using sbl::warp_max;
+using sbl::warp_sum;
 
 constexpr int kWarps = 4;
 constexpr int kMinBlocksPerSM = 12;
@@ -39,27 +46,6 @@ constexpr int kChunk = 64;               // keys staged in shared memory per pas
 // K [nk][d + 1], V [nk][d], one query row per warp [kWarps][d]
 constexpr int smem_floats(int nk) {
   return nk * (kHeadDim + 1) + nk * kHeadDim + kWarps * kHeadDim;
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 // q: (B, Tq, H*d); k, v: (B, Tk, H*d); bias: null or (1|B, Tq, Tk) f32;

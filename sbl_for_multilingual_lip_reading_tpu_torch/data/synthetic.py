@@ -1,0 +1,67 @@
+"""Synthetic clip dataset: a stand-in for the licensed LRW / LRW-1000 data
+(a copy of the JAX package's ``data/synthetic.py::SyntheticLipDataset`` for
+the ``sbl`` vocabulary; the same index gives the same sample).
+
+Index i seeds its own uint8 noise clip; even indices carry an LRW English
+word's phonemes, odd ones an LRW-1000 pinyin entry's, as the mixed bilingual
+corpus of the SBL reference does (data_gen.py:270-304).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from ..vocab import (IGNORE_ID, chinese_phoneme_map, encode_english_word,
+                     encode_pinyin_seq, lrw1000_words, lrw_words)
+
+
+def _pad_labels(ids, pad_len: int) -> np.ndarray:
+    out = np.full((pad_len,), IGNORE_ID, dtype=np.int32)
+    ids = ids[:pad_len]
+    out[:len(ids)] = ids
+    return out
+
+
+class SyntheticLipDataset:
+    """Indexable dataset of synthetic raw clips.  A sample is a dict of
+    clip_u8 (frames, raw, raw) uint8, labels and labels_reverse (pad_len,)
+    int32 IGNORE-padded phoneme ids, lang_id () int32 (0 = English,
+    1 = Mandarin) and n_frames () int32."""
+
+    def __init__(self, size: int = 64, frames: int = 30, raw_size: int = 96,
+                 pad_len: int = 14, kind: str = "all", seed: int = 0):
+        if kind not in ("all", "lrw", "lrw1000"):
+            raise ValueError(f"unknown kind {kind!r}")
+        self.size, self.frames, self.raw = size, frames, raw_size
+        self.pad_len, self.kind, self.seed = pad_len, kind, seed
+        self._lrw = lrw_words()
+        self._lrw1000 = [w for w in lrw1000_words()
+                         if all(s in chinese_phoneme_map()
+                                for s in w.split(" "))]
+
+    def __len__(self):
+        return self.size
+
+    def _is_lrw(self, i: int) -> bool:
+        if self.kind != "all":
+            return self.kind == "lrw"
+        return i % 2 == 0
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        rng = np.random.default_rng(self.seed * 1000003 + i)
+        clip = rng.integers(0, 256, size=(self.frames, self.raw, self.raw),
+                            dtype=np.uint8)
+        if self._is_lrw(i):
+            ids = encode_english_word(self._lrw[i % len(self._lrw)])
+            lang = 0
+        else:
+            ids = encode_pinyin_seq(self._lrw1000[i % len(self._lrw1000)].split(" "))
+            lang = 1
+        return {
+            "clip_u8": clip,
+            "labels": _pad_labels(ids, self.pad_len),
+            "labels_reverse": _pad_labels(ids[::-1], self.pad_len),
+            "lang_id": np.int32(lang),
+            "n_frames": np.int32(self.frames),
+        }

@@ -31,11 +31,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_model(cfg, device=None, seed: Optional[int] = None) -> SBLTransformer:
     """Construct the eval-mode model for a WorkloadConfig (the port's, or the
-    JAX package's: the fields read are the same) with weights drawn
+    JAX package's: the fields read are the same) with f32 weights drawn
     from ``seed`` (default ``cfg.seed``) on the CPU, then moved to
-    ``device``.  ``cfg.use_pallas_attention`` selects the hand-written
-    kernels (K1 attention, K2 frame stack) or their plain PyTorch versions,
-    as it selects the Pallas kernels in the JAX package."""
+    ``device``; ``.train()`` switches it to training.
+    ``cfg.use_pallas_attention`` selects the hand-written kernels (K1-K5) or
+    their plain PyTorch versions, as it selects the Pallas kernels in the
+    JAX package."""
     if cfg.name != "sbl":
         raise NotImplementedError(
             f"workload {cfg.name!r} is not ported yet: "
@@ -52,7 +53,9 @@ def build_model(cfg, device=None, seed: Optional[int] = None) -> SBLTransformer:
         n_layers=dims.n_dec_layers, n_head=dims.n_head, d_k=dims.d_k,
         d_v=dims.d_v, d_inner=dims.d_inner, pe_maxlen=dims.pe_maxlen,
         maxlen=d.maxlen, fusion_mode=d.fusion_mode,
-        decode_segments=d.decode_segments, dtype=dtype, use_kernels=kernels)
+        decode_segments=d.decode_segments, dtype=dtype, use_kernels=kernels,
+        dropout=dims.dropout, teacher_forcing_rate=d.teacher_forcing_rate,
+        remat=cfg.remat_decoder)
     model = SBLTransformer(frontend, encoder, decoder)
     init_weights(model, torch.Generator().manual_seed(
         cfg.seed if seed is None else seed))

@@ -1,8 +1,10 @@
-"""Synchronous bidirectional (L2R + R2L) decoder, greedy recognize
-(counterpart of the JAX package's ``models/decoder_sbl.py``).
+"""Synchronous bidirectional (L2R + R2L) decoder: greedy decode and the
+teacher-forced training forward (counterpart of the JAX package's
+``models/decoder_sbl.py``).
 
-The JAX ``lax.scan`` over decode steps becomes a Python loop; everything
-else follows the JAX module:
+The JAX ``lax.scan`` over decode steps becomes a Python loop, and its
+``nn.remat`` of each step ``torch.utils.checkpoint`` (non-reentrant);
+everything else follows the JAX module:
 
 * both directions run at once on token buffers stacked into a leading
   direction axis (2, B, L), dir 0 = l2r; each layer's weights carry that
@@ -18,20 +20,36 @@ else follows the JAX module:
   on ties and never stops early;
 * growing-buffer segments (``_segments``): step i runs on the buffer's
   first ``b+1`` positions, where b ends the step's segment, exactly the
-  widths the JAX scan segments use (and ``utils/flops.py`` accounts for).
+  widths the JAX scan segments use (and ``utils/flops.py`` accounts for);
+* training: scheduled teacher forcing with ONE coin per step, shared by the
+  batch and both directions; the next token is the gold one or the argmax.
+
+Random numbers under checkpointing: ``torch.utils.checkpoint`` restores the
+default RNG's state for its recompute, not an explicit generator's.  So
+every random input of a decode step is fixed outside the checkpointed call:
+the step gets one seed, drawn beforehand from the forward's ``DropoutRNG``,
+and rebuilds its own ``DropoutRNG`` from it, which draws the same attention
+seeds and dropout masks in the recompute as in the forward.  The JAX
+decoder vmaps each layer over the direction axis with one dropout key per
+direction; here both directions fold into one launch of 2B rows, and the
+batch row in the kernels' Philox counter (and the (2, B, ...) shape of the
+elementwise masks) gives each direction its own mask.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import masks as M
 from ..ops.attention import mask_to_bias
 from ..vocab import EOS_ID, IGNORE_ID, SOS_ID
-from .layers import (CachedCrossAttention, CrossKV, Dense, MultiHeadAttention,
-                     PositionwiseFeedForward, sinusoid_position_encoding)
+from .layers import (CachedCrossAttention, CrossKV, Dense, DropoutRNG,
+                     MultiHeadAttention, PositionwiseFeedForward, dropout,
+                     sinusoid_position_encoding)
 
 DIRS = 2
 
@@ -79,39 +97,42 @@ class _SBLLayer(nn.Module):
     + FFN, with weights (2, ...)."""
 
     def __init__(self, d_model: int, n_head: int, d_k: int, d_v: int,
-                 d_inner: int, dtype=torch.float32, use_kernels: bool = True):
+                 d_inner: int, dtype=torch.float32, use_kernels: bool = True,
+                 dropout: float = 0.1):
         super().__init__()
+        kw = dict(dirs=DIRS, dropout=dropout)
         self.slf = MultiHeadAttention(d_model, n_head, d_k, d_v, dtype,
-                                      use_kernels, dirs=DIRS)
+                                      use_kernels, **kw)
         self.cross = CachedCrossAttention(d_model, n_head, d_k, d_v, dtype,
-                                          use_kernels, dirs=DIRS)
-        self.ffn = PositionwiseFeedForward(d_model, d_inner, dtype, dirs=DIRS)
+                                          use_kernels, **kw)
+        self.ffn = PositionwiseFeedForward(d_model, d_inner, dtype, **kw)
 
-    def forward(self, h, k2, v2, bias):
-        h = self.slf(h, h, h, bias=bias)
-        h = self.cross(h, k2, v2)
-        return self.ffn(h)
+    def forward(self, h, k2, v2, bias, rng=None):
+        h = self.slf(h, h, h, bias=bias, rng=rng)
+        h = self.cross(h, k2, v2, rng=rng)
+        return self.ffn(h, rng)
 
 
 class _SBLStep(nn.Module):
     """One decode step over both directions: embedding (shared by the two
-    directions) + PE, the layer stack with fusion after every layer, and
-    the untied per-direction output heads read at position ``step``."""
+    directions) + PE + dropout, the layer stack with fusion after every
+    layer, and the untied per-direction output heads read at ``step``."""
 
     def __init__(self, vocab_size: int, d_model: int, n_layers: int,
                  n_head: int, d_k: int, d_v: int, d_inner: int,
                  pe_maxlen: int, fusion_mode: str, dtype=torch.float32,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, dropout: float = 0.1):
         super().__init__()
         if fusion_mode not in ("symmetric", "reference_aliased"):
             raise ValueError(f"unknown fusion_mode: {fusion_mode}")
         self.n_layers, self.fusion_mode, self.dtype = n_layers, fusion_mode, dtype
-        self.tgt_word_emb = nn.Embedding(vocab_size, d_model, dtype=dtype)
+        self.dropout = dropout
+        self.tgt_word_emb = nn.Embedding(vocab_size, d_model)
         self.register_buffer("pe", sinusoid_position_encoding(pe_maxlen, d_model),
                              persistent=False)
         for i in range(n_layers):
             self.add_module(f"layer_{i}", _SBLLayer(
-                d_model, n_head, d_k, d_v, d_inner, dtype, use_kernels))
+                d_model, n_head, d_k, d_v, d_inner, dtype, use_kernels, dropout))
         self.tgt_word_prj = Dense(d_model, vocab_size, bias=False, dirs=DIRS,
                                   dtype=dtype)
 
@@ -121,39 +142,49 @@ class _SBLStep(nn.Module):
         nn.init.xavier_uniform_(w, generator=g)
         self.tgt_word_emb.weight.copy_(w)
 
-    def forward(self, ys: torch.Tensor, enc_kv, step: int) -> torch.Tensor:
+    def forward(self, ys: torch.Tensor, enc_kv, step: int,
+                seed: Optional[int] = None) -> torch.Tensor:
         """ys: (2, B, L) token buffers; enc_kv: per layer (k2, v2), each
-        (2, B, Tk, H*d).  Returns the (2, B, V) f32 logits at ``step``."""
+        (2, B, Tk, H*d); seed: None for a deterministic step, else the seed
+        of the step's random numbers.  Returns the (2, B, V) f32 logits at
+        ``step``."""
         L = ys.shape[-1]
         dev = ys.device
-        # the PE is added in the compute dtype (JAX decoder_sbl.py:217-219)
-        h = self.tgt_word_emb(ys) + self.pe[:L].to(self.dtype)
+        rng = None if seed is None else DropoutRNG(seed, dev)
+        # the table is cast where it is used (flax Embed with dtype=); the
+        # PE is added in the compute dtype (JAX decoder_sbl.py:217-219)
+        emb = F.embedding(ys, self.tgt_word_emb.weight.to(self.dtype))
+        h = dropout(emb + self.pe[:L].to(self.dtype), self.dropout, rng)
         beyond = (torch.arange(L, device=dev) > step)[None, None, :]
         first_bias = mask_to_bias(M.causal_mask(L, dev)[None] | beyond, L, L)
         stack_bias = mask_to_bias(beyond, L, L)
         rev_idx = _rev_index(L, step, dev)
         for i in range(self.n_layers):
             k2, v2 = enc_kv[i]
-            h = getattr(self, f"layer_{i}")(h, k2, v2,
-                                            first_bias if i == 0 else stack_bias)
+            h = getattr(self, f"layer_{i}")(
+                h, k2, v2, first_bias if i == 0 else stack_bias, rng)
             h = _fuse_dual(h, rev_idx, self.fusion_mode)
         return self.tgt_word_prj(h[:, :, step]).to(torch.float32)
 
 
 class SBLDecoder(nn.Module):
-    """Synchronous bidirectional decoder, inference path."""
+    """Synchronous bidirectional decoder: greedy ``decode`` and the
+    teacher-forced training ``forward``."""
 
     def __init__(self, vocab_size: int = 58, d_model: int = 512,
                  n_layers: int = 6, n_head: int = 8, d_k: int = 64,
                  d_v: int = 64, d_inner: int = 2048, pe_maxlen: int = 5000,
                  maxlen: int = 16, fusion_mode: str = "symmetric",
                  decode_segments: int = 4, dtype=torch.float32,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, dropout: float = 0.1,
+                 teacher_forcing_rate: float = 0.5, remat: bool = True):
         super().__init__()
         self.maxlen, self.decode_segments = maxlen, decode_segments
         self.n_layers, self.dtype = n_layers, dtype
+        self.teacher_forcing_rate, self.remat = teacher_forcing_rate, remat
         self.step = _SBLStep(vocab_size, d_model, n_layers, n_head, d_k, d_v,
-                             d_inner, pe_maxlen, fusion_mode, dtype, use_kernels)
+                             d_inner, pe_maxlen, fusion_mode, dtype, use_kernels,
+                             dropout)
         for i in range(n_layers):
             self.add_module(f"cross_kv_{i}", CrossKV(d_model, n_head, d_k, d_v,
                                                      dtype, dirs=DIRS))
@@ -177,10 +208,11 @@ class SBLDecoder(nn.Module):
         return tuple(getattr(self, f"cross_kv_{i}")(enc)
                      for i in range(self.n_layers))
 
-    def decode(self, enc_output: torch.Tensor):
-        """Greedy decode.  Returns (ys_l2r, ys_r2l, logits_l2r, logits_r2l):
-        token ids (B, maxlen+1) with the leading sos, and f32 logits
-        (B, maxlen, V) of every step."""
+    def _run(self, enc_output: torch.Tensor, gold: Optional[torch.Tensor],
+             use_gold: Sequence[bool], rng: Optional[DropoutRNG]):
+        """The decode loop (JAX ``SBLDecoder._run``).  gold: (2, B, maxlen)
+        or None where ``use_gold`` is all False.  Returns the token buffers
+        (2, B, maxlen+1) and the f32 logits (2, B, maxlen, V)."""
         B = enc_output.shape[0]
         ys = torch.full((DIRS, B, self.maxlen + 1), SOS_ID, dtype=torch.int64,
                         device=enc_output.device)
@@ -188,10 +220,46 @@ class SBLDecoder(nn.Module):
         logits = []
         for a, b in self._segments():
             for step in range(a, b):
-                lg = self.step(ys[:, :, :b + 1], enc_kv, step)
-                ys[:, :, step + 1] = lg.argmax(dim=-1)
+                args = (ys[:, :, :b + 1], enc_kv, step,
+                        None if rng is None else rng.seed())
+                if self.remat and torch.is_grad_enabled():
+                    lg = checkpoint(self.step, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+                else:
+                    lg = self.step(*args)
+                nxt = gold[:, :, step] if use_gold[step] else lg.detach().argmax(-1)
+                # a new buffer: the embedding (and a checkpoint) keep this
+                # step's view of the old one for the backward
+                ys = ys.clone()
+                ys[:, :, step + 1] = nxt
                 logits.append(lg)
-        lg = torch.stack(logits, dim=2)                 # (2, B, maxlen, V)
+        return ys, torch.stack(logits, dim=2)
+
+    def forward(self, enc_output: torch.Tensor, labels_l2r: torch.Tensor,
+                labels_r2l: torch.Tensor, rng: Optional[DropoutRNG] = None,
+                use_gold: Optional[Sequence[bool]] = None):
+        """Training forward (JAX ``SBLDecoder.__call__``).  labels_*: (B, P)
+        IGNORE_ID-padded targets.  With ``rng`` the step is stochastic:
+        dropout, and one teacher-forcing coin per step drawn from it unless
+        ``use_gold`` (maxlen bools) is given; without, it decodes greedily.
+        Returns (pred_l2r, gold_l2r, pred_r2l, gold_r2l): f32 logits
+        (B, maxlen, V) and eos-padded gold (B, maxlen)."""
+        gold = torch.stack([preprocess_targets(labels_l2r, self.maxlen),
+                            preprocess_targets(labels_r2l, self.maxlen)])
+        if use_gold is None:
+            use_gold = ([False] * self.maxlen if rng is None else
+                        rng.coins(self.maxlen, self.teacher_forcing_rate))
+        if len(use_gold) != self.maxlen:
+            raise ValueError(f"use_gold needs {self.maxlen} coins, got "
+                             f"{len(use_gold)}")
+        _, lg = self._run(enc_output, gold, [bool(c) for c in use_gold], rng)
+        return lg[0], gold[0], lg[1], gold[1]
+
+    def decode(self, enc_output: torch.Tensor):
+        """Greedy decode.  Returns (ys_l2r, ys_r2l, logits_l2r, logits_r2l):
+        token ids (B, maxlen+1) with the leading sos, and f32 logits
+        (B, maxlen, V) of every step."""
+        ys, lg = self._run(enc_output, None, [False] * self.maxlen, None)
         return ys[0], ys[1], lg[0], lg[1]
 
     def recognize(self, enc_output: torch.Tensor):

@@ -1,30 +1,32 @@
-"""Visual frontend: Conv3D stem + per-frame ResNet-18 trunk, eval mode
-(counterpart of the JAX package's ``models/frontend.py``).
+"""Visual frontend: Conv3D stem + per-frame ResNet-18 trunk (counterpart of
+the JAX package's ``models/frontend.py``).
 
     5-frame temporal stack (kernel K2) -> 2-D stem conv (the reference's
     Conv3d(1->64, k=(5,7,7), s=(1,2,2), p=(2,3,3)) with time folded into
     batch) -> BN -> ReLU -> 3x3/s2 max pool -> ResNet-18 (BasicBlock
-    [2,2,2,2]) -> global average pool -> (B, T, 512)
+    [2,2,2,2]) -> global average pool -> dropout -> (B, T, 512)
 
 Layout is NCHW with frames folded into the batch: K2's output
 (B, T, 5, S, S) reshaped to (B*T, 5, S, S) is the stem conv's input, the
 same NCHW form the JAX Pallas path feeds its conv.  The stem weight keeps
-the reference's conv3d meaning as a conv2d weight (C, kt, 7, 7).  Convs run
-in the compute dtype; BatchNorm runs in f32 on the running statistics and
-its output is rounded to the compute dtype, as in JAX.  The JAX package's
-default-off or train-only BN variants (GroupedBatchNorm, FastBatchNorm,
-DotBatchNorm, FusedBNAct) and its Pallas BasicBlock are not ported.
+the reference's conv3d meaning as a conv2d weight (C, kt, 7, 7).  Weights
+are f32 and convs run in the compute dtype; BatchNorm runs in f32 (batch
+statistics in training, running statistics in eval) and its output is
+rounded to the compute dtype, as in JAX.  The JAX package's default-off or
+multi-replica BN variants (GroupedBatchNorm, FastBatchNorm, DotBatchNorm,
+FusedBNAct) and its Pallas BasicBlock are not ported.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.stem import stack_frames, stack_frames_plain
+from .layers import DropoutRNG, dropout
 
 STEM_KT = 5
 
@@ -40,12 +42,18 @@ def _he_normal_fan_out(w: torch.Tensor, g: torch.Generator) -> None:
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm in f32 with flax's formula
-    y = (x - mean) * (scale * rsqrt(var + eps)) + bias over NCHW channels."""
+    """flax ``nn.BatchNorm`` over NCHW channels, in f32, with its formula
+    y = (x - mean) * (scale * rsqrt(var + eps)) + bias.
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    Eval mode uses the running statistics.  Train mode uses the batch mean
+    and the biased variance E[x^2] - E[x]^2 (flax's fast variance, clipped
+    at 0), and updates ra = momentum * ra + (1 - momentum) * batch: flax's
+    momentum 0.9 is the share KEPT, where ``torch.nn.BatchNorm2d`` keeps
+    1 - 0.1 and tracks the unbiased variance."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -59,33 +67,56 @@ class BatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self._train(x)
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         y = x.to(torch.float32, copy=True)
         y.sub_(self.running_mean[:, None, None])
         y.mul_(mul[:, None, None])
         return y.add_(self.bias[:, None, None])
 
+    def _train(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            keep = self.momentum
+            self.running_mean.mul_(keep).add_((1.0 - keep) * mean)
+            self.running_var.mul_(keep).add_((1.0 - keep) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
-def _conv(c_in: int, c_out: int, k: int, stride: int, dtype) -> nn.Conv2d:
-    return nn.Conv2d(c_in, c_out, k, stride=stride, padding=k // 2,
-                     bias=False, dtype=dtype)
+
+class Conv2d(nn.Conv2d):
+    """Bias-free 'same' conv whose f32 weight is cast to the compute dtype
+    where it is used (flax ``nn.Conv`` with ``dtype=``)."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, stride: int, dtype):
+        super().__init__(c_in, c_out, k, stride=stride, padding=k // 2,
+                         bias=False)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(self.compute_dtype), None)
 
 
 class BasicBlock(nn.Module):
     """ResNet BasicBlock (reference video_frontend.py:15-41)."""
 
     def __init__(self, c_in: int, filters: int, stride: int = 1,
-                 bn_epsilon: float = 1e-5, dtype=torch.float32):
+                 bn_epsilon: float = 1e-5, dtype=torch.float32,
+                 bn_momentum: float = 0.9):
         super().__init__()
         self.dtype = dtype
-        self.conv1 = _conv(c_in, filters, 3, stride, dtype)
-        self.bn1 = BatchNorm(filters, bn_epsilon)
-        self.conv2 = _conv(filters, filters, 3, 1, dtype)
-        self.bn2 = BatchNorm(filters, bn_epsilon)
+        bn = dict(eps=bn_epsilon, momentum=bn_momentum)
+        self.conv1 = Conv2d(c_in, filters, 3, stride, dtype)
+        self.bn1 = BatchNorm(filters, **bn)
+        self.conv2 = Conv2d(filters, filters, 3, 1, dtype)
+        self.bn2 = BatchNorm(filters, **bn)
         self.has_downsample = stride != 1 or c_in != filters
         if self.has_downsample:
-            self.downsample_conv = _conv(c_in, filters, 1, stride, dtype)
-            self.downsample_bn = BatchNorm(filters, bn_epsilon)
+            self.downsample_conv = Conv2d(c_in, filters, 1, stride, dtype)
+            self.downsample_bn = BatchNorm(filters, **bn)
 
     def init_weights(self, g: torch.Generator) -> None:
         for conv in (self.conv1, self.conv2):
@@ -109,7 +140,7 @@ class ResNetTrunk(nn.Module):
 
     def __init__(self, c_in: int, channels: Sequence[int] = (64, 128, 256, 512),
                  blocks: Sequence[int] = (2, 2, 2, 2), bn_epsilon: float = 1e-5,
-                 dtype=torch.float32):
+                 dtype=torch.float32, bn_momentum: float = 0.9):
         super().__init__()
         self.dtype = dtype
         self.names = []
@@ -118,7 +149,7 @@ class ResNetTrunk(nn.Module):
                 stride = 2 if (stage > 0 and b == 0) else 1
                 name = f"layer{stage + 1}_block{b}"
                 self.add_module(name, BasicBlock(c_in, ch, stride, bn_epsilon,
-                                                 dtype))
+                                                 dtype, bn_momentum))
                 self.names.append(name)
                 c_in = ch
 
@@ -135,30 +166,36 @@ class VisualFrontend(nn.Module):
                  resnet_channels: Sequence[int] = (64, 128, 256, 512),
                  resnet_blocks: Sequence[int] = (2, 2, 2, 2),
                  feature_dim: int = 512, bn_epsilon: float = 1e-5,
-                 dtype=torch.float32, use_kernels: bool = True):
+                 dtype=torch.float32, use_kernels: bool = True,
+                 dropout: float = 0.5, bn_momentum: float = 0.9):
         super().__init__()
         self.dtype, self.use_kernels = dtype, use_kernels
-        self.feature_dim = feature_dim
+        self.feature_dim, self.dropout = feature_dim, dropout
         self.conv3d_weight = nn.Parameter(torch.empty(
-            (conv3d_channels, STEM_KT, 7, 7), dtype=dtype))
-        self.bn3d = BatchNorm(conv3d_channels, bn_epsilon)
+            (conv3d_channels, STEM_KT, 7, 7)))
+        self.bn3d = BatchNorm(conv3d_channels, bn_epsilon, bn_momentum)
         self.resnet = ResNetTrunk(conv3d_channels, resnet_channels,
-                                  resnet_blocks, bn_epsilon, dtype)
+                                  resnet_blocks, bn_epsilon, dtype, bn_momentum)
 
     def init_weights(self, g: torch.Generator) -> None:
         _he_normal_fan_out(self.conv3d_weight, g)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        """BatchNorm follows the module's train/eval mode; ``rng`` (the
+        training forward's random numbers) turns on ``feat_drop``."""
         B, T, H, W = x.shape
         stack = stack_frames if self.use_kernels else stack_frames_plain
         xs = stack(x.to(self.dtype).contiguous(), STEM_KT)
         xs = xs.reshape(B * T, STEM_KT, H, W)
-        y = F.conv2d(xs, self.conv3d_weight, stride=2, padding=3)
+        y = F.conv2d(xs, self.conv3d_weight.to(self.dtype), stride=2, padding=3)
         y = F.relu(self.bn3d(y)).to(self.dtype)
         # the reference's MaxPool3d(k=(1,3,3), s=(1,2,2), p=(0,1,1)) with
-        # time folded into batch (the forward of JAX ops/maxpool.py)
+        # time folded into batch (JAX ops/maxpool.py; both give a tie's
+        # gradient to the row-major-first maximum)
         y = F.max_pool2d(y, 3, 2, 1)
-        return self.resnet(y).reshape(B, T, self.feature_dim)
+        y = dropout(self.resnet(y), self.dropout, rng)
+        return y.reshape(B, T, self.feature_dim)
 
 
 def frontend_from_config(cfg, dtype=torch.float32,
@@ -171,4 +208,6 @@ def frontend_from_config(cfg, dtype=torch.float32,
         bn_epsilon=cfg.bn_epsilon,
         dtype=dtype,
         use_kernels=use_kernels,
+        dropout=cfg.dropout,
+        bn_momentum=cfg.bn_momentum,
     )

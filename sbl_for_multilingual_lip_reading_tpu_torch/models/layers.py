@@ -6,32 +6,77 @@
   the form the JAX decoder gets from ``nn.vmap`` over its two directions:
   the projections then run as one ``torch.bmm`` over (2, B*L, D).
 * ``MultiHeadAttention`` -- post-LN residual
-  ``LayerNorm(fc(attn) + q)``; the projections stay FLAT (B, T, H*d) and go
-  to kernel K1 (``ops/attention.py``), which splits the heads itself.
+  ``LayerNorm(dropout(fc(attn)) + q)``; the projections stay FLAT
+  (B, T, H*d) and go to the attention kernels (``ops/attention.py``), which
+  split the heads themselves: K1 when deterministic, K3/K4 (with dropout on
+  the attention probabilities) in training.
 * ``CrossKV`` / ``CachedCrossAttention`` -- cross-attention with the
   encoder's K/V projected once per clip instead of once per decode step.
 * ``PositionwiseFeedForward``, ``EncoderLayer``,
   ``sinusoid_position_encoding``.
+* ``DropoutRNG`` / ``dropout`` -- the training forward's random numbers.
 
-Numerics follow the JAX modules: matmuls in the compute dtype, rounded
-before the bias is added, LayerNorm in f32 with flax's eps 1e-6 (torch's
-default is 1e-5), each sublayer's output rounded to the compute dtype.
-Masks arrive as additive f32 biases (``ops.mask_to_bias``).  Inference only
-(no dropout).
+Numerics follow the JAX modules: parameters in f32, cast to the compute
+dtype where they are used; matmuls in the compute dtype, rounded before the
+bias is added; LayerNorm in f32 with flax's eps 1e-6 (torch's default is
+1e-5); each sublayer's output rounded to the compute dtype.  Masks arrive as
+additive f32 biases (``ops.mask_to_bias``).  A module runs deterministically
+when its ``rng`` is None, and in training mode (dropout, the K3/K4
+attention) when it is given one.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import small_mha_flat, small_mha_flat_plain
+from ..ops.attention import (small_mha_dropout_flat, small_mha_flat,
+                             small_mha_flat_plain)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
+
+
+class DropoutRNG:
+    """The random numbers of one training forward, from explicit generators
+    (never the global RNG): attention-kernel seeds and teacher-forcing coins
+    on the host, so drawing them never waits for the device; elementwise
+    dropout masks on the device.  Built again from the same seed it draws
+    the same numbers in the same order, which is what lets a checkpointed
+    decode step recompute its masks."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.host = torch.Generator().manual_seed(seed)
+        self.dev = (self.host if self.device.type == "cpu" else
+                    torch.Generator(device=self.device).manual_seed(seed))
+
+    def seed(self) -> int:
+        return int(torch.randint(0, 2 ** 62, (1,), generator=self.host))
+
+    def coins(self, n: int, p: float) -> List[bool]:
+        """n Bernoulli(p) draws."""
+        return (torch.rand(n, generator=self.host) < p).tolist()
+
+    def keep(self, shape, rate: float) -> torch.Tensor:
+        """Bool mask, True with probability 1 - rate."""
+        return torch.rand(shape, generator=self.dev, device=self.device) >= rate
+
+
+def dropout(x: torch.Tensor, rate: float,
+            rng: Optional[DropoutRNG]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale it by 1 / (1 - rate) in x's dtype; the identity without an rng or
+    at rate 0."""
+    if rng is None or rate == 0.0:
+        return x
+    return torch.where(rng.keep(x.shape, rate), x / (1.0 - rate), 0.0)
 
 
 def sinusoid_position_encoding(max_len: int, d_model: int) -> torch.Tensor:
@@ -49,17 +94,20 @@ def sinusoid_position_encoding(max_len: int, d_model: int) -> torch.Tensor:
 class Dense(nn.Module):
     """flax ``nn.Dense``: y = x W^T + b with weight (out, in), or with
     ``dirs`` set, a per-direction stack (dirs, out, in) applied to inputs
-    (dirs, ..., in).  ``init`` names the JAX initializer it mirrors."""
+    (dirs, ..., in), already in ``dtype``.  ``init`` names the JAX
+    initializer it mirrors.  The parameters are f32; weight and bias are
+    cast to ``dtype`` where they are used, as flax's ``dtype=`` casts
+    them."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True,
                  dirs: Optional[int] = None, dtype=torch.float32,
                  init: str = "xavier_uniform", std: float = 1.0):
         super().__init__()
         shape = (d_out, d_in) if dirs is None else (dirs, d_out, d_in)
-        self.dirs, self.init, self.std = dirs, init, std
-        self.weight = nn.Parameter(torch.empty(shape, dtype=dtype))
-        self.bias = (nn.Parameter(torch.zeros(shape[:-1], dtype=dtype))
-                     if bias else None)
+        self.dirs, self.init, self.std, self.dtype = dirs, init, std, dtype
+        self.weight = nn.Parameter(torch.empty(shape))
+        self.bias = nn.Parameter(torch.zeros(shape[:-1])) if bias else None
+        self.cast = None    # (weight, bias) cast once, see cast_dense_weights
 
     @torch.no_grad()
     def init_weights(self, g: torch.Generator) -> None:
@@ -75,17 +123,43 @@ class Dense(nn.Module):
         if self.bias is not None:
             self.bias.zero_()
 
+    def cast_params(self):
+        return (self.weight.to(self.dtype),
+                None if self.bias is None else self.bias.to(self.dtype))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # flax rounds the product to the compute dtype, then adds the bias
         # (a fused addmm would round once, after the add)
+        w, b = self.cast or self.cast_params()
         if self.dirs is None:
-            y = F.linear(x, self.weight)
-            return y if self.bias is None else y + self.bias
+            y = F.linear(x, w)
+            return y if b is None else y + b
         x2 = x.reshape(self.dirs, -1, x.shape[-1])
-        y = torch.bmm(x2, self.weight.transpose(1, 2))
-        if self.bias is not None:
-            y = y + self.bias.unsqueeze(1)
+        y = torch.bmm(x2, w.transpose(1, 2))
+        if b is not None:
+            y = y + b.unsqueeze(1)
         return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+@contextlib.contextmanager
+def cast_dense_weights(model: nn.Module):
+    """Inside the block, every ``Dense`` of ``model`` uses its weight and
+    bias cast to the compute dtype once, on entry, instead of at every call:
+    recognize's decode loop calls each decoder ``Dense`` once per step, 16
+    times per batch, which would otherwise add some 1,600 cast launches to
+    each batch.  Only without autograd: the copies are not parameters and
+    take no gradient."""
+    if torch.is_grad_enabled():
+        raise RuntimeError("cast_dense_weights needs torch.no_grad() or "
+                           "torch.inference_mode()")
+    dense = [m for m in model.modules() if isinstance(m, Dense)]
+    for m in dense:
+        m.cast = m.cast_params()
+    try:
+        yield
+    finally:
+        for m in dense:
+            m.cast = None
 
 
 class LayerNorm(nn.Module):
@@ -113,14 +187,24 @@ class LayerNorm(nn.Module):
 
 
 def attend(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor, n_head: int,
-           bias: Optional[torch.Tensor], scale: float,
-           use_kernels: bool) -> torch.Tensor:
+           bias: Optional[torch.Tensor], scale: float, use_kernels: bool,
+           rate: float = 0.0, rng: Optional[DropoutRNG] = None) -> torch.Tensor:
     """Flat attention over (..., T, H*d) projections: every leading axis
     (batch, and the decoder's direction axis) folds into the kernel's batch,
-    so one K1 launch covers both directions."""
-    fn = small_mha_flat if use_kernels else small_mha_flat_plain
-    ctx = fn(q2.reshape(-1, *q2.shape[-2:]), k2.reshape(-1, *k2.shape[-2:]),
-             v2.reshape(-1, *v2.shape[-2:]), n_head, bias=bias, scale=scale)
+    so one launch covers both directions.  Deterministic (K1) without an
+    rng; with one, the training attention (K3 forward, K4 backward) with
+    dropout ``rate`` on the probabilities and a seed drawn from the rng
+    (seed 0 and no draw at rate 0, as in JAX)."""
+    q3 = q2.reshape(-1, *q2.shape[-2:])
+    k3 = k2.reshape(-1, *k2.shape[-2:])
+    v3 = v2.reshape(-1, *v2.shape[-2:])
+    if rng is None:
+        fn = small_mha_flat if use_kernels else small_mha_flat_plain
+        ctx = fn(q3, k3, v3, n_head, bias=bias, scale=scale)
+    else:
+        seed = rng.seed() if rate > 0.0 else 0
+        ctx = small_mha_dropout_flat(q3, k3, v3, n_head, bias, seed, rate,
+                                     scale, use_kernels)
     return ctx.reshape(*q2.shape[:-1], ctx.shape[-1])
 
 
@@ -140,11 +224,12 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, d_model: int, n_head: int, d_k: int, d_v: int,
                  dtype=torch.float32, use_kernels: bool = True,
-                 dirs: Optional[int] = None):
+                 dirs: Optional[int] = None, dropout: float = 0.1):
         super().__init__()
         if d_k != d_v:
             raise ValueError("flat attention needs d_k == d_v")
         self.n_head, self.dtype, self.use_kernels = n_head, dtype, use_kernels
+        self.dropout = dropout
         self.scale = 1.0 / math.sqrt(d_k)
         kw = dict(dirs=dirs, dtype=dtype, init="normal")
         self.w_qs = Dense(d_model, n_head * d_k, std=_qk_std(d_model, d_k), **kw)
@@ -155,11 +240,13 @@ class MultiHeadAttention(nn.Module):
         self.layer_norm = LayerNorm(d_model, dirs)
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         """q/k/v: (..., T, d_model); bias: additive (1|B, Tq, Tk) f32."""
         ctx = attend(self.w_qs(q), self.w_ks(k), self.w_vs(v), self.n_head,
-                     bias, self.scale, self.use_kernels)
-        return _post_ln(self.layer_norm, self.fc(ctx), q, self.dtype)
+                     bias, self.scale, self.use_kernels, self.dropout, rng)
+        out = dropout(self.fc(ctx), self.dropout, rng)
+        return _post_ln(self.layer_norm, out, q, self.dtype)
 
 
 class CrossKV(nn.Module):
@@ -186,11 +273,12 @@ class CachedCrossAttention(nn.Module):
 
     def __init__(self, d_model: int, n_head: int, d_k: int, d_v: int,
                  dtype=torch.float32, use_kernels: bool = True,
-                 dirs: Optional[int] = None):
+                 dirs: Optional[int] = None, dropout: float = 0.1):
         super().__init__()
         if d_k != d_v:
             raise ValueError("flat attention needs d_k == d_v")
         self.n_head, self.dtype, self.use_kernels = n_head, dtype, use_kernels
+        self.dropout = dropout
         self.scale = 1.0 / math.sqrt(d_k)
         self.w_qs = Dense(d_model, n_head * d_k, dirs=dirs, dtype=dtype,
                           init="normal", std=_qk_std(d_model, d_k))
@@ -199,43 +287,49 @@ class CachedCrossAttention(nn.Module):
         self.layer_norm = LayerNorm(d_model, dirs)
 
     def forward(self, q: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         ctx = attend(self.w_qs(q), k2, v2, self.n_head, bias, self.scale,
-                     self.use_kernels)
-        return _post_ln(self.layer_norm, self.fc(ctx), q, self.dtype)
+                     self.use_kernels, self.dropout, rng)
+        out = dropout(self.fc(ctx), self.dropout, rng)
+        return _post_ln(self.layer_norm, out, q, self.dtype)
 
 
 class PositionwiseFeedForward(nn.Module):
-    """w_2(relu(w_1(x))) with post-LN residual."""
+    """w_2(relu(w_1(x))), dropout, post-LN residual."""
 
     def __init__(self, d_model: int, d_inner: int, dtype=torch.float32,
-                 dirs: Optional[int] = None):
+                 dirs: Optional[int] = None, dropout: float = 0.1):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.dropout = dtype, dropout
         self.w_1 = Dense(d_model, d_inner, dirs=dirs, dtype=dtype)
         self.w_2 = Dense(d_inner, d_model, dirs=dirs, dtype=dtype)
         self.layer_norm = LayerNorm(d_model, dirs)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.w_2(F.relu(self.w_1(x)))
+    def forward(self, x: torch.Tensor,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        h = dropout(self.w_2(F.relu(self.w_1(x))), self.dropout, rng)
         return _post_ln(self.layer_norm, h, x, self.dtype)
 
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, d_inner: int, n_head: int, d_k: int,
-                 d_v: int, dtype=torch.float32, use_kernels: bool = True):
+                 d_v: int, dtype=torch.float32, use_kernels: bool = True,
+                 dropout: float = 0.1):
         super().__init__()
         self.slf_attn = MultiHeadAttention(d_model, n_head, d_k, d_v, dtype,
-                                           use_kernels)
-        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, dtype)
+                                           use_kernels, dropout=dropout)
+        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, dtype,
+                                               dropout=dropout)
 
     def forward(self, x: torch.Tensor,
                 non_pad_mask: Optional[torch.Tensor] = None,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.slf_attn(x, x, x, bias=bias)
+                bias: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        x = self.slf_attn(x, x, x, bias=bias, rng=rng)
         if non_pad_mask is not None:
             x = x * non_pad_mask.to(x.dtype)
-        x = self.pos_ffn(x)
+        x = self.pos_ffn(x, rng)
         if non_pad_mask is not None:
             x = x * non_pad_mask.to(x.dtype)
         return x

@@ -1,9 +1,8 @@
 """Top-level SBL model: frontend -> encoder -> bidirectional decoder
-(counterpart of the JAX package's ``models/sbl.py::SBLTransformer``),
-inference path."""
+(counterpart of the JAX package's ``models/sbl.py::SBLTransformer``)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -11,6 +10,7 @@ from torch import nn
 from .decoder_sbl import SBLDecoder
 from .encoder import Encoder
 from .frontend import VisualFrontend
+from .layers import DropoutRNG
 
 
 class SBLTransformer(nn.Module):
@@ -20,6 +20,18 @@ class SBLTransformer(nn.Module):
                  decoder: SBLDecoder):
         super().__init__()
         self.frontend, self.encoder, self.decoder = frontend, encoder, decoder
+
+    def forward(self, video: torch.Tensor, labels_l2r: torch.Tensor,
+                labels_r2l: torch.Tensor, rng: Optional[DropoutRNG] = None,
+                use_gold: Optional[Sequence[bool]] = None):
+        """Training forward (JAX ``SBLTransformer.__call__`` with
+        train=True when ``rng`` is given).  video: (B, T, H, W) normalized
+        grayscale; labels: (B, P) IGNORE-padded phoneme ids; rng: the
+        step's random numbers (dropout, teacher-forcing coins); use_gold:
+        injected coins.  BatchNorm follows the module's train/eval mode.
+        Returns (pred_l2r, gold_l2r, pred_r2l, gold_r2l)."""
+        enc = self.encoder(self.frontend(video, rng), rng=rng)
+        return self.decoder(enc, labels_l2r, labels_r2l, rng, use_gold)
 
     def encode(self, video: torch.Tensor) -> torch.Tensor:
         """video: (B, T, H, W) normalized grayscale -> encoder output

@@ -1,10 +1,15 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version, plus the mask helpers.  Kernels build at first use (``_build``)."""
-from .attention import (MASK_FILL, mask_to_bias, small_mha_flat,
-                        small_mha_flat_plain)
+from .attention import (MASK_FILL, dropout_keep_mask_flat,
+                        dropout_keep_mask_flat_plain, mask_to_bias,
+                        small_mha_dropout_bwd_flat,
+                        small_mha_dropout_bwd_flat_plain, small_mha_dropout_flat,
+                        small_mha_dropout_flat_plain, small_mha_dropout_fwd_flat,
+                        small_mha_flat, small_mha_flat_plain)
 from .stem import stack_frames, stack_frames_plain
 
-KERNELS = (small_mha_flat, stack_frames)
+KERNELS = (small_mha_flat, stack_frames, small_mha_dropout_fwd_flat,
+           small_mha_dropout_bwd_flat, dropout_keep_mask_flat)
 
 
 def reset_launch_counts() -> None:

@@ -34,13 +34,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
+_SEED = ctypes.c_ulonglong
+_U = ctypes.c_uint
 _SIGNATURES = {
     # q, k, v, bias, out, B, Tq, Tk, H, D, bias_per_batch, scale, dtype,
     # device, stream
     "sbl_small_mha_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           ctypes.c_float, _I, _I, _P],
+                           _F, _I, _I, _P],
     # in, out, B, T, plane_bytes, kt, device, stream
     "sbl_stack_frames": [_P, _P, _LL, _I, _LL, _I, _I, _P],
+    # q, k, v, bias, out, B, Tq, Tk, H, D, bias_per_batch, scale, seed,
+    # thresh, inv_keep, dropout_on, dtype, device, stream
+    "sbl_small_mha_dropout_fwd_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _I, _F, _SEED, _U, _F, _I, _I, _I, _P],
+    # q, k, v, bias, dout, dq, dk, dv, B, Tq, Tk, H, D, bias_per_batch,
+    # scale, seed, thresh, inv_keep, dropout_on, dtype, device, stream
+    "sbl_small_mha_dropout_bwd_flat": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                       _I, _I, _I, _I, _F, _SEED, _U, _F, _I,
+                                       _I, _I, _P],
+    # out, B, H, Tq, Tk, seed, thresh, device, stream
+    "sbl_dropout_keep_mask_flat": [_P, _I, _I, _I, _I, _SEED, _U, _I, _P],
 }
 
 

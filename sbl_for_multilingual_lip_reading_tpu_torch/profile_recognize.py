@@ -34,25 +34,28 @@ from torch.profiler import ProfilerActivity, profile
 from . import config as C
 from .data.ingest import device_ingest
 from .models import build_model
+from .models.layers import cast_dense_weights
 from .recognize import recognize_batch
 
 TOP = 20
 
 
 def stage_split(model, clips, crop):
-    """ms per stage of one batch, from CUDA events on the current stream."""
+    """ms per stage of one batch, from CUDA events on the current stream
+    (the once-per-batch weight cast counts in ingest)."""
     names = ("ingest", "frontend", "encoder", "decoder")
     events = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
     with torch.inference_mode():
         events[0].record()
-        video = device_ingest(clips, crop, model.frontend.dtype)
-        events[1].record()
-        feats = model.frontend(video)
-        events[2].record()
-        enc = model.encoder(feats)
-        events[3].record()
-        model.decoder.decode(enc)
-        events[4].record()
+        with cast_dense_weights(model):
+            video = device_ingest(clips, crop, model.frontend.dtype)
+            events[1].record()
+            feats = model.frontend(video)
+            events[2].record()
+            enc = model.encoder(feats)
+            events[3].record()
+            model.decoder.decode(enc)
+            events[4].record()
     torch.cuda.synchronize()
     return {n: events[i].elapsed_time(events[i + 1]) for i, n in enumerate(names)}
 
@@ -62,12 +65,13 @@ def _self_device_us(avg) -> float:
         avg, "self_cuda_time_total", 0.0)
 
 
-def profile_batch(model, clips, crop, trace_path=None):
-    """Profile one batch; returns (per-kernel, per-aten-op, totals)."""
+def profile_call(fn, trace_path=None):
+    """Profile one call of ``fn``; returns (per-kernel, per-aten-op,
+    totals)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        recognize_batch(model, clips, crop)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     if trace_path is not None:
@@ -99,9 +103,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_recognize: torch sees no CUDA device")
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=False).stdout.strip()
+    smi = card_name()
     cfg = C.sbl()
     crop = cfg.data.crop_size
     model = build_model(cfg, dev, seed=args.seed)
@@ -115,12 +117,27 @@ def main(argv=None) -> int:
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         trace = args.out / "recognize_trace.json"
-    kernels, ops, totals = profile_batch(model, clips, crop, trace)
+    profiled = profile_call(lambda: recognize_batch(model, clips, crop), trace)
+    report(f"recognize B={args.batch} bf16", smi, args.batch, stages, profiled,
+           args.out / "recognize_profile.json" if args.out else None)
+    return 0
 
+
+def card_name() -> str:
+    """nvidia-smi's name and power limit of the card."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=False).stdout.strip()
+
+
+def report(title, smi, batch, stages, profiled, json_path=None) -> None:
+    """Print the totals, the stage split and the kernel and aten-op tables,
+    then one JSON line of the totals; write all of it to ``json_path``."""
+    kernels, ops, totals = profiled
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(f"recognize B={args.batch} bf16: wall {totals['wall_ms']:.1f} ms, "
-          f"device {totals['device_ms']:.1f} ms, idle share "
-          f"{totals['idle_share']:.3f}, {totals['launches']} kernel launches")
+    print(f"{title}: wall {totals['wall_ms']:.1f} ms, device "
+          f"{totals['device_ms']:.1f} ms, idle share {totals['idle_share']:.3f},"
+          f" {totals['launches']} kernel launches")
     print("stage split (CUDA events, ms): " + ", ".join(
         f"{k} {v:.2f}" for k, v in stages.items()))
     print(f"\ntop {TOP} kernels by device time:")
@@ -129,18 +146,16 @@ def main(argv=None) -> int:
     print(f"\ntop {TOP} aten ops by self device time:")
     for name, n, ms in ops[:TOP]:
         print(f"  {ms:9.2f} ms {n:6d}x  {name}")
-    result = dict(card=smi, batch=args.batch, stages_ms=stages, **totals,
+    result = dict(card=smi, batch=batch, stages_ms=stages, **totals,
                   kernels=[dict(name=k, launches=n, ms=ms)
                            for k, n, ms in kernels[:TOP]],
                   aten_ops=[dict(name=k, calls=n, ms=ms)
                             for k, n, ms in ops[:TOP]])
-    if args.out is not None:
-        (args.out / "recognize_profile.json").write_text(
-            json.dumps(result, indent=1))
+    if json_path is not None:
+        json_path.write_text(json.dumps(result, indent=1))
     print(json.dumps({k: result[k] for k in (
         "card", "batch", "stages_ms", "wall_ms", "device_ms", "launches",
         "idle_share")}))
-    return 0
 
 
 if __name__ == "__main__":

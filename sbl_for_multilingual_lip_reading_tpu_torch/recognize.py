@@ -14,6 +14,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from .data.ingest import device_ingest
+from .models.layers import cast_dense_weights
 from .models.sbl import SBLTransformer
 
 
@@ -28,8 +29,12 @@ def recognize_batch(model: SBLTransformer, clips_u8: torch.Tensor,
                     crop: int) -> Recognition:
     """clips_u8: (B, T, H, W) uint8 on the model's device; ``crop`` is the
     config's ``data.crop_size``.  Ingests in the model's compute dtype and
-    decodes greedily in both directions."""
-    with torch.inference_mode():
+    decodes greedily in both directions, with the f32 weights of every
+    ``Dense`` cast to the compute dtype once per batch.  Puts the model in
+    eval mode (BatchNorm on its running statistics, as JAX's recognize runs
+    with train=False), also after a train step left it in train mode."""
+    model.eval()
+    with torch.inference_mode(), cast_dense_weights(model):
         video = device_ingest(clips_u8, crop, model.frontend.dtype)
         return Recognition(*model.decode(video))
 
@@ -38,7 +43,8 @@ def expected_launches(cfg) -> Dict[str, int]:
     """Kernel launches one ``recognize_batch`` makes on the kernel path:
     one frame stack, and one attention per encoder layer plus two (self and
     cross, both directions folded into one launch) per decoder layer and
-    decode step."""
+    decode step; none of the training kernels."""
     dims, d = cfg.dims, cfg.decoder
     return {"small_mha_flat": dims.n_enc_layers + 2 * d.maxlen * dims.n_dec_layers,
-            "stack_frames": 1}
+            "stack_frames": 1, "small_mha_dropout_fwd_flat": 0,
+            "small_mha_dropout_bwd_flat": 0, "dropout_keep_mask_flat": 0}

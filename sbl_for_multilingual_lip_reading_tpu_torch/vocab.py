@@ -1,12 +1,20 @@
-"""Phoneme vocabulary of the SBL workloads: token ids and id -> symbol.
+"""Phoneme vocabulary of the SBL workloads: token ids, id -> symbol, and
+word -> token ids for the synthetic dataset's labels.
 
 A copy of what the port needs from the JAX package's ``vocab/phonemes.py``
-(the machine the port runs on has no JAX); ``tests/test_torch_port_package.py``
+and its data tables (``assets/``: the ARPABET table of the 500 LRW words,
+the English and pinyin phoneme maps, the LRW and LRW-1000 word lists), as
+the machine the port runs on has no JAX; ``tests/test_torch_port_package.py``
 checks it against the original.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+import functools
+import json
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+_ASSETS = Path(__file__).resolve().parent / "assets"
 
 IGNORE_ID = -1
 SOS_ID = 0
@@ -33,3 +41,59 @@ def decode_ids(ids: Sequence[int], vocab: Sequence[str] = TOTAL_PHONEMES,
         if 0 <= i < len(vocab):
             out.append(vocab[i])
     return out
+
+
+def _read_lines(name: str) -> List[str]:
+    with open(_ASSETS / name) as f:
+        return [ln.rstrip("\n") for ln in f if ln.strip()]
+
+
+@functools.lru_cache(None)
+def english_phoneme_map() -> Dict[str, str]:
+    """ARPABET (with stress digit) -> unified phoneme symbol."""
+    out: Dict[str, str] = {}
+    for line in _read_lines("english_phonemes.txt"):
+        items = line.split(" ")
+        if len(items) >= 2:
+            out[items[0]] = items[1]
+    return out
+
+
+@functools.lru_cache(None)
+def chinese_phoneme_map() -> Dict[str, List[str]]:
+    """Pinyin syllable -> list of unified phoneme symbols."""
+    out: Dict[str, List[str]] = {}
+    for line in _read_lines("chinese_phonemes.txt"):
+        items = line.split("  ")
+        if len(items) >= 2:
+            out[items[0]] = items[1].split(" ")
+    return out
+
+
+@functools.lru_cache(None)
+def lrw_word_arpabet() -> Dict[str, List[str]]:
+    """Uppercased LRW word -> ARPABET pronunciation."""
+    with open(_ASSETS / "lrw_word_arpabet.json") as f:
+        return json.load(f)
+
+
+@functools.lru_cache(None)
+def lrw_words() -> List[str]:
+    return _read_lines("lrw_words.txt")
+
+
+@functools.lru_cache(None)
+def lrw1000_words() -> List[str]:
+    return _read_lines("lrw1000_words.txt")
+
+
+def encode_english_word(word: str) -> List[int]:
+    """English word -> unified token ids."""
+    emap = english_phoneme_map()
+    return [TOTAL_PHONEMES.index(emap[a]) for a in lrw_word_arpabet()[word.upper()]]
+
+
+def encode_pinyin_seq(pinyins: Sequence[str]) -> List[int]:
+    """Pinyin syllables -> unified token ids (concatenated)."""
+    cmap = chinese_phoneme_map()
+    return [TOTAL_PHONEMES.index(ph) for py in pinyins for ph in cmap[py]]

@@ -26,7 +26,7 @@ from sbl_for_multilingual_lip_reading_tpu_torch import ops
 from sbl_for_multilingual_lip_reading_tpu_torch import vocab as port_vocab
 from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
 from sbl_for_multilingual_lip_reading_tpu_torch.models import frontend, layers
-from sbl_for_multilingual_lip_reading_tpu_torch.ops import _build
+from sbl_for_multilingual_lip_reading_tpu_torch.ops import _build, attention
 from sbl_for_multilingual_lip_reading_tpu_torch.recognize import (
     expected_launches, recognize_batch)
 from sbl_for_multilingual_lip_reading_tpu_torch.utils import (
@@ -44,11 +44,18 @@ for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
 from sbl_for_multilingual_lip_reading_tpu_torch import config as C
 from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
 from sbl_for_multilingual_lip_reading_tpu_torch.recognize import recognize_batch
+from sbl_for_multilingual_lip_reading_tpu_torch.data import SyntheticLipDataset
+from sbl_for_multilingual_lip_reading_tpu_torch.training import (
+    loss, schedule, state, steps, trainer)
 cfg = C.tiny_test()
 clips = torch.randint(0, 256, (2, cfg.data.frames, cfg.data.raw_size,
                                cfg.data.raw_size), dtype=torch.uint8)
 r = recognize_batch(build_model(cfg), clips, cfg.data.crop_size)
 assert r.ys_l2r.shape == (2, cfg.decoder.maxlen + 1)
+data = SyntheticLipDataset(size=2, frames=cfg.data.frames,
+                           raw_size=cfg.data.raw_size)
+result = trainer.train_steps(cfg, data, 1, "cpu", seed=0)
+assert len(result.history) == 1 and result.history[0]["loss"] > 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "sbl_for_multilingual_lip_reading_tpu"))
 assert not loaded, loaded
@@ -107,13 +114,37 @@ def _assert_fields_match(port_cfg, jax_cfg, path="cfg"):
             assert mine == theirs, f"{path}.{f.name}: {mine!r} != {theirs!r}"
 
 
-@pytest.mark.parametrize("preset", ["sbl", "tiny_test"])
+@pytest.mark.parametrize("preset", ["sbl", "sbl_stage2", "tiny_test"])
 def test_port_config_matches_jax(preset):
     if preset == "tiny_test":
         mine, theirs = port_config.tiny_test(), C.tiny_test("sbl")
     else:
-        mine, theirs = port_config.sbl(), C.sbl()
+        mine, theirs = port_config.PRESETS[preset](), C.PRESETS[preset]()
     _assert_fields_match(mine, theirs)
+
+
+def test_port_config_has_the_training_fields():
+    names = {f.name for f in dataclasses.fields(port_config.WorkloadConfig)}
+    assert {"optim", "batch_size", "remat_decoder", "freeze_prefixes"} <= names
+    cfg = port_config.sbl()
+    assert (cfg.dims.dropout, cfg.frontend.dropout, cfg.frontend.bn_momentum,
+            cfg.decoder.teacher_forcing_rate, cfg.batch_size) == (0.1, 0.5, 0.9,
+                                                                  0.5, 240)
+    assert port_config.sbl_stage2().decoder.teacher_forcing_rate == 0.1
+    assert {f.name for f in dataclasses.fields(port_config.DataConfig)} >= {
+        "frame_removal_p", "max_crop_offset", "random_drop_p", "per_clip_crop"}
+
+
+def test_port_vocab_word_tables_match_jax():
+    assert all(port_vocab.encode_english_word(w) == jax_vocab.encode_english_word(w)
+               for w in jax_vocab.lrw_words())
+    assert port_vocab.lrw_words() == jax_vocab.lrw_words()
+    assert port_vocab.lrw1000_words() == jax_vocab.lrw1000_words()
+    assert port_vocab.chinese_phoneme_map() == jax_vocab.chinese_phoneme_map()
+    for w in jax_vocab.lrw1000_words():
+        syl = w.split(" ")
+        if all(x in jax_vocab.chinese_phoneme_map() for x in syl):
+            assert port_vocab.encode_pinyin_seq(syl) == jax_vocab.encode_pinyin_seq(syl)
 
 
 def test_port_vocab_matches_jax():
@@ -176,20 +207,24 @@ def test_state_dict_mapping_complete_full_dims():
 def test_recognize_calls_each_kernel_wrapper_as_counted(monkeypatch):
     """On the kernel path every attention goes through the K1 wrapper and
     the stem through the K2 wrapper, as many times as chip_smoke.py expects
-    launches; on the plain path neither wrapper is called."""
-    calls = {"small_mha_flat": 0, "stack_frames": 0}
+    launches, and none through the training kernels; on the plain path no
+    wrapper is called."""
+    cfg = C.tiny_test("sbl")
+    calls = dict.fromkeys(expected_launches(cfg), 0)
 
-    def spy(name, fn):
+    def spy(module, name):
+        fn = getattr(module, name)
+
         def wrapped(*args, **kwargs):
             calls[name] += 1
             return fn(*args, **kwargs)
-        return wrapped
+        monkeypatch.setattr(module, name, wrapped)
 
-    monkeypatch.setattr(layers, "small_mha_flat",
-                        spy("small_mha_flat", layers.small_mha_flat))
-    monkeypatch.setattr(frontend, "stack_frames",
-                        spy("stack_frames", frontend.stack_frames))
-    cfg = C.tiny_test("sbl")
+    spy(layers, "small_mha_flat")
+    spy(frontend, "stack_frames")
+    spy(attention, "small_mha_dropout_fwd_flat")
+    spy(attention, "small_mha_dropout_bwd_flat")
+    spy(attention, "dropout_keep_mask_flat")
     clips = torch.randint(0, 256, (2, cfg.data.frames, cfg.data.raw_size,
                                    cfg.data.raw_size), dtype=torch.uint8)
     recognize_batch(build_model(cfg), clips, cfg.data.crop_size)
@@ -198,18 +233,20 @@ def test_recognize_calls_each_kernel_wrapper_as_counted(monkeypatch):
                                        + 2 * cfg.decoder.maxlen
                                        * cfg.dims.n_dec_layers)
 
-    calls.update(small_mha_flat=0, stack_frames=0)
+    calls.update(dict.fromkeys(calls, 0))
     plain = dataclasses.replace(cfg, use_pallas_attention=False)
     recognize_batch(build_model(plain), clips, cfg.data.crop_size)
-    assert calls == {"small_mha_flat": 0, "stack_frames": 0}
+    assert not any(calls.values()), calls
 
 
 def test_launch_counts_reset_and_read():
-    ops.small_mha_flat.launches = 3
-    ops.stack_frames.launches = 1
-    assert ops.launch_counts() == {"small_mha_flat": 3, "stack_frames": 1}
+    names = ("small_mha_flat", "stack_frames", "small_mha_dropout_fwd_flat",
+             "small_mha_dropout_bwd_flat", "dropout_keep_mask_flat")
+    for i, fn in enumerate(ops.KERNELS):
+        fn.launches = i + 1
+    assert ops.launch_counts() == {n: i + 1 for i, n in enumerate(names)}
     ops.reset_launch_counts()
-    assert ops.launch_counts() == {"small_mha_flat": 0, "stack_frames": 0}
+    assert ops.launch_counts() == dict.fromkeys(names, 0)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
@@ -237,4 +274,5 @@ def test_kernel_library_is_keyed_by_its_sources(monkeypatch, tmp_path):
     # the port's own sources: every .cu under csrc/ is in the build
     monkeypatch.undo()
     names = {p.name for p in _build.sources()}
-    assert {"attention.cu", "stem.cu"} <= names
+    assert {"attention.cu", "attention_train.cu", "stem.cu",
+            "common.cuh"} <= names
