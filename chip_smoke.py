@@ -23,14 +23,37 @@ line (phase 2 adds nvcc's per-kernel register report):
      weights: kernel path vs plain path at B=32 in f32 (TF32 off) and bf16,
      then the bf16 recognize path at B=512: launch counts, output checks,
      stage split, clips/s;
+  3c. the training entry point's kernels vs their plain versions at its
+     shapes, f32 and bf16: K6 ingest_train at (240,30,96,96) -> 88 with
+     attach_plans plans and n_frames padding, bit-exact; K7 channel_sums and
+     K8 channel_sums_pair on the frontend's five BatchNorm shapes at
+     B*T = 7200 frames and on the B=16 check's layer4 shape, within
+     STAT_TOL of the sum of magnitudes and bit-identical over two calls;
   5. train slice at the full config.sbl() width: kernel path vs plain path
      for one step at B=TRAIN_CHECK_BATCH, f32 and bf16 (loss, every
      gradient, BN running statistics); the bf16 step at B=240 through
      training.trainer.train_steps (launch counts, finite loss, every
      parameter moved), then TRAIN_WARMUP + TRAIN_TIMED timed steps: ms/step,
      clips/s, peak memory, stage split;
-  6. a JSON line of the kernels, then the result line
-     {"ok": true, "device": {...}}.
+  6. the training entry point at the full width with PALLAS_INGEST=1 and
+     PALLAS_BN=1: kernel path vs plain path for one step at
+     B=TRAIN_CHECK_BATCH (phase 5's tolerances); `cli train` for two B=240
+     steps and a validation (launch counts per step, finite loss, the
+     checkpoint and its _best mirror); `cli test` on that checkpoint (its
+     WER/PER equal the in-memory model's); a stage-2 transfer step with
+     frontend and encoder frozen (bit-identical) and the decoder moving; the
+     B=240 step with the switches off and on, in turns: ms/step, clips/s,
+     peak memory;
+  7. a JSON line of the eight kernels (each with its launches on every
+     path, its error, its time, its plain version's, its bound on the card
+     and a library call's time where one PyTorch call computes the same
+     function), then the result line {"ok": true, "device": {...}}.
+
+Every time comes from CUDA events around launches on this card; every
+bound is the larger of the bytes the function must move over HBM_BYTES_S
+and its operations over the card's peak rate for their type (H100 SXM data
+sheet: HBM3 3.35 TB/s, bf16 dense 989 TFLOP/s, f32 67 TFLOP/s outside the
+tensor cores, which also stands for 32-bit integer work).
 
 Any failed phase raises, so the script exits non-zero without the result
 line; so it does when torch sees no CUDA device, and when the port's
@@ -40,6 +63,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -81,6 +106,22 @@ TRAIN_TIMED = 5
 TRAIN_LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TRAIN_GRAD_TOL = {"float32": 1e-3, "bfloat16": 0.1}
 TRAIN_BN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# K7/K8 against their plain versions: both sum in f32 in another order, so
+# each channel's sum may move by a few f32 roundings of its partial sums,
+# bounded here relative to the sum of the magnitudes of its terms
+STAT_TOL = 1e-5
+BN_FRAMES = 7200            # B * T at B=240
+# the frontend's BatchNorms at B=240: (name, (C, H, W), launches per step)
+BN_SHAPES = (("stem", (64, 44, 44), 1), ("layer1", (64, 22, 22), 4),
+             ("layer2", (128, 11, 11), 5), ("layer3", (256, 6, 6), 5),
+             ("layer4", (512, 3, 3), 5))
+ENTRY_STEPS = 2
+TURN_STEPS = 3
+CKPT_DIR = Path(__file__).resolve().parent / "checkpoints" / "chip_smoke"
+# H100 SXM peaks (NVIDIA data sheet); the bounds below use them
+HBM_BYTES_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_OPS = 67e12
 
 
 def check(ok: bool, msg: str) -> None:
@@ -103,6 +144,40 @@ def cuda_ms(torch, fn) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def bound(n_bytes: float, n_ops: float, ops_rate: float):
+    """(least ms on the card, "bytes" or "operations")."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_S * 1e3, n_ops / ops_rate * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def library_time(torch, fn, call: str):
+    """(CUDA-event ms of one PyTorch call, its description); (None, why)
+    where the call refuses these inputs."""
+    try:
+        return cuda_ms(torch, fn), call
+    except RuntimeError as e:
+        return None, f"{call} (refused: {str(e).splitlines()[0][:120]})"
+
+
+def sdpa_args(torch, q, k, v, H, bias):
+    """q, k, v (B, T, H*64) as sdpa's (B, H, T, 64) views, and the additive
+    bias as its float mask."""
+    def heads(t):
+        return t.view(t.shape[0], t.shape[1], H, -1).transpose(1, 2)
+    mask = None if bias is None else bias.to(q.dtype)[:, None]
+    return heads(q), heads(k), heads(v), mask
+
+
+def attention_bound(B, Tq, Tk, H, d, itemsize, bias, matmuls):
+    """Bound of a flat attention: q and the output (B, Tq, H*d), k and v
+    (B, Tk, H*d), the bias, and ``matmuls`` products of (Tq x Tk x d) per
+    (row, head) in bf16."""
+    n_bytes = (2 * B * Tq + 2 * B * Tk) * H * d * itemsize
+    if bias is not None:
+        n_bytes += bias.numel() * bias.element_size()
+    return bound(n_bytes, matmuls * 2.0 * B * H * Tq * Tk * d, BF16_FLOPS)
 
 
 def phase_card(torch):
@@ -139,6 +214,7 @@ def phase_build():
 
 
 def phase_kernels(torch, dev):
+    import torch.nn.functional as F
     from sbl_for_multilingual_lip_reading_tpu_torch import ops
     g = torch.Generator(device=dev).manual_seed(0)
     results = {"stack_frames": [], "small_mha_flat": []}
@@ -153,9 +229,13 @@ def phase_kernels(torch, dev):
         check(torch.equal(got, want), f"K2 {dt} is not bit-exact")
         ms = cuda_ms(torch, lambda: ops.stack_frames(video))
         plain_ms = cuda_ms(torch, lambda: ops.stack_frames_plain(video))
+        bound_ms, bound_by = bound(video.numel() * video.element_size() * 6, 0,
+                                   F32_OPS)
         results["stack_frames"].append(dict(
             case="stem (512,30,88,88)", dtype=str(dt).split(".")[-1],
-            max_abs_err=0.0, ms=ms, plain_ms=plain_ms))
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None,
+            library_call="none: no single PyTorch call stacks shifted frames"))
         del video, got, want
 
     causal = ops.mask_to_bias(
@@ -194,14 +274,25 @@ def phase_kernels(torch, dev):
             ms = cuda_ms(torch, lambda: ops.small_mha_flat(q, k, v, H, bias=bias))
             plain_ms = cuda_ms(torch, lambda: ops.small_mha_flat_plain(
                 q, k, v, H, bias=bias))
+            sq, sk, sv, mask = sdpa_args(torch, q, k, v, H, bias)
+            lib_ms, lib_call = library_time(
+                torch, lambda: F.scaled_dot_product_attention(
+                    sq, sk, sv, attn_mask=mask),
+                "F.scaled_dot_product_attention on (B,H,T,64) views")
+            bound_ms, bound_by = attention_bound(B, Tq, Tk, H, 64,
+                                                 q.element_size(), bias, 2)
             results["small_mha_flat"].append(dict(
                 case=name, dtype=name_dt, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms))
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms, library_call=lib_call))
     for kernel, rows in results.items():
         for r in rows:
+            lib = ("n/a" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f} ms")
             print(f"phase 3 {kernel} {r['case']} {r['dtype']}: max abs err "
                   f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms")
+                  f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return results
 
 
@@ -211,8 +302,8 @@ def _bf16_close(got, want):
     tol = TRAIN_TOL["bfloat16"]
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    bound = want.abs() * tol["rel"] + want.abs().max() * tol["floor"]
-    return err.max().item(), bool((err <= bound).all())
+    limit = want.abs() * tol["rel"] + want.abs().max() * tol["floor"]
+    return err.max().item(), bool((err <= limit).all())
 
 
 def _train_close(got, want, kind):
@@ -231,6 +322,7 @@ def dtype_name(t):
 
 def phase_train_kernels(torch, dev):
     """K3/K4/K5 against their plain versions at the train step's shapes."""
+    import torch.nn.functional as F
     from sbl_for_multilingual_lip_reading_tpu_torch import ops
     g = torch.Generator(device=dev).manual_seed(1)
     H, B = 8, TRAIN_BATCH
@@ -286,7 +378,35 @@ def phase_train_kernels(torch, dev):
                 check(ok and bool(torch.isfinite(a).all()),
                       f"K4 {case} {name_dt} d{which}: max abs err {err}")
                 bwd_err = max(bwd_err, err)
+            sq, sk, sv, mask = sdpa_args(torch, q, k, v, H, bias)
+            fwd_lib_ms, fwd_lib_call = library_time(
+                torch, lambda: F.scaled_dot_product_attention(
+                    sq, sk, sv, attn_mask=mask, dropout_p=DROPOUT_RATE),
+                "F.scaled_dot_product_attention(dropout_p=0.1) on (B,H,T,64) views")
+            gq, gk, gv = (t.detach().requires_grad_(True) for t in (sq, sk, sv))
+            lib_out = F.scaled_dot_product_attention(gq, gk, gv, attn_mask=mask,
+                                                     dropout_p=DROPOUT_RATE)
+            lib_dout = dout.view(N, Tq, H, 64).transpose(1, 2)
+            bwd_lib_ms, bwd_lib_call = library_time(
+                torch, lambda: torch.autograd.grad(lib_out, (gq, gk, gv), lib_dout,
+                                                   retain_graph=True),
+                "the backward of F.scaled_dot_product_attention(dropout_p=0.1)")
+            del lib_out, gq, gk, gv
+            itemsize = q.element_size()
+            fwd_bound = attention_bound(N, Tq, Tk, H, 64, itemsize, bias, 2)
+            # K4 reads dout besides q, k, v, bias and writes dq, dk, dv: one
+            # more q-sized read and the k, v-sized writes; five products
+            bwd_bound = bound(
+                attention_bound(N, Tq, Tk, H, 64, itemsize, bias, 0)[0]
+                * HBM_BYTES_S / 1e3 + (N * Tq + 2 * N * Tk) * H * 64 * itemsize,
+                5 * 2.0 * N * H * Tq * Tk * 64, BF16_FLOPS)
+            # K5 writes one byte per score; Philox4x32-10 costs ~80 32-bit
+            # integer operations per word
+            mask_bound = bound(N * H * Tq * Tk, 80.0 * N * H * Tq * Tk, F32_OPS)
             rows.append(dict(
+                fwd_bound=fwd_bound, bwd_bound=bwd_bound, mask_bound=mask_bound,
+                fwd_lib_ms=fwd_lib_ms, fwd_lib_call=fwd_lib_call,
+                bwd_lib_ms=bwd_lib_ms, bwd_lib_call=bwd_lib_call,
                 case=case, dtype=name_dt, keep_fraction=frac,
                 fwd_err=fwd_err, bwd_err=bwd_err, rate0_vs_k1_err=k1_err,
                 fwd_ms=cuda_ms(torch, lambda: ops.small_mha_dropout_fwd_flat(*args)),
@@ -301,16 +421,18 @@ def phase_train_kernels(torch, dev):
     for r in rows:
         print(f"phase 3b {r['case']} {r['dtype']}: keep {r['keep_fraction']:.4f}; "
               f"K3 err {r['fwd_err']:.3g}, {r['fwd_ms']:.4f} ms (plain "
-              f"{r['fwd_plain_ms']:.4f}); K4 err {r['bwd_err']:.3g}, "
-              f"{r['bwd_ms']:.4f} ms (plain {r['bwd_plain_ms']:.4f}); K5 "
-              f"bit-exact, {r['mask_ms']:.4f} ms (plain {r['mask_plain_ms']:.4f}); "
+              f"{r['fwd_plain_ms']:.4f}, library {r['fwd_lib_ms']}, bound "
+              f"{r['fwd_bound'][0]:.4f}); K4 err {r['bwd_err']:.3g}, "
+              f"{r['bwd_ms']:.4f} ms (plain {r['bwd_plain_ms']:.4f}, library "
+              f"{r['bwd_lib_ms']}, bound {r['bwd_bound'][0]:.4f}); K5 "
+              f"bit-exact, {r['mask_ms']:.4f} ms (plain {r['mask_plain_ms']:.4f}, "
+              f"bound {r['mask_bound'][0]:.4f}); "
               f"K3 rate 0 vs K1 err {r['rate0_vs_k1_err']:.3g}")
 
     # max-pool tie gradients: the card's backward against the CPU's on a
     # post-ReLU bf16 input of small integers, full of ties (zeros and equal
     # values), with integer output gradients, so that every sum of them is
     # exact and only where each window's gradient goes is compared
-    import torch.nn.functional as F
     x = torch.randint(-6, 6, (32, 64, 44, 44), generator=g, device=dev)
     x = torch.relu(x).to(torch.bfloat16)
     dy = torch.randint(-8, 8, (32, 64, 22, 22), generator=g, device=dev
@@ -429,32 +551,27 @@ def _grad_errors(kern, plain):
             for n, g in plain.items()}
 
 
-def phase_train(torch, np, dev):
-    """The train slice: kernel path vs plain path, then the B=240 bf16 step
-    through the entry point, then its timing."""
-    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
-    from sbl_for_multilingual_lip_reading_tpu_torch import ops
-    from sbl_for_multilingual_lip_reading_tpu_torch.data import SyntheticLipDataset
+def train_batch(torch, np, dev, cfg, data, n, seed):
+    """The first batch of ``n`` of a shuffled epoch with its plans, on the
+    card."""
+    from sbl_for_multilingual_lip_reading_tpu_torch.data import Batcher
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.trainer import (
+        attach_plans)
+    b = attach_plans(next(iter(Batcher(data, n, seed=seed))),
+                     np.random.default_rng(seed), cfg)
+    return {k: torch.as_tensor(np.asarray(v)).to(dev) for k, v in b.items()}
+
+
+def kernel_vs_plain_step(torch, dev, cfg, small, label):
+    """One train step on the kernel path and one on the plain path (the
+    kernels' plain versions), same weights, batch and generator seed, so
+    the same dropout masks and coins: loss, every gradient and the BN
+    running statistics, f32 and bf16."""
     from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
     from sbl_for_multilingual_lip_reading_tpu_torch.training.schedule import (
         make_optimizer)
     from sbl_for_multilingual_lip_reading_tpu_torch.training.steps import (
-        expected_launches, make_sbl_train_step)
-    from sbl_for_multilingual_lip_reading_tpu_torch.training.trainer import (
-        attach_plans, batches, train_steps)
-
-    cfg = C.sbl()
-    data = SyntheticLipDataset(size=TRAIN_BATCH, frames=cfg.data.frames,
-                               raw_size=cfg.data.raw_size, seed=0)
-
-    def device_batch(n, seed):
-        b = attach_plans(next(batches(data, n, seed)),
-                         np.random.default_rng(seed), cfg)
-        return {k: torch.as_tensor(np.asarray(v)).to(dev) for k, v in b.items()}
-
-    # the kernel path against the plain path: one step, same weights, batch
-    # and generator seed, so the same dropout masks and coins
-    small = device_batch(TRAIN_CHECK_BATCH, 1)
+        make_sbl_train_step)
     for dtype in ("float32", "bfloat16"):
         runs = []
         for kernels in (True, False):
@@ -472,7 +589,7 @@ def phase_train(torch, np, dev):
         errs = _grad_errors(gk, gp)
         worst = max(errs, key=errs.get)
         bn_err = max((bk[n] - b).abs().max().item() for n, b in bp.items())
-        print(f"phase 5 {dtype} B={TRAIN_CHECK_BATCH} kernel vs plain path: "
+        print(f"{label} {dtype} B={TRAIN_CHECK_BATCH} kernel vs plain path: "
               f"loss {lk:.6f} vs {lp:.6f} (tol {TRAIN_LOSS_TOL[dtype]}); "
               f"gradient rel err max {errs[worst]:.3g} at {worst}, median "
               f"{statistics.median(errs.values()):.3g} (tol "
@@ -484,6 +601,29 @@ def phase_train(torch, np, dev):
         check(bn_err <= TRAIN_BN_TOL[dtype], f"{dtype} BN stats differ")
         del runs, gk, gp
     torch.cuda.empty_cache()
+
+
+def phase_train(torch, np, dev):
+    """The train slice: kernel path vs plain path, then the B=240 bf16 step
+    through the entry point, then its timing."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.data import SyntheticLipDataset
+    from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.steps import (
+        expected_launches, make_sbl_train_step)
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.trainer import (
+        train_steps)
+
+    cfg = C.sbl()
+    data = SyntheticLipDataset(size=TRAIN_BATCH, frames=cfg.data.frames,
+                               raw_size=cfg.data.raw_size, seed=0)
+
+    def device_batch(n, seed):
+        return train_batch(torch, np, dev, cfg, data, n, seed)
+
+    kernel_vs_plain_step(torch, dev, cfg, device_batch(TRAIN_CHECK_BATCH, 1),
+                         "phase 5")
 
     # the main path: one bf16 step at B=240 through the entry point
     model = build_model(cfg, dev, seed=0)
@@ -540,6 +680,255 @@ def phase_train(torch, np, dev):
                           peak_gb=peak_gb, stages=stages)
 
 
+def phase_ingest_bn_kernels(torch, np, dev):
+    """K6 against its plain version at (240,30,96,96) -> 88; K7 and K8
+    against theirs on the frontend's BatchNorm shapes; times of kernel,
+    plain version and library call; the bounds."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.trainer import (
+        attach_plans)
+    cfg = C.sbl()
+    B, T, raw, crop = TRAIN_BATCH, cfg.data.frames, cfg.data.raw_size, \
+        cfg.data.crop_size
+    rng = np.random.default_rng(4)
+    clips = rng.integers(0, 256, (B, T, raw, raw), dtype=np.uint8)
+    # LRW (per-frame crops) and LRW-1000 (per-clip) clips, a quarter padded
+    batch = attach_plans({"clip_u8": clips,
+                          "lang_id": (np.arange(B) % 2).astype(np.int32)},
+                         rng, cfg)
+    n_frames = np.where(rng.random(B) < 0.25, rng.integers(1, T, B), T)
+    args = [torch.as_tensor(np.asarray(batch[k])).to(dev)
+            for k in ("clip_u8", "offsets", "flip", "frame_map")]
+    nf = torch.as_tensor(n_frames.astype(np.int32)).to(dev)
+    # the bytes this run's plans need: each valid output slot's source
+    # crop once, the plans, the output
+    fmap = np.asarray(batch["frame_map"])
+    sources = {(b, int(fmap[b, t])) for b in range(B) for t in range(n_frames[b])}
+    plan_bytes = sum(a.numel() * a.element_size() for a in args[1:]) + 4 * B
+    ingest = []
+    for dt in (torch.float32, torch.bfloat16):
+        got = ops.ingest_train(*args, crop, dt, n_frames=nf)
+        want = ops.ingest_train_plain(*args, crop, dt, n_frames=nf)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K6 {dt} is not bit-exact")
+        n_bytes = len(sources) * crop * crop + plan_bytes + got.numel() * got.element_size()
+        bound_ms, bound_by = bound(n_bytes, 2.0 * got.numel(), F32_OPS)
+        ingest.append(dict(
+            case=f"({B},{T},{raw},{raw}) -> {crop}", dtype=dtype_name(got),
+            max_abs_err=0.0, bound_ms=bound_ms, bound_by=bound_by,
+            ms=cuda_ms(torch, lambda: ops.ingest_train(*args, crop, dt, n_frames=nf)),
+            plain_ms=cuda_ms(torch, lambda: ops.ingest_train_plain(
+                *args, crop, dt, n_frames=nf)),
+            library_ms=None, library_call="none: no single PyTorch call "
+            "gathers, crops, flips and normalizes"))
+        del got, want
+    for r in ingest:
+        print(f"phase 3c ingest_train {r['case']} {r['dtype']}: bit-exact, kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    stats = []
+    cases = [(name, (BN_FRAMES,) + shape, per_step)
+             for name, shape, per_step in BN_SHAPES]
+    cases.append(("check layer4", (30 * TRAIN_CHECK_BATCH, 512, 3, 3), 0))
+    for dt in (torch.float32, torch.bfloat16):
+        for name, shape, per_step in cases:
+            C_ = shape[1]
+            shift = torch.randn(C_, 1, 1, generator=g, device=dev)
+            x = (torch.randn(shape, generator=g, device=dev) * 2 + shift).to(dt)
+            dy = torch.randn(shape, generator=g, device=dev).to(dt)
+            n = x.numel() // C_
+            s, q = ops.channel_sums(x)
+            s2, q2 = ops.channel_sums(x)
+            ps, pq = ops.channel_sums_plain(x)
+            xf = x.float()
+            abs_x = xf.abs().sum((0, 2, 3))
+            k7_err = max(((s - ps).abs() / abs_x).max().item(),
+                         ((q - pq).abs() / pq).max().item())
+            check(torch.equal(s, s2) and torch.equal(q, q2),
+                  f"K7 {name} {dt}: two calls differ")
+            check(k7_err <= STAT_TOL, f"K7 {name} {dt}: rel err {k7_err}")
+            mean = s / n
+            inv = torch.rsqrt(q / n - mean * mean + 1e-5)
+            sd, sx = ops.channel_sums_pair(dy, x, mean, inv)
+            sd2, sx2 = ops.channel_sums_pair(dy, x, mean, inv)
+            psd, psx = ops.channel_sums_pair_plain(dy, x, mean, inv)
+            dyf = dy.float()
+            abs_dy = dyf.abs().sum((0, 2, 3))
+            abs_dyx = (dyf * ((xf - mean[:, None, None]) * inv[:, None, None])
+                       ).abs().sum((0, 2, 3))
+            k8_err = max(((sd - psd).abs() / abs_dy).max().item(),
+                         ((sx - psx).abs() / abs_dyx).max().item())
+            del xf, dyf
+            check(torch.equal(sd, sd2) and torch.equal(sx, sx2),
+                  f"K8 {name} {dt}: two calls differ")
+            check(k8_err <= STAT_TOL, f"K8 {name} {dt}: rel err {k8_err}")
+            weight = torch.ones(C_, device=dev)
+            k7_lib, k7_call = library_time(
+                torch, lambda: torch.batch_norm_stats(x, 1e-5),
+                "torch.batch_norm_stats (mean, invstd)")
+            k8_lib, k8_call = library_time(
+                torch, lambda: torch.batch_norm_backward_reduce(
+                    dy, x, mean, inv, weight, True, True, True),
+                "torch.batch_norm_backward_reduce (sum dy, sum dy*(x-mean), "
+                "grad weight, grad bias)")
+            size = x.numel() * x.element_size()
+            stats.append(dict(
+                case=f"{name} {tuple(shape)}", dtype=dtype_name(x),
+                per_step=per_step, k7_err=k7_err, k8_err=k8_err,
+                k7_ms=cuda_ms(torch, lambda: ops.channel_sums(x)),
+                k7_plain_ms=cuda_ms(torch, lambda: ops.channel_sums_plain(x)),
+                k7_lib_ms=k7_lib, k7_lib_call=k7_call,
+                k7_bound=bound(size + 8 * C_, 3.0 * x.numel(), F32_OPS),
+                k8_ms=cuda_ms(torch, lambda: ops.channel_sums_pair(dy, x, mean, inv)),
+                k8_plain_ms=cuda_ms(torch, lambda: ops.channel_sums_pair_plain(
+                    dy, x, mean, inv)),
+                k8_lib_ms=k8_lib, k8_lib_call=k8_call,
+                k8_bound=bound(2 * size + 16 * C_, 5.0 * x.numel(), F32_OPS)))
+            del x, dy
+            torch.cuda.empty_cache()
+    for r in stats:
+        print(f"phase 3c BN {r['case']} {r['dtype']}: K7 rel err {r['k7_err']:.3g}, "
+              f"{r['k7_ms']:.4f} ms (plain {r['k7_plain_ms']:.4f}, library "
+              f"{r['k7_lib_ms']}, bound {r['k7_bound'][0]:.4f}); K8 rel err "
+              f"{r['k8_err']:.3g}, {r['k8_ms']:.4f} ms (plain "
+              f"{r['k8_plain_ms']:.4f}, library {r['k8_lib_ms']}, bound "
+              f"{r['k8_bound'][0]:.4f}); both bit-identical over two calls")
+    for dt in ("float32", "bfloat16"):
+        rows = [r for r in stats if r["dtype"] == dt]
+        print(f"phase 3c BN {dt} per B=240 step ({sum(r['per_step'] for r in rows)}"
+              f" launches each): K7 {sum(r['k7_ms'] * r['per_step'] for r in rows):.3f}"
+              f" ms (bound {sum(r['k7_bound'][0] * r['per_step'] for r in rows):.3f}),"
+              f" K8 {sum(r['k8_ms'] * r['per_step'] for r in rows):.3f} ms (bound "
+              f"{sum(r['k8_bound'][0] * r['per_step'] for r in rows):.3f})")
+    return ingest, stats
+
+
+def _set_switches(on: bool) -> None:
+    for name in ("PALLAS_INGEST", "PALLAS_BN"):
+        if on:
+            os.environ[name] = "1"
+        else:
+            os.environ.pop(name, None)
+
+
+def phase_entry(torch, np, dev):
+    """The training entry point with PALLAS_INGEST=1 and PALLAS_BN=1."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import cli
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.data import SyntheticLipDataset
+    from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
+    from sbl_for_multilingual_lip_reading_tpu_torch.recognize import (
+        expected_launches as recognize_launches)
+    from sbl_for_multilingual_lip_reading_tpu_torch.training import checkpoint
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.schedule import (
+        make_optimizer)
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.steps import (
+        expected_launches, make_sbl_train_step)
+
+    _set_switches(True)
+    cfg = C.sbl()
+    data = SyntheticLipDataset(size=TRAIN_BATCH, frames=cfg.data.frames,
+                               raw_size=cfg.data.raw_size, seed=0)
+    kernel_vs_plain_step(torch, dev, cfg, train_batch(
+        torch, np, dev, cfg, data, TRAIN_CHECK_BATCH, 1), "phase 6")
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    stage1, stage2 = str(CKPT_DIR / "stage1"), str(CKPT_DIR / "stage2")
+    common = ["--workload", "sbl", "--synthetic", "--synthetic-size",
+              str(ENTRY_STEPS * TRAIN_BATCH), "--max-eval-batches", "1"]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr, out = cli.run_train(common + ["--epochs", "1", "--max-steps-per-epoch",
+                                      str(ENTRY_STEPS), "--save-dir", stage1])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    n_eval = len(tr.valid_datasets)
+    per_step = expected_launches(cfg)
+    expected = {k: ENTRY_STEPS * per_step[k] + n_eval * v
+                for k, v in recognize_launches(cfg).items()}
+    print(f"phase 6 cli train: {ENTRY_STEPS} steps of B={TRAIN_BATCH} and "
+          f"{n_eval} eval batches in {seconds:.1f} s; launches {launches} "
+          f"(expected {expected}; per step {per_step})")
+    check(launches == expected, f"launch counts {launches} != {expected}")
+    check((per_step["ingest_train"], per_step["channel_sums"],
+           per_step["channel_sums_pair"]) == (1, 20, 20),
+          f"per-step K6/K7/K8 launches {per_step}")
+    check(np.isfinite(out["train_loss"]), f"non-finite loss {out['train_loss']}")
+    for path in (stage1, stage1 + "_best"):
+        check(os.path.isfile(os.path.join(path, checkpoint.FILE)),
+              f"no checkpoint in {path}")
+    print(f"phase 6 cli train: loss {out['train_loss']:.4f}, eval "
+          f"{ {k: v for k, v in out.items() if k != 'train_loss'} }; "
+          f"checkpoint and _best mirror written")
+
+    got = cli.run_test(common + ["--checkpoint", stage1])
+    _, test_sets = cli.make_datasets(tr.cfg, cli.build_argparser().parse_args(
+        common), "test")
+    want = {k: tr.validate_seq2seq(ds, 1) for k, ds in test_sets.items()}
+    check(got == want, f"cli test {got} != in-memory model {want}")
+    print(f"phase 6 cli test: {got}, equal to the in-memory model's")
+    del tr
+    torch.cuda.empty_cache()
+
+    tr2, _ = cli.run_train(common + [
+        "--workload", "sbl_stage2", "--epochs", "1", "--max-steps-per-epoch", "1",
+        "--transfer-from", stage1, "--freeze", "frontend,encoder",
+        "--save-dir", stage2])
+    start = checkpoint.load(stage1)["model"]
+    frozen = moved = 0
+    for name, p in tr2.model.named_parameters():
+        same = torch.equal(p.detach().cpu(), start[name])
+        if name.startswith(("frontend.", "encoder.")):
+            check(same, f"frozen {name} moved")
+            frozen += 1
+        else:
+            check(not same, f"{name} did not move")
+            moved += 1
+    check(tr2.state.step == 1 and tr2.cfg.decoder.teacher_forcing_rate == 0.1,
+          "stage 2 did not take its step")
+    print(f"phase 6 stage-2 transfer: {frozen} frozen tensors bit-identical, "
+          f"{moved} decoder tensors moved")
+    del tr2, start
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+    # the B=240 step with the switches off and on, in turns
+    models = {}
+    for on in (False, True):
+        _set_switches(on)
+        model = build_model(cfg, dev, seed=0)
+        models[on] = make_sbl_train_step(model, make_optimizer(model, cfg.optim),
+                                         cfg)
+    batch = train_batch(torch, np, dev, cfg, data, TRAIN_BATCH, 2)
+    gen = torch.Generator().manual_seed(3)
+    turns = []
+    for on in (False, True, True, False):
+        _set_switches(on)
+        step = models[on]
+        step(batch, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [step(batch, gen)["loss"] for _ in range(TURN_STEPS)]
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / TURN_STEPS
+        check(all(torch.isfinite(x).item() for x in losses), "non-finite loss")
+        turns.append(dict(switches=on, ms_per_step=dt * 1e3,
+                          clips_per_s=TRAIN_BATCH / dt,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+        print(f"phase 6 B={TRAIN_BATCH} bf16 switches {'on ' if on else 'off'}: "
+              f"{dt * 1e3:.1f} ms/step, {TRAIN_BATCH / dt:.1f} clips/s, peak "
+              f"{turns[-1]['peak_gb']:.2f} GB")
+    _set_switches(False)
+    return launches, dict(seconds=seconds, turns=turns, loss=out["train_loss"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -551,59 +940,95 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    _set_switches(False)
 
     smi, name = phase_card(torch)
     phase_build()
     kernels = phase_kernels(torch, dev)
     train_kernels = phase_train_kernels(torch, dev)
+    ingest, stats = phase_ingest_bn_kernels(torch, np, dev)
     launches, rate = phase_slice(torch, np, dev)
     train_launches, train = phase_train(torch, np, dev)
+    entry_launches, entry = phase_entry(torch, np, dev)
 
     csrc = "sbl_for_multilingual_lip_reading_tpu_torch/csrc/"
-    jax_attention = "sbl_for_multilingual_lip_reading_tpu/ops/attention.py:"
+    jax_ops = "sbl_for_multilingual_lip_reading_tpu/ops/"
+
+    def row(kernel, source, replaces, head, err, cases, **extra):
+        return {"name": kernel, "route": "cuda", "source": csrc + source,
+                "replaces": jax_ops + replaces,
+                "launches": entry_launches[kernel],
+                "launches_by_path": {"recognize": launches[kernel],
+                                     "train_step": train_launches[kernel],
+                                     "entry_point": entry_launches[kernel]},
+                "max_abs_err": err, "ms": head["ms"],
+                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+                "library_call": head["library_call"], "case": head["case"],
+                "cases": cases, **extra}
+
     rows = []
     # K1, K2: the headline row is the busiest bf16 shape of the recognize path
     for kernel, source, replaces, headline in (
-            ("small_mha_flat", csrc + "attention.cu", jax_attention + "573",
+            ("small_mha_flat", "attention.cu", "attention.py:573",
              "decoder self (1024,17,512) causal"),
-            ("stack_frames", csrc + "stem.cu",
-             "sbl_for_multilingual_lip_reading_tpu/ops/stem.py:39",
-             "stem (512,30,88,88)")):
+            ("stack_frames", "stem.cu", "stem.py:39", "stem (512,30,88,88)")):
         head = next(r for r in kernels[kernel]
                     if r["case"] == headline and r["dtype"] == "bfloat16")
-        rows.append({"name": kernel, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[kernel],
-                     "launches_by_path": {"recognize": launches[kernel],
-                                          "train": train_launches[kernel]},
-                     "max_abs_err": max(r["max_abs_err"] for r in kernels[kernel]
-                                        if r["dtype"] == "bfloat16"
-                                        and not r["case"].startswith("extra")),
-                     "ms": head["ms"], "plain_ms": head["plain_ms"],
-                     "cases": kernels[kernel]})
+        rows.append(row(kernel, source, replaces, head,
+                        max(r["max_abs_err"] for r in kernels[kernel]
+                            if r["dtype"] == "bfloat16"
+                            and not r["case"].startswith("extra")),
+                        kernels[kernel]))
     # K3, K4, K5: the headline row is the decoder self-attention in bf16;
-    # K5 draws the mask K3/K4 draw inline, so the train path launches it
-    # no time (it serves the card check)
-    head = next(r for r in train_kernels if r["dtype"] == "bfloat16"
-                and r["case"] == "decoder self (480,17,512) causal")
+    # K5 draws the mask K3/K4 draw inline, so no path launches it (it serves
+    # the card check)
     bf16 = [r for r in train_kernels if r["dtype"] == "bfloat16"]
-    for kernel, replaces, err, ms in (
-            ("small_mha_dropout_fwd_flat", "724", "fwd_err", "fwd_ms"),
-            ("small_mha_dropout_bwd_flat", "774", "bwd_err", "bwd_ms"),
-            ("dropout_keep_mask_flat", "874", None, "mask_ms")):
-        rows.append({"name": kernel, "route": "cuda",
-                     "source": csrc + "attention_train.cu",
-                     "replaces": jax_attention + replaces,
-                     "launches": train_launches[kernel],
-                     "launches_by_path": {"recognize": launches[kernel],
-                                          "train": train_launches[kernel]},
-                     "on_main_path": kernel != "dropout_keep_mask_flat",
-                     "max_abs_err": max(r[err] for r in bf16) if err else 0.0,
-                     "ms": head[ms], "plain_ms": head[ms.replace("_ms", "_plain_ms")],
-                     "cases": [{k: r[k] for k in ("case", "dtype", ms,
-                                                  ms.replace("_ms", "_plain_ms"))}
-                               for r in train_kernels]})
+    head = next(r for r in bf16 if r["case"] == "decoder self (480,17,512) causal")
+    for kernel, replaces, key in (
+            ("small_mha_dropout_fwd_flat", "attention.py:724", "fwd"),
+            ("small_mha_dropout_bwd_flat", "attention.py:774", "bwd"),
+            ("dropout_keep_mask_flat", "attention.py:874", "mask")):
+        lib = (head.get(f"{key}_lib_ms"), head.get(
+            f"{key}_lib_call", "none: no PyTorch call draws this Philox mask"))
+        h = dict(case=head["case"], ms=head[f"{key}_ms"],
+                 plain_ms=head[f"{key}_plain_ms"],
+                 bound_ms=head[f"{key}_bound"][0], bound_by=head[f"{key}_bound"][1],
+                 library_ms=lib[0], library_call=lib[1])
+        rows.append(row(kernel, "attention_train.cu", replaces, h,
+                        max(r[f"{key}_err"] for r in bf16) if key != "mask" else 0.0,
+                        [{k: r[k] for k in ("case", "dtype", f"{key}_ms",
+                                            f"{key}_plain_ms")}
+                         for r in train_kernels],
+                        on_main_path=kernel != "dropout_keep_mask_flat"))
+    # K6 at its one shape; K7, K8: the headline row is the stem's BatchNorm
+    # in bf16, and per_step_ms sums the frontend's 20 launches per step
+    rows.append(row("ingest_train", "ingest.cu", "ingest.py:50",
+                    next(r for r in ingest if r["dtype"] == "bfloat16"), 0.0,
+                    ingest))
+    bn16 = [r for r in stats if r["dtype"] == "bfloat16"]
+    stem = next(r for r in bn16 if r["case"].startswith("stem"))
+    for kernel, replaces, key in (("channel_sums", "batchnorm.py:65", "k7"),
+                                  ("channel_sums_pair", "batchnorm.py:101", "k8")):
+        h = dict(case=stem["case"], ms=stem[f"{key}_ms"],
+                 plain_ms=stem[f"{key}_plain_ms"], bound_ms=stem[f"{key}_bound"][0],
+                 bound_by=stem[f"{key}_bound"][1], library_ms=stem[f"{key}_lib_ms"],
+                 library_call=stem[f"{key}_lib_call"])
+        rows.append(row(
+            kernel, "batchnorm.cu", replaces, h,
+            max(r[f"{key}_err"] for r in stats),
+            [{k: r[k] for k in ("case", "dtype", f"{key}_err", f"{key}_ms",
+                                f"{key}_plain_ms", f"{key}_lib_ms")}
+             for r in stats],
+            per_step_ms=sum(r[f"{key}_ms"] * r["per_step"] for r in bn16),
+            per_step_plain_ms=sum(r[f"{key}_plain_ms"] * r["per_step"] for r in bn16),
+            per_step_bound_ms=sum(r[f"{key}_bound"][0] * r["per_step"] for r in bn16),
+            max_rel_err_of_abs_sum=max(r[f"{key}_err"] for r in stats)))
+    check(len(rows) == 8, "eight kernels")
     print(json.dumps({"kernels": rows, "card": smi,
-                      "recognize_clips_per_s": rate, "train": train}))
+                      "recognize_clips_per_s": rate, "train": train,
+                      "entry_point": entry}))
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

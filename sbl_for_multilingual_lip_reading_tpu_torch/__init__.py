@@ -9,5 +9,9 @@ follow the JAX package.  This package imports ``torch`` and never ``jax``,
 and vocabulary it reads (``config``, ``vocab``), checked against the JAX
 package's by the tests.
 
-Ported so far: the ``sbl`` recognize path (``recognize.recognize_batch``).
+Ported so far: the ``sbl``/``sbl_stage2`` workloads' recognize path
+(``recognize.recognize_batch``), train step, and training entry point
+(``python -m sbl_for_multilingual_lip_reading_tpu_torch.cli train|test``,
+``training.trainer.Trainer``).  Entry points run on the card unless the
+caller asks for the CPU.
 """

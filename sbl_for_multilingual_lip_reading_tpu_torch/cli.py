@@ -1,0 +1,293 @@
+"""Command-line entry points of the port: the reference's train.py / test.py
+surface for the ``sbl`` workloads (counterpart of the JAX package's
+``cli.py``, with the same flags).
+
+    python -m sbl_for_multilingual_lip_reading_tpu_torch.cli train [flags]
+    python -m sbl_for_multilingual_lip_reading_tpu_torch.cli test --checkpoint DIR [flags]
+
+It runs on the card; ``--cpu`` runs it on the CPU, and without a card and
+without ``--cpu`` it refuses.  ``--synthetic`` (or no dataset path) uses the
+synthetic dataset.  Flags whose path is not ported yet raise, naming the
+ROADMAP item; ``--compile-cache`` is XLA's and is accepted and ignored.
+``PALLAS_INGEST=1`` and ``PALLAS_BN=1`` in the environment turn on the
+kernel ingest (K6) and the kernel BatchNorm statistics (K7, K8), as in JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+from typing import Dict, Optional
+
+from . import config as C
+
+WORKLOADS = ("sbl", "sbl_stage2", "lrw", "lrw1000", "classify")
+NOT_PORTED = {
+    "lrw": "ROADMAP.md queue A item 9 (unidirectional workloads)",
+    "lrw1000": "ROADMAP.md queue A item 9 (unidirectional workloads)",
+    "classify": "ROADMAP.md queue A item 11 (classify head)",
+    "beam_size": "ROADMAP.md queue A item 10 (beam search)",
+    "bigram_lm": "ROADMAP.md queue A item 10 (beam search)",
+    "mesh": "ROADMAP.md queue A item 12 (data parallel)",
+    "no_sync_batchnorm": "ROADMAP.md queue A item 12 (data parallel)",
+    "remat_frontend": "ROADMAP.md queue A item 8 (remat_frontend)",
+    "profile_dir": "ROADMAP.md queue A item 13 (profiler)",
+}
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    """The JAX CLI's flags, so one argv configures either package."""
+    p = argparse.ArgumentParser(description="SBL multilingual lip reading "
+                                            "(PyTorch/CUDA)")
+    p.add_argument("--workload", default="sbl", choices=WORKLOADS)
+    # network architecture (reference utils.py:91-116)
+    p.add_argument("--n_layers_enc", type=int, default=None)
+    p.add_argument("--n_layers_dec", type=int, default=None)
+    p.add_argument("--n_head", type=int, default=None)
+    p.add_argument("--d_model", type=int, default=None)
+    p.add_argument("--d_inner", type=int, default=None)
+    p.add_argument("--dropout", type=float, default=None)
+    p.add_argument("--pe_maxlen", type=int, default=None)
+    p.add_argument("--label_smoothing", type=float, default=None)
+    # training (reference utils.py:118-146)
+    p.add_argument("--epochs", type=int, default=10000)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--k", type=float, default=None, help="Noam lr scale")
+    p.add_argument("--warmup_steps", type=int, default=None)
+    p.add_argument("--teacher_forcing_rate", type=float, default=None)
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="checkpoint dir to resume/eval from")
+    p.add_argument("--transfer-from", type=str, default=None,
+                   help="partial-load (path+shape filtered) from this "
+                        "checkpoint, e.g. stage 1 -> stage 2")
+    p.add_argument("--save-dir", type=str, default="checkpoints/run")
+    # data
+    p.add_argument("--synthetic", action="store_true",
+                   help="use the synthetic dataset (no LRW/LRW-1000 needed)")
+    p.add_argument("--synthetic-size", type=int, default=256)
+    p.add_argument("--lrw-path", type=str, default=None)
+    p.add_argument("--lrw1000-images", type=str, default=None)
+    p.add_argument("--lrw1000-manifest", type=str, default=None,
+                   help="TRAIN manifest (trn1.txt-style)")
+    p.add_argument("--lrw1000-eval-manifest", type=str, default=None,
+                   help="eval manifest (val1.txt for training-time "
+                        "validation, tst1.txt for test)")
+    p.add_argument("--secondary-batch-size", type=int, default=None,
+                   help="fixed LRW-1000 samples per batch "
+                        "(TwoStreamBatchSampler)")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="not ported yet (ROADMAP.md queue A item 13)")
+    p.add_argument("--cache-on-device", action="store_true",
+                   help="upload the whole training set to the card once and "
+                        "gather batches there by index (for datasets that "
+                        "fit)")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (by default the port runs on the "
+                        "card, and refuses to run without one)")
+    p.add_argument("--data-fraction", type=float, default=None,
+                   help="reference config.py `p`")
+    # parallelism: not ported yet
+    p.add_argument("--mesh-data", type=int, default=1)
+    p.add_argument("--mesh-model", type=int, default=1)
+    p.add_argument("--no-sync-batchnorm", action="store_true")
+    p.add_argument("--compute-dtype", type=str, default=None)
+    p.add_argument("--max-steps-per-epoch", type=int, default=None)
+    p.add_argument("--max-eval-batches", type=int, default=None)
+    p.add_argument("--beam-size", type=int, default=None,
+                   help="not ported yet (greedy decoding only)")
+    p.add_argument("--freeze", type=str, default=None,
+                   help="comma-separated param subtrees to freeze, e.g. "
+                        "'frontend,encoder' (reference requires_grad stages)")
+    p.add_argument("--bigram-lm", action="store_true",
+                   help="not ported yet (beam search)")
+    p.add_argument("--remat-frontend", default=None,
+                   action=argparse.BooleanOptionalAction,
+                   help="not ported yet: the frontend is never "
+                        "rematerialized")
+    p.add_argument("--compile-cache", type=str, default=None,
+                   help="XLA's persistent compilation cache in the JAX "
+                        "package; accepted and ignored here (the CUDA "
+                        "kernels build once per checkout into _build/)")
+    return p
+
+
+def check_ported(args) -> None:
+    """Raise for a flag whose path the port does not have yet."""
+    unported = []
+    if args.workload in NOT_PORTED:
+        unported.append(("--workload " + args.workload, args.workload))
+    for flag, key, on in (
+            ("--beam-size", "beam_size", args.beam_size is not None),
+            ("--bigram-lm", "bigram_lm", args.bigram_lm),
+            ("--mesh-data/--mesh-model", "mesh",
+             args.mesh_data > 1 or args.mesh_model > 1),
+            ("--no-sync-batchnorm", "no_sync_batchnorm", args.no_sync_batchnorm),
+            ("--remat-frontend", "remat_frontend", bool(args.remat_frontend)),
+            ("--profile-dir", "profile_dir", args.profile_dir is not None)):
+        if on:
+            unported.append((flag, key))
+    if unported:
+        flag, key = unported[0]
+        raise NotImplementedError(f"{flag} is not ported yet: {NOT_PORTED[key]}")
+
+
+def config_from_args(args) -> C.WorkloadConfig:
+    """The preset of ``--workload`` with the flags' overrides (JAX
+    ``config_from_args``, for the fields the port has)."""
+    if args.workload not in C.PRESETS:
+        check_ported(args)
+    cfg = C.PRESETS[args.workload]()
+    dims = cfg.dims
+    dim_over = {}
+    for field, flag in [("n_enc_layers", "n_layers_enc"),
+                        ("n_dec_layers", "n_layers_dec"),
+                        ("n_head", "n_head"), ("d_model", "d_model"),
+                        ("d_inner", "d_inner"), ("dropout", "dropout"),
+                        ("pe_maxlen", "pe_maxlen")]:
+        v = getattr(args, flag)
+        if v is not None:
+            dim_over[field] = v
+    if dim_over:
+        if "d_model" in dim_over:
+            d = dim_over["d_model"]
+            dim_over.setdefault("d_k", d // dims.n_head)
+            dim_over.setdefault("d_v", d // dims.n_head)
+        dims = dataclasses.replace(dims, **dim_over)
+    opt_over = {}
+    if args.label_smoothing is not None:
+        opt_over["label_smoothing"] = args.label_smoothing
+    if args.k is not None:
+        opt_over["k"] = args.k
+    if args.warmup_steps is not None:
+        opt_over["warmup_steps"] = args.warmup_steps
+    optim = dataclasses.replace(cfg.optim, **opt_over)
+    decoder = cfg.decoder
+    if args.teacher_forcing_rate is not None:
+        decoder = dataclasses.replace(
+            decoder, teacher_forcing_rate=args.teacher_forcing_rate)
+    data_over = {}
+    if args.lrw_path:
+        data_over["lrw_path"] = args.lrw_path
+    if args.lrw1000_images:
+        data_over["lrw1000_images"] = args.lrw1000_images
+    if args.data_fraction is not None:
+        data_over["data_fraction"] = args.data_fraction
+    data = dataclasses.replace(cfg.data, **data_over)
+    over = dict(dims=dims, optim=optim, decoder=decoder, data=data)
+    if args.secondary_batch_size is not None:
+        over["secondary_batch_size"] = args.secondary_batch_size
+    if args.freeze:
+        over["freeze_prefixes"] = tuple(
+            s.strip() for s in args.freeze.split(",") if s.strip())
+    if args.batch_size is not None:
+        over["batch_size"] = args.batch_size
+    if args.compute_dtype is not None:
+        over["compute_dtype"] = args.compute_dtype
+    return dataclasses.replace(cfg, **over)
+
+
+def make_datasets(cfg, args, eval_split: str = "val"):
+    """(train dataset, {name: eval dataset}).  The train dataset comes from
+    the train split or manifest; the eval datasets follow ``eval_split``
+    (the reference trains against the val splits and ``test.py`` evaluates
+    the test split and an LRW-1000 tst1.txt manifest)."""
+    from .data import SyntheticLipDataset
+    if args.synthetic or not (args.lrw_path or args.lrw1000_manifest):
+        train = SyntheticLipDataset(size=args.synthetic_size,
+                                    frames=cfg.data.frames,
+                                    raw_size=cfg.data.raw_size, kind="all")
+        # seeds keyed off the split, so val and test sets are disjoint
+        seed0 = 1 if eval_split == "val" else 3
+        size = max(args.synthetic_size // 4, 4)
+        valid = {name: SyntheticLipDataset(
+            size=size, frames=cfg.data.frames, raw_size=cfg.data.raw_size,
+            kind=name, seed=seed0 + i)
+            for i, name in enumerate(("lrw", "lrw1000"))}
+        return train, valid
+    from .data import Lrw1000Dataset, LrwDataset, MixedBilingualDataset
+    parts, valid = [], {}
+    if args.lrw_path:
+        parts.append(LrwDataset(args.lrw_path, "train", frames=cfg.data.frames,
+                                data_fraction=cfg.data.data_fraction))
+        valid["lrw"] = LrwDataset(args.lrw_path, eval_split,
+                                  frames=cfg.data.frames)
+    if args.lrw1000_manifest:
+        parts.append(Lrw1000Dataset(args.lrw1000_images, args.lrw1000_manifest,
+                                    frames=cfg.data.frames,
+                                    raw_size=cfg.data.raw_size))
+    if args.lrw1000_eval_manifest:
+        valid["lrw1000"] = Lrw1000Dataset(args.lrw1000_images,
+                                          args.lrw1000_eval_manifest,
+                                          frames=cfg.data.frames,
+                                          raw_size=cfg.data.raw_size)
+    train = parts[0] if len(parts) == 1 else MixedBilingualDataset(*parts)
+    return train, valid
+
+
+def _setup(argv):
+    args = build_argparser().parse_args(argv)
+    check_ported(args)
+    from .utils.device import resolve_device
+    device = resolve_device("cpu" if args.cpu else None)
+    return args, config_from_args(args), device
+
+
+def run_train(argv=None):
+    """``train``: fit for ``--epochs``, checkpointing to ``--save-dir``
+    (and ``<save-dir>_best``).  ``--transfer-from`` merges a checkpoint's
+    matching weights into the fresh model and starts a fresh optimizer;
+    ``--checkpoint`` resumes (model, optimizer, update count, random
+    number states) at the epoch after the saved one.  Returns the
+    ``Trainer`` and the last epoch's results (``Trainer.fit``)."""
+    args, cfg, device = _setup(argv)
+    from .training import checkpoint as ckpt
+    from .training.trainer import Trainer
+    train_ds, valid_ds = make_datasets(cfg, args)
+    tr = Trainer(cfg, train_ds, valid_ds, checkpoint_dir=args.save_dir,
+                 device=device, cache_on_device=args.cache_on_device)
+    start = 0
+    if args.transfer_from:
+        loaded = ckpt.restore_for_transfer(args.transfer_from, tr.model)
+        tr.logger.info(f"transfer: loaded {len(loaded)}/"
+                       f"{len(tr.model.state_dict())} tensors")
+        tr.reset_optimizer()
+    elif args.checkpoint and os.path.isdir(args.checkpoint):
+        start = tr.restore(args.checkpoint) + 1
+    out = tr.fit(args.epochs, max_steps_per_epoch=args.max_steps_per_epoch,
+                 max_eval_batches=args.max_eval_batches, start_epoch=start)
+    return tr, out
+
+
+def run_test(argv=None) -> Dict[str, Dict[str, float]]:
+    """``test``: load ``--checkpoint``, evaluate the test split of every
+    eval set, print and return {name: per-direction WER/PER}."""
+    args, cfg, device = _setup(argv)
+    from .models import build_model
+    from .training import checkpoint as ckpt
+    from .training.trainer import Trainer
+    _, valid_ds = make_datasets(cfg, args, eval_split="test")
+    model = build_model(cfg, device)
+    if args.checkpoint:
+        model.load_state_dict(ckpt.load(args.checkpoint)["model"])
+    tr = Trainer(cfg, [], valid_ds, model=model)
+    out = {}
+    for name, ds in valid_ds.items():
+        out[name] = tr.validate_seq2seq(ds, args.max_eval_batches)
+        print(name, out[name])
+    return out
+
+
+def main(argv: Optional[list] = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    commands = {"train": run_train, "test": run_test}
+    if not argv or argv[0] not in commands:
+        print(f"usage: python -m {__package__}.cli {{train,test}} [flags]; "
+              f"--help after the command lists the flags", file=sys.stderr)
+        return 2
+    commands[argv[0]](argv[1:])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

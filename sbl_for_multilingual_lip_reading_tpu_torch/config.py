@@ -7,8 +7,9 @@ port keeps its own copy because the machine it runs on has no JAX; the JAX
 package remains the source of truth, and ``tests/test_torch_port_package.py``
 checks that every field here equals its JAX counterpart in every preset.
 
-The ``sbl`` workload's recognize path and its train step are ported;
-``sbl_stage2`` is the same model with teacher forcing annealed to 0.1.
+The ``sbl`` workload is ported: recognize, the train step and the training
+entry point (trainer, checkpoints, CLI); ``sbl_stage2`` is the same model
+with teacher forcing annealed to 0.1.
 """
 from __future__ import annotations
 
@@ -62,6 +63,13 @@ class DataConfig:
     max_crop_offset: int = 8        # RandomCrop offset range
     random_drop_p: float = 0.0      # the LRW project's RandomDrop
     per_clip_crop: bool = False     # one crop offset per clip (LRW protocol)
+    # dataset roots of the real-data CLI (the reference's relative layout)
+    lrw_path: str = "../roi_80_116_175_211_npy_gray"
+    lrw1000_path: str = "../LRW1000_npy_rsz122_gray"
+    lrw1000_info: str = "../LRW1000_info"
+    lrw1000_images: str = "../LRW1000/images"
+    lrw1000_wav: str = "../LRW1000_audio"
+    data_fraction: float = 1.0      # share of each LRW word's clips used
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +95,9 @@ class WorkloadConfig:
     optim: OptimConfig = OptimConfig()
     batch_size: int = 240
     seed: int = 7
+    # fixed LRW-1000 samples per batch (TwoStreamBatchSampler); 0 = plain
+    # shuffling
+    secondary_batch_size: int = 0
     compute_dtype: str = "bfloat16"
     # the hand-written kernels (K1-K5) instead of their plain versions, as
     # the field selects the Pallas kernels in JAX

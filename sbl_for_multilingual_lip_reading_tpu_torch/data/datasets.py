@@ -1,0 +1,154 @@
+"""Real-data datasets of the ``sbl`` workloads: LRW npy clips, LRW-1000 jpg
+frame directories, and their bilingual mix (counterpart of the JAX
+package's ``data/datasets.py``; the same files give the same samples).
+
+Samples are dicts of numpy arrays in the form of ``SyntheticLipDataset``'s:
+clips stay uint8 on the host, and crop, flip and normalization run on the
+device.  Labels use the unified 58-token vocabulary; the other workloads'
+token tables (``vocab="lrw"``/``"lrw1000"`` in JAX) and LRW-1000's audio
+stream wait for their workloads (ROADMAP.md queue A items 9 and 11).
+OpenCV decodes the LRW-1000 jpgs and is imported only when such a dataset
+is built, so the rest of the port runs without it.
+"""
+from __future__ import annotations
+
+import glob
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..vocab import encode_english_word, encode_pinyin_seq, word_class_id
+from .manifest import Lrw1000Entry, read_manifest
+from .synthetic import _pad_labels
+
+
+class LrwDataset:
+    """LRW word clips stored as (29, 96, 96) uint8-convertible .npy files,
+    one directory per word with train/val/test splits
+    (``<root>/<WORD>/<split>/<WORD>_*.npy``, reference data_gen.py:137-151)."""
+
+    def __init__(self, root: str, split: str = "train", frames: int = 30,
+                 pad_len: int = 14, data_fraction: float = 1.0):
+        self.frames = frames
+        self.pad_len = pad_len
+        self.samples: List[tuple] = []
+        label_cache: Dict[str, tuple] = {}
+        for fold in sorted(glob.glob(os.path.join(root, "*"))):
+            files = sorted(glob.glob(os.path.join(fold, split, "*.npy")))
+            files = files[:int(len(files) * data_fraction)]
+            for f in files:
+                word = os.path.basename(f).split("_")[0]
+                if word not in label_cache:
+                    ids = encode_english_word(word)
+                    label_cache[word] = (
+                        _pad_labels(ids, pad_len),
+                        _pad_labels(ids[::-1], pad_len),
+                        np.int32(word_class_id(word)))
+                self.samples.append((f, word))
+        self._labels = label_cache
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        path, word = self.samples[i]
+        arr = np.load(path)
+        if arr.dtype != np.uint8:
+            # stored floats in [0, 1] or [0, 255]
+            arr = (arr * 255.0).astype(np.uint8) if arr.max() <= 1.0 \
+                else arr.astype(np.uint8)
+        clip = np.zeros((self.frames,) + arr.shape[1:], dtype=np.uint8)
+        n = min(len(arr), self.frames)
+        clip[:n] = arr[:self.frames]
+        labels, labels_rev, word_id = self._labels[word]
+        return {"clip_u8": clip, "labels": labels,
+                "labels_reverse": labels_rev, "lang_id": np.int32(0),
+                "word_id": word_id, "n_frames": np.int32(n)}
+
+    def labels_only(self, i: int) -> np.ndarray:
+        """Label ids without reading the clip."""
+        return self._labels[self.samples[i][1]][0]
+
+
+class Lrw1000Dataset:
+    """LRW-1000 clips as jpg frame directories + a (clean) manifest
+    (reference load_images, data_gen.py:59-97): frames ``{st..ed}.jpg``
+    resized to raw_size, at most ``frames`` of them, zero-padded."""
+
+    def __init__(self, images_root: str, manifest_path: str,
+                 frames: int = 30, raw_size: int = 96, pad_len: int = 14,
+                 limit: Optional[int] = None):
+        try:
+            import cv2
+        except ImportError as e:
+            raise RuntimeError("cv2 required for LRW-1000 jpg decoding") from e
+        self._cv2 = cv2
+        self.images_root = images_root
+        self.frames = frames
+        self.raw = raw_size
+        self.pad_len = pad_len
+        self.entries: List[Lrw1000Entry] = read_manifest(manifest_path,
+                                                         limit=limit)
+
+    def __len__(self):
+        return len(self.entries)
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        cv2 = self._cv2
+        e = self.entries[i]
+        st, ed = e.start_frame, e.end_frame
+        if ed > st + self.frames:
+            ed = st + self.frames
+        if st == ed:
+            ed = st + 1
+        clip = np.zeros((self.frames, self.raw, self.raw), dtype=np.uint8)
+        t = 0
+        for fr in range(st, ed):
+            path = os.path.join(self.images_root, e.img_dir, f"{fr}.jpg")
+            if not os.path.exists(path):
+                continue
+            img = cv2.imread(path)
+            if img is None:
+                continue
+            img = cv2.resize(img, (self.raw, self.raw))
+            clip[t] = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+            t += 1
+        ids = encode_pinyin_seq(e.pinyins)
+        return {"clip_u8": clip, "labels": _pad_labels(ids, self.pad_len),
+                "labels_reverse": _pad_labels(ids[::-1], self.pad_len),
+                "lang_id": np.int32(1),
+                "word_id": np.int32(word_class_id(" ".join(e.pinyins))),
+                "n_frames": np.int32(t)}
+
+    def labels_only(self, i: int) -> np.ndarray:
+        """Label ids without decoding any jpg."""
+        return _pad_labels(encode_pinyin_seq(self.entries[i].pinyins),
+                           self.pad_len)
+
+
+class MixedBilingualDataset:
+    """LRW + LRW-1000 concatenation (the SBL 'all' kind, data_gen.py:128)."""
+
+    def __init__(self, lrw: LrwDataset, lrw1000: Lrw1000Dataset):
+        self.lrw = lrw
+        self.lrw1000 = lrw1000
+
+    def __len__(self):
+        return len(self.lrw) + len(self.lrw1000)
+
+    def __getitem__(self, i: int):
+        if i < len(self.lrw):
+            return self.lrw[i]
+        return self.lrw1000[i - len(self.lrw)]
+
+    def labels_only(self, i: int) -> np.ndarray:
+        if i < len(self.lrw):
+            return self.lrw.labels_only(i)
+        return self.lrw1000.labels_only(i - len(self.lrw))
+
+    def stream_indices(self):
+        """(LRW indices, LRW-1000 indices) for ``TwoStreamBatchSampler``
+        (reference train.py:83-90)."""
+        n = len(self.lrw)
+        return list(range(n)), list(range(n, n + len(self.lrw1000)))

@@ -21,7 +21,7 @@ MEAN = DataConfig.mean
 STD = DataConfig.std
 
 
-def _crop(clips: torch.Tensor, offsets: torch.Tensor, crop: int) -> torch.Tensor:
+def crop_frames(clips: torch.Tensor, offsets: torch.Tensor, crop: int) -> torch.Tensor:
     """Per-frame crop of (B, T, H, W) at (B, T, 2) (y, x) offsets: one gather
     over rows, then one over columns."""
     B, T, H, W = clips.shape
@@ -59,7 +59,7 @@ def device_ingest(clips_u8: torch.Tensor, crop: int,
         c = int(round((H - crop) / 2.0))
         cropped = clips[:, :, c:c + crop, c:c + crop]
     else:
-        cropped = _crop(clips, offsets, crop)
+        cropped = crop_frames(clips, offsets, crop)
     if flip is not None:
         # in uint8, before the normalization, which commutes with it
         cropped = torch.where(flip[:, None, None, None], cropped.flip(-1), cropped)

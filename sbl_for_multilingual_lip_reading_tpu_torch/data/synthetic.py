@@ -13,7 +13,8 @@ from typing import Dict
 import numpy as np
 
 from ..vocab import (IGNORE_ID, chinese_phoneme_map, encode_english_word,
-                     encode_pinyin_seq, lrw1000_words, lrw_words)
+                     encode_pinyin_seq, lrw1000_words, lrw_words,
+                     word_class_id)
 
 
 def _pad_labels(ids, pad_len: int) -> np.ndarray:
@@ -27,7 +28,8 @@ class SyntheticLipDataset:
     """Indexable dataset of synthetic raw clips.  A sample is a dict of
     clip_u8 (frames, raw, raw) uint8, labels and labels_reverse (pad_len,)
     int32 IGNORE-padded phoneme ids, lang_id () int32 (0 = English,
-    1 = Mandarin) and n_frames () int32."""
+    1 = Mandarin), word_id () int32 (the word's index among the classify
+    head's 1500) and n_frames () int32."""
 
     def __init__(self, size: int = 64, frames: int = 30, raw_size: int = 96,
                  pad_len: int = 14, kind: str = "all", seed: int = 0):
@@ -48,20 +50,31 @@ class SyntheticLipDataset:
             return self.kind == "lrw"
         return i % 2 == 0
 
+    def stream_indices(self):
+        """(LRW indices, LRW-1000 indices): the two streams of
+        ``TwoStreamBatchSampler``."""
+        idx = range(self.size)
+        return ([i for i in idx if self._is_lrw(i)],
+                [i for i in idx if not self._is_lrw(i)])
+
     def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng(self.seed * 1000003 + i)
         clip = rng.integers(0, 256, size=(self.frames, self.raw, self.raw),
                             dtype=np.uint8)
         if self._is_lrw(i):
-            ids = encode_english_word(self._lrw[i % len(self._lrw)])
+            word = self._lrw[i % len(self._lrw)]
+            ids = encode_english_word(word)
             lang = 0
         else:
-            ids = encode_pinyin_seq(self._lrw1000[i % len(self._lrw1000)].split(" "))
+            word = self._lrw1000[i % len(self._lrw1000)]
+            ids = encode_pinyin_seq(word.split(" "))
             lang = 1
+        word_id = word_class_id(word)
         return {
             "clip_u8": clip,
             "labels": _pad_labels(ids, self.pad_len),
             "labels_reverse": _pad_labels(ids[::-1], self.pad_len),
             "lang_id": np.int32(lang),
+            "word_id": np.int32(word_id),
             "n_frames": np.int32(self.frames),
         }

@@ -7,6 +7,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..utils.device import resolve_device
 from .decoder_sbl import SBLDecoder
 from .encoder import encoder_from_config
 from .frontend import frontend_from_config
@@ -33,14 +34,17 @@ def build_model(cfg, device=None, seed: Optional[int] = None) -> SBLTransformer:
     """Construct the eval-mode model for a WorkloadConfig (the port's, or the
     JAX package's: the fields read are the same) with f32 weights drawn
     from ``seed`` (default ``cfg.seed``) on the CPU, then moved to
-    ``device``; ``.train()`` switches it to training.
-    ``cfg.use_pallas_attention`` selects the hand-written kernels (K1-K5) or
+    ``device``: the card when it is None (raising without one), the CPU
+    only when asked.  ``.train()`` switches it to training.
+    ``cfg.use_pallas_attention`` selects the hand-written kernels (K1-K8) or
     their plain PyTorch versions, as it selects the Pallas kernels in the
-    JAX package."""
+    JAX package; ``PALLAS_BN`` in the environment builds the frontend with
+    ``FastBatchNorm`` (K7, K8), as it does in JAX."""
     if cfg.name != "sbl":
         raise NotImplementedError(
             f"workload {cfg.name!r} is not ported yet: "
             f"{_NOT_PORTED.get(cfg.name, 'ROADMAP.md queue A')}")
+    device = resolve_device(device)
     dtype = getattr(torch, cfg.compute_dtype)
     kernels = cfg.use_pallas_attention
     dims, d = cfg.dims, cfg.decoder
@@ -59,6 +63,4 @@ def build_model(cfg, device=None, seed: Optional[int] = None) -> SBLTransformer:
     model = SBLTransformer(frontend, encoder, decoder)
     init_weights(model, torch.Generator().manual_seed(
         cfg.seed if seed is None else seed))
-    if device is not None:
-        model = model.to(device)
-    return model.eval()
+    return model.to(device).eval()

@@ -12,19 +12,30 @@ same NCHW form the JAX Pallas path feeds its conv.  The stem weight keeps
 the reference's conv3d meaning as a conv2d weight (C, kt, 7, 7).  Weights
 are f32 and convs run in the compute dtype; BatchNorm runs in f32 (batch
 statistics in training, running statistics in eval) and its output is
-rounded to the compute dtype, as in JAX.  The JAX package's default-off or
-multi-replica BN variants (GroupedBatchNorm, FastBatchNorm, DotBatchNorm,
-FusedBNAct) and its Pallas BasicBlock are not ported.
+rounded to the compute dtype, as in JAX.
+
+``FastBatchNorm`` takes the train-mode statistics from kernels K7/K8
+(``ops/batchnorm.py::bn_train``) instead of torch reductions.  As in JAX it
+replaces every BatchNorm of the frontend (the stem's ``bn3d`` and each
+block's ``bn1``, ``bn2`` and ``downsample_bn``) when the module's
+``use_pallas_bn`` field or ``PALLAS_BN`` in the environment asks for it
+(read when the frontend is built); both default off.  JAX gives
+``DotBatchNorm`` and ``GroupedBatchNorm`` precedence over it, and
+``FastBatchNorm`` precedence over ``FusedBNAct``: none of the three is
+ported, so the choice here is between the two.  The JAX package's Pallas
+BasicBlock is not ported either.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.batchnorm import bn_train
 from ..ops.stem import stack_frames, stack_frames_plain
 from .layers import DropoutRNG, dropout
 
@@ -87,6 +98,43 @@ class BatchNorm(nn.Module):
         return (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
+class FastBatchNorm(BatchNorm):
+    """``BatchNorm`` whose train-mode statistics come from one read of x
+    (K7) and whose backward takes its reductions from one read of (dy, x)
+    (K8), through ``bn_train`` (JAX ``FastBatchNorm``).  The same
+    parameters and buffers as ``BatchNorm``, so checkpoints interchange.
+    Its train output is in x's dtype; eval mode is ``BatchNorm``'s, on the
+    running statistics, and launches nothing new.  ``use_kernels`` False
+    takes the kernels' plain versions on any device."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9,
+                 use_kernels: bool = True):
+        super().__init__(channels, eps, momentum)
+        self.use_kernels = use_kernels
+
+    def _train(self, x: torch.Tensor) -> torch.Tensor:
+        y, mean, var = bn_train(x, self.weight, self.bias, self.eps,
+                                self.use_kernels)
+        with torch.no_grad():
+            keep = self.momentum
+            self.running_mean.mul_(keep).add_((1.0 - keep) * mean)
+            self.running_var.mul_(keep).add_((1.0 - keep) * var)
+        return y
+
+
+def pallas_bn_on(field: bool) -> bool:
+    """The frontend's BatchNorms are ``FastBatchNorm`` (JAX
+    ``_pallas_bn_on``): the module's field, or ``PALLAS_BN`` set."""
+    return field or bool(os.environ.get("PALLAS_BN"))
+
+
+def make_batchnorm(channels: int, eps: float, momentum: float,
+                   use_pallas_bn: bool, use_kernels: bool) -> BatchNorm:
+    if pallas_bn_on(use_pallas_bn):
+        return FastBatchNorm(channels, eps, momentum, use_kernels)
+    return BatchNorm(channels, eps, momentum)
+
+
 class Conv2d(nn.Conv2d):
     """Bias-free 'same' conv whose f32 weight is cast to the compute dtype
     where it is used (flax ``nn.Conv`` with ``dtype=``)."""
@@ -105,18 +153,22 @@ class BasicBlock(nn.Module):
 
     def __init__(self, c_in: int, filters: int, stride: int = 1,
                  bn_epsilon: float = 1e-5, dtype=torch.float32,
-                 bn_momentum: float = 0.9):
+                 bn_momentum: float = 0.9, use_pallas_bn: bool = False,
+                 use_kernels: bool = True):
         super().__init__()
         self.dtype = dtype
-        bn = dict(eps=bn_epsilon, momentum=bn_momentum)
+
+        def bn():
+            return make_batchnorm(filters, bn_epsilon, bn_momentum,
+                                  use_pallas_bn, use_kernels)
         self.conv1 = Conv2d(c_in, filters, 3, stride, dtype)
-        self.bn1 = BatchNorm(filters, **bn)
+        self.bn1 = bn()
         self.conv2 = Conv2d(filters, filters, 3, 1, dtype)
-        self.bn2 = BatchNorm(filters, **bn)
+        self.bn2 = bn()
         self.has_downsample = stride != 1 or c_in != filters
         if self.has_downsample:
             self.downsample_conv = Conv2d(c_in, filters, 1, stride, dtype)
-            self.downsample_bn = BatchNorm(filters, **bn)
+            self.downsample_bn = bn()
 
     def init_weights(self, g: torch.Generator) -> None:
         for conv in (self.conv1, self.conv2):
@@ -140,7 +192,8 @@ class ResNetTrunk(nn.Module):
 
     def __init__(self, c_in: int, channels: Sequence[int] = (64, 128, 256, 512),
                  blocks: Sequence[int] = (2, 2, 2, 2), bn_epsilon: float = 1e-5,
-                 dtype=torch.float32, bn_momentum: float = 0.9):
+                 dtype=torch.float32, bn_momentum: float = 0.9,
+                 use_pallas_bn: bool = False, use_kernels: bool = True):
         super().__init__()
         self.dtype = dtype
         self.names = []
@@ -149,7 +202,8 @@ class ResNetTrunk(nn.Module):
                 stride = 2 if (stage > 0 and b == 0) else 1
                 name = f"layer{stage + 1}_block{b}"
                 self.add_module(name, BasicBlock(c_in, ch, stride, bn_epsilon,
-                                                 dtype, bn_momentum))
+                                                 dtype, bn_momentum,
+                                                 use_pallas_bn, use_kernels))
                 self.names.append(name)
                 c_in = ch
 
@@ -167,15 +221,18 @@ class VisualFrontend(nn.Module):
                  resnet_blocks: Sequence[int] = (2, 2, 2, 2),
                  feature_dim: int = 512, bn_epsilon: float = 1e-5,
                  dtype=torch.float32, use_kernels: bool = True,
-                 dropout: float = 0.5, bn_momentum: float = 0.9):
+                 dropout: float = 0.5, bn_momentum: float = 0.9,
+                 use_pallas_bn: bool = False):
         super().__init__()
         self.dtype, self.use_kernels = dtype, use_kernels
         self.feature_dim, self.dropout = feature_dim, dropout
         self.conv3d_weight = nn.Parameter(torch.empty(
             (conv3d_channels, STEM_KT, 7, 7)))
-        self.bn3d = BatchNorm(conv3d_channels, bn_epsilon, bn_momentum)
+        self.bn3d = make_batchnorm(conv3d_channels, bn_epsilon, bn_momentum,
+                                   use_pallas_bn, use_kernels)
         self.resnet = ResNetTrunk(conv3d_channels, resnet_channels,
-                                  resnet_blocks, bn_epsilon, dtype, bn_momentum)
+                                  resnet_blocks, bn_epsilon, dtype, bn_momentum,
+                                  use_pallas_bn, use_kernels)
 
     def init_weights(self, g: torch.Generator) -> None:
         _he_normal_fan_out(self.conv3d_weight, g)

@@ -6,10 +6,15 @@ from .attention import (MASK_FILL, dropout_keep_mask_flat,
                         small_mha_dropout_bwd_flat_plain, small_mha_dropout_flat,
                         small_mha_dropout_flat_plain, small_mha_dropout_fwd_flat,
                         small_mha_flat, small_mha_flat_plain)
+from .batchnorm import (bn_train, channel_sums, channel_sums_pair,
+                        channel_sums_pair_plain, channel_sums_plain)
+from .ingest import ingest_train, ingest_train_plain
 from .stem import stack_frames, stack_frames_plain
 
+# K1 ... K8, in the order they were ported
 KERNELS = (small_mha_flat, stack_frames, small_mha_dropout_fwd_flat,
-           small_mha_dropout_bwd_flat, dropout_keep_mask_flat)
+           small_mha_dropout_bwd_flat, dropout_keep_mask_flat, ingest_train,
+           channel_sums, channel_sums_pair)
 
 
 def reset_launch_counts() -> None:

@@ -1,14 +1,15 @@
 """Build the port's hand-written CUDA kernels and load them with ctypes.
 
-All ``csrc/*.cu`` files compile with one ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds).  The library is built at first use into ``_build/`` beside the
-package, named by a hash of the sources and flags, so an edited kernel is
-rebuilt and an unchanged one is loaded as it is.  The build writes to a
-temporary name and renames it into place, so a build that is cut off never
-leaves a library that looks finished.  nvcc's output (``-Xptxas -v``:
-registers, shared memory and spills per kernel) is kept beside the library
-as ``<name>.log``.
+Each ``csrc/*.cu`` file compiles in its own ``nvcc`` process, all started
+together, and one more call links the objects into one shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds).  The
+library is built at first use into ``_build/`` beside the package, named by
+a hash of the sources and flags, so an edited kernel is rebuilt and an
+unchanged one is loaded as it is.  The build works in a temporary directory
+and renames the library into place, so a build that is cut off never leaves
+a library that looks finished.  nvcc's output (``-Xptxas -v``: registers,
+shared memory and spills per kernel) is kept beside the library as
+``<name>.log``.
 
 Each C entry point returns ``cudaGetLastError()`` of its launch; the
 wrappers in ``ops/`` raise when it is not 0.
@@ -29,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,6 +56,16 @@ _SIGNATURES = {
                                        _I, _I, _P],
     # out, B, H, Tq, Tk, seed, thresh, device, stream
     "sbl_dropout_keep_mask_flat": [_P, _I, _I, _I, _I, _SEED, _U, _I, _P],
+    # clips, offsets, flip, frame_map, n_frames, out, B, T, H, W, crop,
+    # inv_std, shift, dtype, device, stream
+    "sbl_ingest_train": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                         _I, _I, _P],
+    # x, part, out, N, C, HW, cg, chunk, chunks, dtype, device, stream
+    "sbl_channel_sums": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dy, x, mean, inv, part, out, N, C, HW, cg, chunk, chunks, dtype,
+    # device, stream
+    "sbl_channel_sums_pair": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _P],
 }
 
 
@@ -87,20 +98,29 @@ def _compile(target: Path) -> None:
             "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
             "build only on a machine with the CUDA toolkit")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in sources() if s.suffix == ".cu"]]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cus = [src for src in sources() if src.suffix == ".cu"]
+        objs = [str(Path(tmp) / (src.stem + ".o")) for src in cus]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(cus, objs)]
+        logs, failed = [], []
+        for src, proc in zip(cus, procs):
+            out = proc.communicate()[0]
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}) on {src.name}:\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = str(Path(tmp) / target.name)
+        res = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                             capture_output=True, text=True, check=False)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}"
-                               f"\n{res.stdout}\n{res.stderr}")
-        target.with_suffix(".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stdout}\n{res.stderr}")
+        target.with_suffix(".log").write_text("".join(logs))
+        os.replace(lib, target)
 
 
 @functools.lru_cache(maxsize=None)

@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from ..utils.device import resolve_device
 from . import _build
 
 # additive fill for disallowed positions; -inf is avoided so a fully masked
@@ -220,19 +221,18 @@ def dropout_keep_mask_flat_plain(B: int, Tq: int, Tk: int, H: int, seed: int,
 
 
 def dropout_keep_mask_flat(B: int, Tq: int, Tk: int, H: int, seed: int,
-                           rate: float, device="cpu") -> torch.Tensor:
+                           rate: float, device=None) -> torch.Tensor:
     """K5: the (B, H, Tq, Tk) bool keep mask that K3 and K4 draw for
-    ``seed`` on a (B, Tq, H*d) x (B, Tk, H*d) launch.  On a CUDA device it
-    launches the kernel; on the CPU it takes the plain version."""
-    device = torch.device(device)
+    ``seed`` on a (B, Tq, H*d) x (B, Tk, H*d) launch.  On a CUDA device (the
+    default) it launches the kernel, and raises without a card; on the CPU
+    (``device="cpu"``) it takes the plain version."""
     seed = _check_seed(seed)
     thresh = dropout_threshold(rate)
+    device = resolve_device(device)
     if device.type == "cpu":
         return dropout_keep_mask_flat_plain(B, Tq, Tk, H, seed, rate, device)
     if device.type != "cuda":
         raise ValueError(f"dropout_keep_mask_flat: unsupported device {device}")
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
     out = torch.empty((B, H, Tq, Tk), dtype=torch.bool, device=device)
     if out.numel() == 0:
         return out

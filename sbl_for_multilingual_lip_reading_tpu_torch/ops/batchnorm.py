@@ -1,0 +1,200 @@
+"""Train-mode BatchNorm on one-pass channel statistics (kernels K7 and K8)
+and their plain PyTorch versions.
+
+Counterpart of the JAX package's ``ops/batchnorm.py`` (Pallas TPU kernels
+behind ``PALLAS_BN=1`` or ``use_pallas_bn``, ``models/frontend.py``):
+
+* K7 ``channel_sums``: x (N, C, H, W) -> f32 (C,) sum x and sum x^2, one
+  read of x;
+* K8 ``channel_sums_pair``: (dy, x, mean, inv) -> f32 (C,) sum dy and
+  sum dy * (x - mean) * inv, one read of each, which are d_bias and d_scale;
+  both form each term in f32 and sum in double, so both give the exact sum
+  rounded once to f32 (JAX sums in f32): an ulp of difference in a mean
+  would flip ReLU and max-pool routing downstream;
+* ``bn_train``: a ``torch.autograd.Function`` mirroring the JAX custom VJP:
+  y = (x * a + b) cast to x's dtype with a = inv * scale and
+  b = bias - mean * a, the biased variance q/n - mean^2 (no clamp), and dx
+  in its affine form dx = g1 * dy + A * x + (B - A * mean), honouring
+  cotangents on the returned mean and var (zero when they are unused).
+
+The JAX kernels reduce (N, HW, C) blocks; the port keeps activations NCHW,
+so K7 and K8 reduce over (N, H, W) for each C of an NCHW tensor: the same
+sums in another memory order.  The CUDA kernels are ``csrc/batchnorm.cu``;
+their design note is there.
+
+On CPU tensors the wrappers run the plain versions; on CUDA tensors they
+launch the kernels or raise.  ``channel_sums.launches`` and
+``channel_sums_pair.launches`` count the kernels' launches.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+MAX_RUN = 2048         # positions one block sums per sample (8 per thread)
+TARGET_BLOCKS = 2048   # blocks per launch the tiling aims at (132 SMs)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _as3(x: torch.Tensor) -> torch.Tensor:
+    if x.dim() < 2:
+        raise ValueError(f"expected (N, C, ...) activations; got {tuple(x.shape)}")
+    return x.reshape(x.shape[0], x.shape[1], -1)
+
+
+def tiling(N: int, C: int, HW: int) -> Tuple[int, int, int]:
+    """(channels per block, samples per block, blocks along N) of a K7/K8
+    launch: as many adjacent channels as fit MAX_RUN positions, balanced
+    over the groups, and N cut into about TARGET_BLOCKS / groups chunks,
+    none of them empty."""
+    cg = max(1, min(C, MAX_RUN // HW))
+    groups = -(-C // cg)
+    cg = -(-C // groups)
+    chunks = max(1, min(N, -(-TARGET_BLOCKS // groups), 65535))
+    chunk = -(-N // chunks)
+    return cg, chunk, -(-N // chunk)
+
+
+def channel_sums_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7: (sum x, sum x^2) per channel of (N, C, ...), the
+    squares in f32 and the sums in double, rounded once to f32."""
+    xf = _as3(x).to(torch.float32)
+    return (xf.sum(dim=(0, 2), dtype=torch.float64).float(),
+            (xf * xf).sum(dim=(0, 2), dtype=torch.float64).float())
+
+
+def channel_sums_pair_plain(dy: torch.Tensor, x: torch.Tensor,
+                            mean: torch.Tensor, inv: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K8: (sum dy, sum dy * (x - mean) * inv) per channel
+    of (N, C, ...), the terms in f32 and the sums in double, rounded once
+    to f32."""
+    g = _as3(dy).to(torch.float32)
+    xhat = (_as3(x).to(torch.float32) - mean[:, None]) * inv[:, None]
+    return (g.sum(dim=(0, 2), dtype=torch.float64).float(),
+            (g * xhat).sum(dim=(0, 2), dtype=torch.float64).float())
+
+
+def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    x = tensors[-1]
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    for t in tensors:
+        if t.dtype != x.dtype or t.shape != x.shape or t.device != x.device:
+            raise ValueError(f"{name}: dy and x must match in shape, dtype and "
+                             f"device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: takes f32 or bf16; got {x.dtype}")
+    HW = _as3(x).shape[2]
+    if HW > MAX_RUN:
+        raise ValueError(f"{name}: a block holds planes of at most {MAX_RUN} "
+                         f"positions; got {HW}")
+
+
+def _launch(name, fn, inputs, extra, x):
+    N, C, HW = _as3(x).shape
+    if x.numel() == 0:
+        out = torch.zeros((2, C), dtype=torch.float32, device=x.device)
+        return out[0], out[1]
+    out = torch.empty((2, C), dtype=torch.float32, device=x.device)
+    cg, chunk, chunks = tiling(N, C, HW)
+    part = torch.empty((2, chunks, C), dtype=torch.float64, device=x.device)
+    err = fn(*[t.data_ptr() for t in inputs], *[t.data_ptr() for t in extra],
+             part.data_ptr(), out.data_ptr(), N, C, HW, cg, chunk, chunks,
+             _DTYPE_CODES[x.dtype], x.device.index,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, name)
+    return out[0], out[1]
+
+
+def channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7: f32 (C,) sum x and sum x^2 over (N, H, W) of an (N, C, H, W)
+    tensor.  CUDA tensors (f32 or bf16, contiguous, H*W <= 2048) launch the
+    kernel; CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return channel_sums_plain(x)
+    _check_cuda("channel_sums", x)
+    s, q = _launch("channel_sums", _build.library().sbl_channel_sums, (x,),
+                   (), x)
+    channel_sums.launches += 1
+    return s, q
+
+
+channel_sums.launches = 0
+
+
+def channel_sums_pair(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
+                      inv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8: f32 (C,) sum dy and sum dy * (x - mean) * inv over (N, H, W).
+    CUDA tensors (K7's conditions, dy like x, mean and inv f32 (C,)) launch
+    the kernel; CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return channel_sums_pair_plain(dy, x, mean, inv)
+    _check_cuda("channel_sums_pair", dy, x)
+    C = x.shape[1]
+    stats = [t.to(device=x.device, dtype=torch.float32).contiguous()
+             for t in (mean, inv)]
+    if any(tuple(t.shape) != (C,) for t in stats):
+        raise ValueError(f"channel_sums_pair: mean and inv must be ({C},)")
+    s, q = _launch("channel_sums_pair", _build.library().sbl_channel_sums_pair,
+                   (dy, x), stats, x)
+    channel_sums_pair.launches += 1
+    return s, q
+
+
+channel_sums_pair.launches = 0
+
+
+def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return v.view(-1, *([1] * (x.dim() - 2)))
+
+
+class _BNTrain(torch.autograd.Function):
+    """Forward K7 (or its plain version), backward K8 (or its plain
+    version); saves x, scale, mean and inv, as the JAX custom VJP does."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, use_kernels):
+        s, q = (channel_sums if use_kernels else channel_sums_plain)(x)
+        n = x.numel() // x.shape[1]
+        mean = s / n
+        var = q / n - mean * mean
+        inv = torch.rsqrt(var + eps)
+        a = inv * scale
+        b = bias - mean * a
+        y = (x.to(torch.float32) * _per_channel(a, x)
+             + _per_channel(b, x)).to(x.dtype)
+        ctx.save_for_backward(x, scale, mean, inv)
+        ctx.use_kernels = use_kernels
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, dmean, dvar):
+        x, scale, mean, inv = ctx.saved_tensors
+        pair = channel_sums_pair if ctx.use_kernels else channel_sums_pair_plain
+        sum_dy, sum_dy_xhat = pair(dy.contiguous(), x, mean, inv)
+        n = x.numel() // x.shape[1]
+        # dx = g1 (dy - sum_dy/n - xhat sum_dy_xhat/n) + dmean/n
+        #      + 2 dvar (x - mean)/n, with g1 = inv * scale, as affine in x
+        g1 = inv * scale
+        A = -(g1 * inv * sum_dy_xhat) / n + 2.0 * dvar / n
+        B = -(g1 * sum_dy) / n + dmean / n
+        dx = (_per_channel(g1, x) * dy.to(torch.float32)
+              + _per_channel(A, x) * x.to(torch.float32)
+              + _per_channel(B - A * mean, x)).to(x.dtype)
+        return dx, sum_dy_xhat, sum_dy, None, None
+
+
+def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+             eps: float, use_kernels: bool = True):
+    """Train-mode BatchNorm over all but axis 1 of ``x`` (N, C, ...).
+    Returns (y in x's dtype, f32 mean, f32 biased variance).  The forward
+    takes K7 and the backward K8 through their wrappers (plain versions on
+    CPU tensors), or with ``use_kernels=False`` the plain versions on any
+    device."""
+    return _BNTrain.apply(x, scale, bias, eps, use_kernels)

@@ -25,12 +25,12 @@ import numpy as np
 import torch
 
 from . import config as C
-from .data import SyntheticLipDataset
+from .data import Batcher, SyntheticLipDataset
 from .models import build_model
 from .profile_recognize import card_name, profile_call, report
 from .training.schedule import make_optimizer
 from .training.steps import make_sbl_train_step
-from .training.trainer import attach_plans, batches
+from .training.trainer import attach_plans
 
 WARMUP_STEPS = 2
 
@@ -49,7 +49,7 @@ def main(argv=None) -> int:
     step = make_sbl_train_step(model, make_optimizer(model, cfg.optim), cfg)
     data = SyntheticLipDataset(size=args.batch, frames=cfg.data.frames,
                                raw_size=cfg.data.raw_size, seed=args.seed)
-    batch = attach_plans(next(batches(data, args.batch, args.seed)),
+    batch = attach_plans(next(iter(Batcher(data, args.batch, seed=args.seed))),
                          np.random.default_rng(args.seed), cfg)
     batch = {k: torch.as_tensor(np.asarray(v)).to(dev) for k, v in batch.items()}
     generator = torch.Generator().manual_seed(args.seed)

@@ -9,7 +9,7 @@ The path the JAX package's ``bench.py`` times (``recognize_batch``) and its
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -26,16 +26,20 @@ class Recognition(NamedTuple):
 
 
 def recognize_batch(model: SBLTransformer, clips_u8: torch.Tensor,
-                    crop: int) -> Recognition:
+                    crop: int, n_frames: Optional[torch.Tensor] = None
+                    ) -> Recognition:
     """clips_u8: (B, T, H, W) uint8 on the model's device; ``crop`` is the
-    config's ``data.crop_size``.  Ingests in the model's compute dtype and
+    config's ``data.crop_size``; n_frames: optional (B,) valid-frame counts,
+    whose padding slots are zeroed after normalization (JAX's eval step
+    passes them).  Ingests in the model's compute dtype and
     decodes greedily in both directions, with the f32 weights of every
     ``Dense`` cast to the compute dtype once per batch.  Puts the model in
     eval mode (BatchNorm on its running statistics, as JAX's recognize runs
     with train=False), also after a train step left it in train mode."""
     model.eval()
     with torch.inference_mode(), cast_dense_weights(model):
-        video = device_ingest(clips_u8, crop, model.frontend.dtype)
+        video = device_ingest(clips_u8, crop, model.frontend.dtype,
+                              n_frames=n_frames)
         return Recognition(*model.decode(video))
 
 
@@ -43,8 +47,10 @@ def expected_launches(cfg) -> Dict[str, int]:
     """Kernel launches one ``recognize_batch`` makes on the kernel path:
     one frame stack, and one attention per encoder layer plus two (self and
     cross, both directions folded into one launch) per decoder layer and
-    decode step; none of the training kernels."""
+    decode step; none of the training kernels (BatchNorm runs on its
+    running statistics)."""
     dims, d = cfg.dims, cfg.decoder
     return {"small_mha_flat": dims.n_enc_layers + 2 * d.maxlen * dims.n_dec_layers,
             "stack_frames": 1, "small_mha_dropout_fwd_flat": 0,
-            "small_mha_dropout_bwd_flat": 0, "dropout_keep_mask_flat": 0}
+            "small_mha_dropout_bwd_flat": 0, "dropout_keep_mask_flat": 0,
+            "ingest_train": 0, "channel_sums": 0, "channel_sums_pair": 0}

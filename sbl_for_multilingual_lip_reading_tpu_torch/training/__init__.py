@@ -1,2 +1,3 @@
-"""The SBL train step of the port: loss, Noam + Adam, the step, and the
-``train_steps`` entry point."""
+"""Training of the port's ``sbl`` workloads: loss, Noam + Adam, the train
+step, checkpoints, and the ``Trainer`` entry point (``train_steps`` on top
+of it)."""

@@ -1,7 +1,8 @@
 """The SBL train step (counterpart of the JAX package's
 ``training/steps.py::make_sbl_train_body``):
 
-    uint8 clips + plans -> train ingest -> frontend (batch-statistics BN)
+    uint8 clips + plans -> train ingest (K6 under PALLAS_INGEST)
+    -> frontend (batch-statistics BN; K7/K8 under PALLAS_BN)
     -> encoder -> teacher-forced bidirectional decode, with dropout
     -> loss 0.5 * (l2r + r2l), label smoothing -> backward
     -> frozen subtrees' gradients zeroed -> Adam with the Noam lr
@@ -17,11 +18,14 @@ step builds the forward's ``DropoutRNG``.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from ..data.ingest import device_ingest
+from ..models.frontend import pallas_bn_on
+from ..ops.ingest import MAX_OFFSET, ingest_train, ingest_train_plain
 from ..models.layers import DropoutRNG
 from .loss import cal_performance
 from .state import TrainState
@@ -37,25 +41,60 @@ def freeze_grads(model: torch.nn.Module, freeze_prefixes: Sequence[str]) -> None
             p.grad = torch.zeros_like(p)
 
 
-def ingest_train(batch: Dict[str, torch.Tensor], crop: int,
-                 dtype: torch.dtype) -> torch.Tensor:
-    """The train branch of ``device_ingest`` on a batch with plans."""
-    return device_ingest(batch["clip_u8"], crop, dtype,
-                         n_frames=batch.get("n_frames"),
+def kernel_ingest_on(raw: int, crop: int) -> bool:
+    """``PALLAS_INGEST`` is set and the crop offsets fit the kernel's range
+    (JAX ``_ingest_train``'s branch on shape)."""
+    return bool(os.environ.get("PALLAS_INGEST")) and raw - crop <= MAX_OFFSET
+
+
+def ingest_train_batch(batch: Dict[str, torch.Tensor], crop: int,
+                       dtype: torch.dtype, use_kernels: bool = True
+                       ) -> torch.Tensor:
+    """Train ingest of a batch with plans (JAX ``_ingest_train``, reading
+    ``PALLAS_INGEST`` where it does, at every step): K6 (or, with
+    ``use_kernels`` False, its plain version) when the switch is set and the
+    frames are at most MAX_OFFSET wider than the crop, else the train branch
+    of ``device_ingest``."""
+    clips = batch["clip_u8"]
+    H, W = clips.shape[2:]
+    if kernel_ingest_on(max(H, W), crop):
+        fn = ingest_train if use_kernels else ingest_train_plain
+        return fn(clips, *(batch[k] for k in PLAN_KEYS), crop, dtype,
+                  n_frames=batch.get("n_frames"))
+    return device_ingest(clips, crop, dtype, n_frames=batch.get("n_frames"),
                          **{k: batch[k] for k in PLAN_KEYS})
+
+
+def frontend_bn_count(fcfg) -> int:
+    """BatchNorms in the frontend: the stem's, two per block and one per
+    block with a downsample (stride 2, or a change of width)."""
+    n, c_in = 1, fcfg.conv3d_channels
+    for stage, (ch, blocks) in enumerate(zip(fcfg.resnet_channels,
+                                             fcfg.resnet_blocks)):
+        for b in range(blocks):
+            n += 2 + int((stage > 0 and b == 0) or c_in != ch)
+            c_in = ch
+    return n
 
 
 def expected_launches(cfg) -> Dict[str, int]:
     """Kernel launches one train step makes on the kernel path: K2 once;
     K3 once per encoder layer and per decoder layer, attention and decode
     step, and once more for each decoder call in the checkpoint's
-    recompute; K4 once per K3 of the forward; no K1 or K5."""
+    recompute; K4 once per K3 of the forward; no K1 or K5; K6 once under
+    ``PALLAS_INGEST``; K7 once per frontend BatchNorm in the forward and K8
+    once per BatchNorm in the backward under ``PALLAS_BN`` (as the
+    environment stands when this is called)."""
     enc = cfg.dims.n_enc_layers
     dec = 2 * cfg.decoder.maxlen * cfg.dims.n_dec_layers
+    bns = frontend_bn_count(cfg.frontend) if pallas_bn_on(False) else 0
     return {"small_mha_flat": 0, "stack_frames": 1,
             "small_mha_dropout_fwd_flat": enc + dec * (2 if cfg.remat_decoder else 1),
             "small_mha_dropout_bwd_flat": enc + dec,
-            "dropout_keep_mask_flat": 0}
+            "dropout_keep_mask_flat": 0,
+            "ingest_train": int(kernel_ingest_on(cfg.data.raw_size,
+                                                 cfg.data.crop_size)),
+            "channel_sums": bns, "channel_sums_pair": bns}
 
 
 def _mark(marks: Optional[List], name: str) -> None:
@@ -81,6 +120,7 @@ def make_sbl_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer
     crop = cfg.data.crop_size
     dtype = getattr(torch, cfg.compute_dtype)
     smoothing = cfg.optim.label_smoothing
+    kernels = cfg.use_pallas_attention
     device = next(model.parameters()).device
     state = TrainState(model, optimizer, cfg.optim)
 
@@ -89,7 +129,7 @@ def make_sbl_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer
              marks: Optional[List] = None) -> Dict[str, torch.Tensor]:
         model.train()
         _mark(marks, "start")
-        video = ingest_train(batch, crop, dtype)
+        video = ingest_train_batch(batch, crop, dtype, kernels)
         _mark(marks, "ingest")
         rng = DropoutRNG(int(torch.randint(0, 2 ** 62, (1,), generator=generator)),
                          device)

@@ -1,29 +1,47 @@
-"""The train slice's entry point (counterpart of the JAX package's
-``Trainer.train_epoch(max_steps=n)`` for the ``sbl`` workload).
+"""The training entry point of the ``sbl`` workloads (counterpart of the
+JAX package's ``training/trainer.py``): the epoch loop, greedy validation
+with WER/PER, the best-model checkpoint, and ``train_steps``.
 
-Batches come from an indexable dataset, shuffled per epoch as the JAX
-``Batcher`` shuffles them, get their augmentation plans on the host
-(``attach_plans``), move to the device as uint8, and go through the train
-step.  Checkpoints, eval loops, the three-stage recipe and the CLI are not
-ported yet (ROADMAP.md queue A item 8).
+Reproduces the reference's protocol (SBL train.py): epoch loop -> train
+(dual 0.5 * (l2r + r2l) loss) -> validation on each eval set (greedy
+bidirectional decode, WER and PER per direction) -> best model = the least
+sum of l2r WER over the eval sets (train.py:161-175) -> checkpoint.
+
+Eval-protocol parity (test.py:185-218): predictions are truncated to
+``gold_length + 1`` tokens before sos/eos/IGNORE are filtered, and WER is
+computed over joined phoneme strings.
+
+A ``Trainer`` holds one ``torch.Generator`` (the steps' dropout seeds and
+teacher-forcing coins) and one ``np.random.Generator`` (the augmentation
+plans), both from ``cfg.seed``, as the JAX trainer holds its PRNG key and
+``np_rng``.  Batches come from ``Batcher`` -> ``attach_plans`` on a producer
+thread (``background_iter``) -> ``prefetch_to_device``; or, with
+``cache_on_device``, from the uint8 dataset uploaded to the card once and
+gathered there by index, in the same order with the same plans.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, NamedTuple, Optional
+import dataclasses
+import itertools
+import time
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..data.pipeline import Batcher, background_iter, prefetch_to_device
+from ..data.sampler import TwoStreamBatchSampler
 from ..data.transforms import make_train_plans
 from ..models import build_model
+from ..recognize import recognize_batch
+from ..utils.device import resolve_device
+from ..utils.logging import get_logger
+from ..utils.metrics import AverageMeter, per_compute, wer_compute
+from ..utils.profiler import StepTimer
+from ..vocab import EOS_ID, IGNORE_ID, SOS_ID, TOTAL_PHONEMES
+from . import checkpoint as ckpt
 from .schedule import make_optimizer
 from .steps import make_sbl_train_step
-
-
-class TrainResult(NamedTuple):
-    model: torch.nn.Module
-    optimizer: torch.optim.Optimizer
-    history: List[Dict[str, float]]   # one dict of metrics per step
 
 
 def attach_plans(batch: Dict, rng: np.random.Generator, cfg) -> Dict:
@@ -43,41 +61,283 @@ def attach_plans(batch: Dict, rng: np.random.Generator, cfg) -> Dict:
     return dict(batch, offsets=offsets, flip=flip, frame_map=fmap)
 
 
-def batches(dataset, batch_size: int, seed: int) -> Iterator[Dict]:
-    """One epoch of full batches in a shuffled order (JAX ``Batcher``
-    with shuffle=True, drop_last=True)."""
-    order = np.arange(len(dataset))
-    np.random.default_rng(seed).shuffle(order)
-    for s in range(0, len(order) // batch_size * batch_size, batch_size):
-        samples = [dataset[int(i)] for i in order[s:s + batch_size]]
-        yield {k: np.stack([x[k] for x in samples]) for k in samples[0]}
+def decode_to_phonemes(pred_row: Sequence[int], gold_row: Sequence[int],
+                       vocab: Sequence[str] = TOTAL_PHONEMES
+                       ) -> Tuple[List[str], List[str]]:
+    """The reference eval protocol on one sample (test.py:185-212): gold
+    filtered of specials; the prediction truncated to len(gold)+1 raw
+    tokens, then filtered."""
+    specials = (SOS_ID, EOS_ID, IGNORE_ID)
+    golds = [vocab[i] for i in gold_row if i not in specials]
+    preds = [vocab[i] for i in list(pred_row)[:len(golds) + 1]
+             if i not in specials]
+    return preds, golds
 
 
-def train_steps(cfg, dataset, n_steps: int, device, seed: Optional[int] = None,
+class _Scores:
+    """Joined strings for WER and phoneme lists for PER, one per sample."""
+
+    def __init__(self):
+        self.pred_txt, self.gold_txt, self.pred_ph, self.gold_ph = [], [], [], []
+
+    def add(self, ys: np.ndarray, gold: np.ndarray) -> None:
+        for n in range(ys.shape[0]):
+            preds, golds = decode_to_phonemes(ys[n], gold[n])
+            self.pred_txt.append("".join(preds))
+            self.gold_txt.append("".join(golds))
+            self.pred_ph.append(preds)
+            self.gold_ph.append(golds)
+
+    def finish(self) -> Tuple[float, float]:
+        return (wer_compute(self.pred_txt, self.gold_txt),
+                per_compute(self.pred_ph, self.gold_ph))
+
+
+BEAM_NOT_PORTED = "beam search is not ported yet: ROADMAP.md queue A item 10"
+
+
+class Trainer:
+    """Config-driven trainer of the ``sbl`` / ``sbl_stage2`` workloads on
+    one device: the card unless ``device`` (or a given ``model``'s device)
+    says otherwise.  Other workloads raise ``NotImplementedError`` naming
+    their ROADMAP item (from ``build_model``)."""
+
+    def __init__(self, cfg, train_dataset, valid_datasets: Optional[Dict] = None,
+                 checkpoint_dir: Optional[str] = None, device=None,
+                 cache_on_device: bool = False,
+                 model: Optional[torch.nn.Module] = None):
+        self.cfg = cfg
+        if device is None and model is not None:
+            device = next(model.parameters()).device
+        self.device = resolve_device(device)
+        self.logger = get_logger()
+        self.timer = StepTimer(batch_size=cfg.batch_size)
+        self.model = model if model is not None else build_model(cfg, self.device)
+        self.generator = torch.Generator().manual_seed(cfg.seed)
+        self.np_rng = np.random.default_rng(cfg.seed)
+        self.reset_optimizer()
+        self.train_dataset = train_dataset
+        self.valid_datasets = valid_datasets or {}
+        self.checkpoint_dir = checkpoint_dir
+        self.best_metric = float("inf")
+        # a device-resident dataset: every clip uploaded once, each batch
+        # gathered on the card by index (only the labels and plans cross
+        # the bus); for datasets that fit the card's memory
+        self.cache_on_device = cache_on_device
+        self._dev_clips: Optional[torch.Tensor] = None
+        self._host_small: Optional[Dict[str, np.ndarray]] = None
+
+    def reset_optimizer(self) -> None:
+        """A fresh Adam and train step at update 0 (after a transfer load,
+        as the reference rebuilds its optimizer, train.py:106-109)."""
+        self.optimizer = make_optimizer(self.model, self.cfg.optim)
+        self.train_step = make_sbl_train_step(self.model, self.optimizer,
+                                              self.cfg)
+        self.state = self.train_step.state
+
+    # ---------------------------------------------------------- checkpoints
+    def rng_state(self) -> Dict:
+        return {"np": self.np_rng.bit_generator.state,
+                "torch": self.generator.get_state()}
+
+    def save(self, path: str, epoch: int = 0, is_best: bool = False) -> None:
+        ckpt.save_checkpoint(path, self.state, epoch=epoch,
+                             best_metric=self.best_metric, is_best=is_best,
+                             rng_state=self.rng_state())
+
+    def restore(self, path: str) -> int:
+        """Resume from a checkpoint: model, optimizer, update count, best
+        metric and the random number states.  Returns its epoch."""
+        _, epoch, self.best_metric, rng = ckpt.restore_checkpoint(path,
+                                                                  self.state)
+        if rng:
+            self.np_rng.bit_generator.state = rng["np"]
+            self.generator.set_state(rng["torch"])
+        return epoch
+
+    # ---------------------------------------------------------------- train
+    def _make_sampler(self, epoch: int) -> Optional[TwoStreamBatchSampler]:
+        """Fixed-ratio two-stream batches (the reference's
+        TwoStreamBatchSampler): ``cfg.secondary_batch_size`` samples per
+        batch from the secondary (LRW-1000) stream, the rest from the
+        primary (LRW) one.  Needs a dataset with ``stream_indices()``."""
+        sec = self.cfg.secondary_batch_size
+        if not sec:
+            return None
+        streams = getattr(self.train_dataset, "stream_indices", None)
+        if streams is None:
+            raise ValueError(
+                "secondary_batch_size set but the train dataset has no "
+                "stream_indices() (use MixedBilingualDataset or a synthetic "
+                "'all' dataset)")
+        primary, secondary = streams()
+        return TwoStreamBatchSampler(primary, secondary, self.cfg.batch_size,
+                                     sec, seed=self.cfg.seed + epoch)
+
+    def _ensure_device_cache(self) -> None:
+        if self._dev_clips is not None:
+            return
+        ds = self.train_dataset
+        samples = [ds[i] for i in range(len(ds))]
+        clips = np.stack([s["clip_u8"] for s in samples])
+        self._dev_clips = torch.from_numpy(clips).to(self.device)
+        self._host_small = {k: np.stack([s[k] for s in samples])
+                            for k in samples[0] if k != "clip_u8"}
+        self.logger.info(f"device cache: {len(ds)} clips "
+                         f"({clips.nbytes / 1e9:.2f} GB) resident")
+
+    def _device_batches(self, epoch: int) -> Iterator[Dict]:
+        """Batches gathered on the card from the resident dataset, in the
+        ``Batcher``'s shuffled order with the same plan draws."""
+        self._ensure_device_cache()
+        B = self.cfg.batch_size
+        order = np.random.default_rng(self.cfg.seed + epoch).permutation(
+            len(self.train_dataset))
+        stub = np.broadcast_to(np.uint8(0), (B,) + tuple(self._dev_clips.shape[1:]))
+        for s in range(0, len(order) // B * B, B):
+            idx = order[s:s + B]
+            batch = {k: v[idx] for k, v in self._host_small.items()}
+            batch = attach_plans({**batch, "clip_u8": stub}, self.np_rng,
+                                 self.cfg)
+            batch["clip_u8"] = self._dev_clips.index_select(
+                0, torch.from_numpy(idx).to(self.device))
+            yield batch
+
+    def train_epoch(self, epoch: int = 0, max_steps: Optional[int] = None,
+                    history: Optional[List[Dict[str, float]]] = None) -> float:
+        """One epoch (at most ``max_steps`` steps); returns the mean loss and
+        appends each step's metrics to ``history`` when one is given.  A
+        step's loss is read while the next step runs, so the read does not
+        hold the card idle."""
+        losses = AverageMeter()
+        if self.cache_on_device:
+            if self.cfg.secondary_batch_size:
+                raise ValueError(
+                    "cache_on_device uses plain shuffling and would drop the "
+                    "fixed-ratio TwoStreamBatchSampler protocol; unset "
+                    "secondary_batch_size or the device cache")
+            n_batches = len(self.train_dataset) // self.cfg.batch_size
+            it = self._device_batches(epoch)
+        else:
+            batcher = Batcher(self.train_dataset, self.cfg.batch_size,
+                              shuffle=True, seed=self.cfg.seed + epoch,
+                              sampler=self._make_sampler(epoch))
+            n_batches = len(batcher)
+            it = (attach_plans(b, self.np_rng, self.cfg) for b in batcher)
+        if max_steps is not None:
+            # bound the source: the producer and the prefetch pull ahead,
+            # and every pull draws plans from the shared np_rng
+            it = itertools.islice(it, max_steps)
+        it = background_iter(it)
+
+        def consume(pending):
+            i, step_no, metrics = pending
+            loss = float(metrics["loss"])
+            # a NaN loss halts with a diagnostic instead of corrupting Adam
+            if not np.isfinite(loss):
+                raise FloatingPointError(
+                    f"non-finite loss {loss} at step {step_no} (epoch "
+                    f"{epoch}, batch {i}); metrics="
+                    f"{ {k: float(v) for k, v in metrics.items()} }")
+            losses.update(loss)
+            if history is not None:
+                history.append({k: float(v) for k, v in metrics.items()})
+            if i % 50 == 0:
+                self.logger.info(
+                    f"Epoch: [{epoch}][{i}/{n_batches}]\tLoss {losses.val:.5f} "
+                    f"({losses.avg:.5f})\t{self.timer.clips_per_sec:.1f} clips/s")
+
+        pending = None
+        base_step = self.state.step
+        for i, batch in enumerate(prefetch_to_device(it, self.device)):
+            with self.timer.step():
+                metrics = self.train_step(batch, self.generator)
+                if pending is not None:
+                    consume(pending)
+                pending = (i, base_step + i + 1, metrics)
+        if pending is not None:
+            consume(pending)
+        return losses.avg
+
+    # ----------------------------------------------------------------- eval
+    def validate_seq2seq(self, dataset, max_batches: Optional[int] = None,
+                         beam_size: Optional[int] = None) -> Dict[str, float]:
+        """Greedy bidirectional decode of every sample (the ragged tail
+        batch kept) and WER/PER per direction."""
+        if beam_size is not None:
+            raise NotImplementedError(BEAM_NOT_PORTED)
+        crop = self.cfg.data.crop_size
+        l2r, r2l = _Scores(), _Scores()
+        batcher = Batcher(dataset, self.cfg.batch_size, shuffle=False,
+                          drop_last=False)
+        for i, batch in enumerate(prefetch_to_device(iter(batcher), self.device)):
+            if max_batches is not None and i >= max_batches:
+                break
+            out = recognize_batch(self.model, batch["clip_u8"], crop,
+                                  n_frames=batch.get("n_frames"))
+            l2r.add(out.ys_l2r.cpu().numpy(), batch["labels"].cpu().numpy())
+            r2l.add(out.ys_r2l.cpu().numpy(),
+                    batch["labels_reverse"].cpu().numpy())
+        res = {}
+        res["l2r_wer"], res["l2r_per"] = l2r.finish()
+        res["r2l_wer"], res["r2l_per"] = r2l.finish()
+        return res
+
+    # ------------------------------------------------------------------ fit
+    def fit(self, epochs: int, max_steps_per_epoch: Optional[int] = None,
+            max_eval_batches: Optional[int] = None, start_epoch: int = 0
+            ) -> Dict:
+        """Epochs ``start_epoch .. epochs-1``: train, validate every eval
+        set, keep the best (least sum of l2r WER; the train loss without
+        eval sets) and checkpoint to ``checkpoint_dir`` after each."""
+        last: Dict = {}
+        loss = float("nan")
+        for epoch in range(start_epoch, epochs):
+            t0 = time.time()
+            loss = self.train_epoch(epoch, max_steps=max_steps_per_epoch)
+            self.logger.info(f"epoch {epoch} train_loss {loss:.4f} "
+                             f"({time.time() - t0:.1f}s)")
+            metric = loss
+            if self.valid_datasets:
+                metric = 0.0
+                for name, ds in self.valid_datasets.items():
+                    last[name] = self.validate_seq2seq(ds, max_eval_batches)
+                    self.logger.info(f"{name}: {last[name]}")
+                    metric += last[name]["l2r_wer"]
+            is_best = metric < self.best_metric
+            self.best_metric = min(metric, self.best_metric)
+            if self.checkpoint_dir:
+                self.save(self.checkpoint_dir, epoch=epoch, is_best=is_best)
+        last["train_loss"] = loss
+        return last
+
+
+class TrainResult(NamedTuple):
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    history: List[Dict[str, float]]   # one dict of metrics per step
+
+
+def train_steps(cfg, dataset, n_steps: int, device=None,
+                seed: Optional[int] = None,
                 model: Optional[torch.nn.Module] = None) -> TrainResult:
-    """Run ``n_steps`` train steps of the ``sbl`` workload on ``device``.
+    """Run ``n_steps`` train steps of the ``sbl`` workload through a
+    ``Trainer`` on ``device`` (the card by default), on the host batch
+    path, without validation or checkpoints.
 
     The model is built from ``seed`` (default ``cfg.seed``) unless one is
     given.  The seed also drives the batch order (``seed + epoch``), the
     plans and the steps' random numbers.  Returns the trained model, its
     optimizer and the metrics of every step."""
-    seed = cfg.seed if seed is None else seed
-    if model is None:
-        model = build_model(cfg, device, seed)
-    optimizer = make_optimizer(model, cfg.optim)
-    step = make_sbl_train_step(model, optimizer, cfg)
-    plan_rng = np.random.default_rng(seed)
-    generator = torch.Generator().manual_seed(seed)
-    metrics = []
+    if seed is not None:
+        cfg = dataclasses.replace(cfg, seed=seed)
+    if len(dataset) < cfg.batch_size:
+        raise ValueError(f"a dataset of {len(dataset)} samples has no full "
+                         f"batch of {cfg.batch_size}")
+    tr = Trainer(cfg, dataset, device=device, model=model)
+    history: List[Dict[str, float]] = []
     epoch = 0
-    while len(metrics) < n_steps:
-        for batch in batches(dataset, cfg.batch_size, seed + epoch):
-            if len(metrics) == n_steps:
-                break
-            batch = attach_plans(batch, plan_rng, cfg)
-            batch = {k: torch.as_tensor(np.asarray(v)).to(device)
-                     for k, v in batch.items()}
-            metrics.append(step(batch, generator))
+    while len(history) < n_steps:
+        tr.train_epoch(epoch, max_steps=n_steps - len(history), history=history)
         epoch += 1
-    history = [{k: float(v) for k, v in m.items()} for m in metrics]
-    return TrainResult(model, optimizer, history)
+    return TrainResult(tr.model, tr.optimizer, history)

@@ -3,7 +3,8 @@ word -> token ids for the synthetic dataset's labels.
 
 A copy of what the port needs from the JAX package's ``vocab/phonemes.py``
 and its data tables (``assets/``: the ARPABET table of the 500 LRW words,
-the English and pinyin phoneme maps, the LRW and LRW-1000 word lists), as
+the English and pinyin phoneme maps, the LRW and LRW-1000 word lists,
+which together are the classify head's 1500 words), as
 the machine the port runs on has no JAX; ``tests/test_torch_port_package.py``
 checks it against the original.
 """
@@ -97,3 +98,20 @@ def encode_pinyin_seq(pinyins: Sequence[str]) -> List[int]:
     """Pinyin syllables -> unified token ids (concatenated)."""
     cmap = chinese_phoneme_map()
     return [TOTAL_PHONEMES.index(ph) for py in pinyins for ph in cmap[py]]
+
+
+@functools.lru_cache(None)
+def words_1500() -> List[str]:
+    """The classify head's 1500 words: the 500 LRW words, then the 1000
+    LRW-1000 pinyin strings (the JAX package's ``words_1500.txt``)."""
+    return lrw_words() + lrw1000_words()
+
+
+@functools.lru_cache(None)
+def _word_index() -> Dict[str, int]:
+    return {w: i for i, w in enumerate(words_1500())}
+
+
+def word_class_id(word: str) -> int:
+    """Index of ``word`` in ``words_1500``, or -1 for an unknown word."""
+    return _word_index().get(word, -1)

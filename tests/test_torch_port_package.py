@@ -38,6 +38,7 @@ PORT = REPO / "sbl_for_multilingual_lip_reading_tpu_torch"
 _NO_JAX_SCRIPT = """
 import importlib, pkgutil, sys
 import torch
+torch.set_num_threads(1)
 import sbl_for_multilingual_lip_reading_tpu_torch as port
 for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(m.name)
@@ -50,12 +51,23 @@ from sbl_for_multilingual_lip_reading_tpu_torch.training import (
 cfg = C.tiny_test()
 clips = torch.randint(0, 256, (2, cfg.data.frames, cfg.data.raw_size,
                                cfg.data.raw_size), dtype=torch.uint8)
-r = recognize_batch(build_model(cfg), clips, cfg.data.crop_size)
+r = recognize_batch(build_model(cfg, "cpu"), clips, cfg.data.crop_size)
 assert r.ys_l2r.shape == (2, cfg.decoder.maxlen + 1)
 data = SyntheticLipDataset(size=2, frames=cfg.data.frames,
                            raw_size=cfg.data.raw_size)
 result = trainer.train_steps(cfg, data, 1, "cpu", seed=0)
 assert len(result.history) == 1 and result.history[0]["loss"] > 0
+from sbl_for_multilingual_lip_reading_tpu_torch import cli
+C.PRESETS["sbl"] = C.tiny_test        # the CLI at tiny size
+save = sys.argv[1]
+tiny = ["--cpu", "--synthetic", "--synthetic-size", "4", "--batch-size", "2",
+        "--d_model", "16", "--n_head", "2", "--d_inner", "32",
+        "--n_layers_enc", "1", "--n_layers_dec", "1", "--max-eval-batches", "1"]
+tr, _ = cli.run_train(["--epochs", "1", "--max-steps-per-epoch", "1",
+                    "--save-dir", save] + tiny)
+assert tr.state.step == 1
+out = cli.run_test(["--checkpoint", save] + tiny)
+assert set(out) == {"lrw", "lrw1000"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "sbl_for_multilingual_lip_reading_tpu"))
 assert not loaded, loaded
@@ -69,8 +81,11 @@ def _run(args, cwd):
                           text=True, timeout=300)
 
 
-def test_port_never_imports_jax():
-    res = _run([sys.executable, "-c", _NO_JAX_SCRIPT], REPO)
+def test_port_never_imports_jax(tmp_path):
+    # every module of the port, recognize, a train step, and a tiny
+    # `cli train --cpu` then `cli test --cpu`
+    res = _run([sys.executable, "-c", _NO_JAX_SCRIPT, str(tmp_path / "ckpt")],
+               REPO)
     assert res.returncode == 0, res.stderr[-2000:]
     assert "NO_JAX_OK" in res.stdout
 
@@ -140,6 +155,7 @@ def test_port_vocab_word_tables_match_jax():
                for w in jax_vocab.lrw_words())
     assert port_vocab.lrw_words() == jax_vocab.lrw_words()
     assert port_vocab.lrw1000_words() == jax_vocab.lrw1000_words()
+    assert port_vocab.words_1500() == jax_vocab.words_1500()
     assert port_vocab.chinese_phoneme_map() == jax_vocab.chinese_phoneme_map()
     for w in jax_vocab.lrw1000_words():
         syl = w.split(" ")
@@ -159,8 +175,8 @@ def test_port_vocab_matches_jax():
 
 def test_port_config_builds_the_same_model_as_jax_config():
     # either package's config drives build_model to the same weights
-    a = build_model(port_config.tiny_test()).state_dict()
-    b = build_model(C.tiny_test("sbl")).state_dict()
+    a = build_model(port_config.tiny_test(), "cpu").state_dict()
+    b = build_model(C.tiny_test("sbl"), "cpu").state_dict()
     assert a.keys() == b.keys()
     assert all(torch.equal(a[k], b[k]) for k in a)
 
@@ -178,7 +194,7 @@ def test_profile_recognize_refuses_without_a_card():
 @pytest.mark.parametrize("name", ["lrw", "lrw1000", "classify"])
 def test_build_model_refuses_unported_workloads(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(C.tiny_test(name))
+        build_model(C.tiny_test(name), "cpu")
 
 
 def test_state_dict_mapping_complete_full_dims():
@@ -198,7 +214,7 @@ def test_state_dict_mapping_complete_full_dims():
                 + len(traverse_util.flatten_dict(zeros["batch_stats"])))
     got = {k: tuple(v.shape) for k, v in state_dict_from_jax(
         zeros["params"], zeros["batch_stats"]).items()}
-    want = {k: tuple(v.shape) for k, v in build_model(cfg).state_dict().items()}
+    want = {k: tuple(v.shape) for k, v in build_model(cfg, "cpu").state_dict().items()}
     assert len(got) == n_leaves
     assert sorted(set(want) ^ set(got)) == []
     assert got == want
@@ -227,7 +243,7 @@ def test_recognize_calls_each_kernel_wrapper_as_counted(monkeypatch):
     spy(attention, "dropout_keep_mask_flat")
     clips = torch.randint(0, 256, (2, cfg.data.frames, cfg.data.raw_size,
                                    cfg.data.raw_size), dtype=torch.uint8)
-    recognize_batch(build_model(cfg), clips, cfg.data.crop_size)
+    recognize_batch(build_model(cfg, "cpu"), clips, cfg.data.crop_size)
     assert calls == expected_launches(cfg)
     assert calls["small_mha_flat"] == (cfg.dims.n_enc_layers
                                        + 2 * cfg.decoder.maxlen
@@ -235,13 +251,14 @@ def test_recognize_calls_each_kernel_wrapper_as_counted(monkeypatch):
 
     calls.update(dict.fromkeys(calls, 0))
     plain = dataclasses.replace(cfg, use_pallas_attention=False)
-    recognize_batch(build_model(plain), clips, cfg.data.crop_size)
+    recognize_batch(build_model(plain, "cpu"), clips, cfg.data.crop_size)
     assert not any(calls.values()), calls
 
 
 def test_launch_counts_reset_and_read():
     names = ("small_mha_flat", "stack_frames", "small_mha_dropout_fwd_flat",
-             "small_mha_dropout_bwd_flat", "dropout_keep_mask_flat")
+             "small_mha_dropout_bwd_flat", "dropout_keep_mask_flat",
+             "ingest_train", "channel_sums", "channel_sums_pair")
     for i, fn in enumerate(ops.KERNELS):
         fn.launches = i + 1
     assert ops.launch_counts() == {n: i + 1 for i, n in enumerate(names)}
@@ -274,5 +291,5 @@ def test_kernel_library_is_keyed_by_its_sources(monkeypatch, tmp_path):
     # the port's own sources: every .cu under csrc/ is in the build
     monkeypatch.undo()
     names = {p.name for p in _build.sources()}
-    assert {"attention.cu", "attention_train.cu", "stem.cu",
-            "common.cuh"} <= names
+    assert {"attention.cu", "attention_train.cu", "stem.cu", "ingest.cu",
+            "batchnorm.cu", "common.cuh"} <= names

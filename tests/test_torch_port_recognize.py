@@ -96,7 +96,7 @@ def tiny():
 
 
 def _port(cfg, variables):
-    model = build_model(cfg)
+    model = build_model(cfg, "cpu")
     model.load_state_dict(state_dict_from_jax(variables["params"],
                                               variables["batch_stats"]))
     return model
@@ -180,7 +180,7 @@ def _assert_mapping_complete(cfg, variables):
     params = traverse_util.flatten_dict(variables["params"])
     stats = traverse_util.flatten_dict(variables["batch_stats"])
     sd = state_dict_from_jax(variables["params"], variables["batch_stats"])
-    want = {k: tuple(v.shape) for k, v in build_model(cfg).state_dict().items()}
+    want = {k: tuple(v.shape) for k, v in build_model(cfg, "cpu").state_dict().items()}
     got = {k: tuple(v.shape) for k, v in sd.items()}
     assert len(got) == len(params) + len(stats)
     assert sorted(got) == sorted(want), (

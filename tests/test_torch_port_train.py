@@ -137,7 +137,7 @@ def _jax_state(cfg, variables):
 
 
 def _port(cfg, variables):
-    model = build_model(cfg)
+    model = build_model(cfg, "cpu")
     model.load_state_dict(state_dict_from_jax(variables["params"],
                                               variables["batch_stats"]))
     return model, make_optimizer(model, cfg.optim)
@@ -220,7 +220,7 @@ def test_parameters_stay_f32_and_take_sub_ulp_updates():
     below one bf16 ulp of the weight (the Noam lr of step 1 is ~3.5e-8)
     moves it as optax moves JAX's."""
     cfg = dataclasses.replace(port_config.tiny_test(), compute_dtype="bfloat16")
-    model = build_model(cfg)
+    model = build_model(cfg, "cpu")
     assert {p.dtype for p in model.parameters()} == {torch.float32}
     assert {b.dtype for b in model.buffers()} == {torch.float32}
     w = model.encoder.linear_in.weight

@@ -107,7 +107,7 @@ def test_dropout_attention_masked_matches_reference(kind, Tq, Tk):
     w = np.random.default_rng(2).standard_normal((B, Tq, H * d)).astype(np.float32)
     bias = _bias(kind, B, Tq)
     scale = 1.0 / np.sqrt(d)
-    keep = ops.dropout_keep_mask_flat(B, Tq, Tk, H, seed, rate).numpy()
+    keep = ops.dropout_keep_mask_flat(B, Tq, Tk, H, seed, rate, device="cpu").numpy()
     assert 0.5 < keep.mean() < 0.9
 
     def ref(q, k, v):
@@ -168,18 +168,18 @@ def test_philox_known_answers():
 
 def test_keep_mask_fraction_and_determinism():
     B, Tq, Tk, H = 480, 17, 17, 8          # the decoder's self-attention
-    a = ops.dropout_keep_mask_flat(B, Tq, Tk, H, 1234, 0.1)
+    a = ops.dropout_keep_mask_flat(B, Tq, Tk, H, 1234, 0.1, device="cpu")
     assert a.shape == (B, H, Tq, Tk) and a.dtype == torch.bool
     assert abs(a.float().mean().item() - 0.9) < 0.005
-    assert torch.equal(a, ops.dropout_keep_mask_flat(B, Tq, Tk, H, 1234, 0.1))
-    assert not torch.equal(a, ops.dropout_keep_mask_flat(B, Tq, Tk, H, 1235, 0.1))
+    assert torch.equal(a, ops.dropout_keep_mask_flat(B, Tq, Tk, H, 1234, 0.1, device="cpu"))
+    assert not torch.equal(a, ops.dropout_keep_mask_flat(B, Tq, Tk, H, 1235, 0.1, device="cpu"))
     # the counter holds the batch row: the decoder's two directions (rows b
     # and B/2 + b) get different masks
     assert not torch.equal(a[:B // 2], a[B // 2:])
     # a mask is a function of (seed, b, h, i, j), not of the launch's shape
-    assert torch.equal(ops.dropout_keep_mask_flat(B // 2, 9, 5, H, 1234, 0.1),
+    assert torch.equal(ops.dropout_keep_mask_flat(B // 2, 9, 5, H, 1234, 0.1, device="cpu"),
                        a[:B // 2, :, :9, :5])
-    assert ops.dropout_keep_mask_flat(4, 3, 3, 2, 9, 0.0).all()
+    assert ops.dropout_keep_mask_flat(4, 3, 3, 2, 9, 0.0, device="cpu").all()
     # the JAX threshold: keep <=> bits >= uint32(rate * 2^32)
     assert ops.attention.dropout_threshold(0.1) == int(np.uint32(0.1 * 2 ** 32))
 
@@ -192,7 +192,7 @@ def test_dropout_wrappers_take_plain_on_cpu_and_refuse_bad_input():
     grads = ops.small_mha_dropout_bwd_flat(q, k, v, 2, None, 3, 0.2, None, out)
     want = ops.small_mha_dropout_bwd_flat_plain(q, k, v, 2, None, 3, 0.2, None, out)
     assert all(torch.equal(a, b) for a, b in zip(grads, want))
-    ops.dropout_keep_mask_flat(2, 3, 4, 2, 3, 0.2)
+    ops.dropout_keep_mask_flat(2, 3, 4, 2, 3, 0.2, device="cpu")
     assert ops.launch_counts() == before
     with pytest.raises(ValueError):
         ops.small_mha_dropout_fwd_flat(q, k, v, 2, None, 3, 1.0)

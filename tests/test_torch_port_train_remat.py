@@ -25,7 +25,7 @@ def _torch_batch(batch):
 
 
 def _step_grads(cfg, seed=0):
-    model = build_model(cfg, seed=seed)
+    model = build_model(cfg, "cpu", seed=seed)
     step = make_sbl_train_step(model, make_optimizer(model, cfg.optim), cfg)
     rng = np.random.default_rng(4)
     T, raw = cfg.data.frames, cfg.data.raw_size
@@ -91,7 +91,7 @@ def test_recognize_after_train_mode_uses_running_statistics():
     it back in eval mode, so BatchNorm reads its running statistics and
     leaves them as they are, as JAX's recognize (train=False) does."""
     cfg = port_config.tiny_test()
-    model = build_model(cfg)
+    model = build_model(cfg, "cpu")
     clips = torch.randint(0, 256, (2, cfg.data.frames, cfg.data.raw_size,
                                    cfg.data.raw_size), dtype=torch.uint8,
                           generator=torch.Generator().manual_seed(0))
