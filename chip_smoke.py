@@ -42,9 +42,29 @@ line (phase 2 adds nvcc's per-kernel register report):
      checkpoint and its _best mirror); `cli test` on that checkpoint (its
      WER/PER equal the in-memory model's); a stage-2 transfer step with
      frontend and encoder frozen (bit-identical) and the decoder moving; the
-     B=240 step with the switches off and on, in turns: ms/step, clips/s,
-     peak memory;
-  7. a JSON line of the eight kernels (each with its launches on every
+     B=240 step with the switches off and on, one turn each: ms/step,
+     clips/s, peak memory;
+  3d. the eval-side kernels vs their plain versions: K9 stack_frames_u8 at
+     (512,30,96,96), bit-exact in f32 and bf16, and against
+     device_ingest + K2; K10 fused_resblock on the four shape classes of
+     ResNet-18's five eligible blocks at N = 15360 frames in bf16 (f32 at
+     N = RESBLOCK_F32_FRAMES: the CUDA-core f32 GEMM is slow on the small
+     planes, and the check needs no more) within RESBLOCK_TOL; K11
+     fused_decoder_layer at L in {3, 17}, with and without the (L, L) bias,
+     both directions, B=512, f32 and bf16, within LAYER_TOL of its plain
+     version (and, printed, against the module path); times of kernel, plain
+     version and the module (library) composition; K1 at Tq=1 runs in
+     phase 3;
+  7. path A, `sbl` recognize at the full width with both eval-side switches
+     on and K9 as the ingest: switches on vs off at B=SWITCH_CHECK_BATCH
+     (first-step logits, token agreement), then B=512: launches per batch
+     (K9 1, K10 5, K11 96, K1 in the encoder only), clips/s and stage split;
+  8. path B, the unidirectional workloads through `cli test` at the full
+     width: a seeded lrw1000 model saved as a checkpoint, evaluated greedily
+     and with --beam-size 5 --bigram-lm at the preset's batch (WER/PER equal
+     to the in-memory model's), beam 1 == greedy tokens, `lrw` greedy, `sbl`
+     --beam-size 5; clips/s of greedy and beam 5;
+  9. a JSON line of the eleven kernels (each with its launches on every
      path, its error, its time, its plain version's, its bound on the card
      and a library call's time where one PyTorch call computes the same
      function), then the result line {"ok": true, "device": {...}}.
@@ -117,6 +137,28 @@ BN_SHAPES = (("stem", (64, 44, 44), 1), ("layer1", (64, 22, 22), 4),
              ("layer4", (512, 3, 3), 5))
 ENTRY_STEPS = 2
 TURN_STEPS = 3
+# K10 against its plain version.  f32: both sum K = 9C products in f32 in
+# another order.  bf16: both round one f32 result, so outputs may sit one
+# bf16 ulp apart (2^-7 relative); where the intermediate h flips one ulp in
+# its own rounding, conv2 moves the output by a fraction of an ulp more:
+# the floor, relative to the tensor's largest element.
+RESBLOCK_TOL = {"float32": 1e-4, "bfloat16": {"rel": 2.0 ** -7, "floor": 2.0 ** -8}}
+RESBLOCK_FRAMES = 15360      # B * T at B=512
+RESBLOCK_F32_FRAMES = 1536
+# (name, C, S, launches per recognize batch): ResNet-18's eligible blocks
+RESBLOCK_SHAPES = (("layer1 x2", 64, 22, 2), ("layer2 block1", 128, 11, 1),
+                   ("layer3 block1", 256, 6, 1), ("layer4 block1", 512, 3, 1))
+# K11 against its plain version: LayerNorm outputs of O(1).  f32: summation
+# order (the FFN's w2 sum is taken in chunks).  bf16: seven roundings to
+# bf16 inside the layer (q, k, v, two contexts, two LayerNorm outputs, the
+# ReLU output) may each flip one ulp between the two, and the LayerNorms
+# after them spread a flip over the row, so outputs move by a few bf16 ulps
+# (one is 2^-7 for |out| in [1, 2)).
+LAYER_TOL = {"float32": 2e-4, "bfloat16": 0.0625}
+SWITCH_CHECK_BATCH = 16
+SWITCH_LOGIT_TOL = 0.25      # bf16 first-step logits, switches on vs off
+SWITCH_MIN_AGREEMENT = 0.98
+UNI_BEAM = 5
 CKPT_DIR = Path(__file__).resolve().parent / "checkpoints" / "chip_smoke"
 # H100 SXM peaks (NVIDIA data sheet); the bounds below use them
 HBM_BYTES_S = 3.35e12
@@ -253,6 +295,8 @@ def phase_kernels(torch, dev):
         ("encoder (512,30,512)", SLICE_BATCH, 30, 30, None),
         ("decoder self (1024,17,512) causal", 2 * SLICE_BATCH, 17, 17, causal),
         ("cross (1024,17)x(1024,30)", 2 * SLICE_BATCH, 17, 30, None),
+        # the unidirectional cached decode: one query token per step
+        ("cached cross (512,1)x(512,30)", SLICE_BATCH, 1, 30, None),
         ("per-batch bias (1024,17,17)", 2 * SLICE_BATCH, 17, 17, key_pad),
         ("masked row", 2 * SLICE_BATCH, 17, 17, masked_row),
         # off the path: the multi-chunk key loop (any Tk)
@@ -908,7 +952,7 @@ def phase_entry(torch, np, dev):
     batch = train_batch(torch, np, dev, cfg, data, TRAIN_BATCH, 2)
     gen = torch.Generator().manual_seed(3)
     turns = []
-    for on in (False, True, True, False):
+    for on in (False, True):
         _set_switches(on)
         step = models[on]
         step(batch, gen)
@@ -927,6 +971,431 @@ def phase_entry(torch, np, dev):
               f"{turns[-1]['peak_gb']:.2f} GB")
     _set_switches(False)
     return launches, dict(seconds=seconds, turns=turns, loss=out["train_loss"])
+
+
+def _layer_for_check(torch, dev, dtype, seed):
+    """A full-width ``_SBLLayer`` with seeded weights and non-trivial
+    biases and LayerNorm vectors (their init is zeros and ones)."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch.models import init_weights
+    from sbl_for_multilingual_lip_reading_tpu_torch.models.decoder_sbl import _SBLLayer
+    d = C.sbl().dims
+    layer = _SBLLayer(d.d_model, d.n_head, d.d_k, d.d_v, d.d_inner, dtype, True,
+                      d.dropout, use_fused_layer=True)
+    g = torch.Generator().manual_seed(seed)
+    init_weights(layer, g)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+            elif "layer_norm" in name:
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=g))
+    return layer.to(dev).eval(), d
+
+
+def phase_eval_kernels(torch, np, dev, frames=RESBLOCK_FRAMES, batch=SLICE_BATCH,
+                       timing=True):
+    """K9, K10 and K11 against their plain versions at the eval paths'
+    shapes; times of kernel, plain version and module composition; bounds."""
+    import torch.nn.functional as F
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.data import device_ingest
+    from sbl_for_multilingual_lip_reading_tpu_torch.models.frontend import BasicBlock
+    from sbl_for_multilingual_lip_reading_tpu_torch.ops.decoder_layer import (
+        layer_params_to_args)
+    cfg = C.sbl()
+    T, raw, crop = cfg.data.frames, cfg.data.raw_size, cfg.data.crop_size
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def ms_of(fn):
+        return cuda_ms(torch, fn) if timing else float("nan")
+
+    # ---- K9 at the eval ingest's shape
+    clips = torch.randint(0, 256, (batch, T, raw, raw), generator=g, device=dev,
+                          dtype=torch.uint8)
+    k9 = []
+    for dt in (torch.float32, torch.bfloat16):
+        got = ops.stack_frames_u8(clips, crop, dt)
+        want = ops.stack_frames_u8_plain(clips, crop, dt)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K9 {dt} is not bit-exact")
+        del want
+        two_pass = ops.stack_frames(device_ingest(clips, crop, dt))
+        diff = (got.float() - two_pass.float()).abs().max().item()
+        # device_ingest normalizes as (x/255 - MEAN)/STD, other roundings:
+        # up to two f32 ulps apart (an ulp is 2^-22 for |x| in [2, 4)); in
+        # bf16 all 256 input values round alike
+        check(diff <= (2.0 ** -20 if dt == torch.float32 else 0.0),
+              f"K9 {dt} vs device_ingest + K2: max abs diff {diff}")
+        del two_pass
+        n_bytes = clips.numel() + got.numel() * got.element_size()
+        bound_ms, bound_by = bound(n_bytes, 2.0 * clips.shape[0] * T * crop * crop,
+                                   F32_OPS)
+        k9.append(dict(
+            case=f"({batch},{T},{raw},{raw}) -> ({batch},{T},5,{crop},{crop})",
+            dtype=dtype_name(got), max_abs_err=0.0, vs_two_pass=diff,
+            ms=ms_of(lambda: ops.stack_frames_u8(clips, crop, dt)),
+            plain_ms=ms_of(lambda: ops.stack_frames_u8_plain(clips, crop, dt)),
+            module_ms=ms_of(lambda: ops.stack_frames(device_ingest(clips, crop, dt))),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            library_call="none: no single PyTorch call crops, normalizes and "
+            "stacks; module_ms is device_ingest + K2"))
+        del got
+    del clips
+    torch.cuda.empty_cache()
+    for r in k9:
+        print(f"phase 3d stack_frames_u8 {r['case']} {r['dtype']}: bit-exact; vs "
+              f"device_ingest + K2 max abs diff {r['vs_two_pass']:.3g}; kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, device_ingest + K2 "
+              f"{r['module_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    # ---- K10 on the eligible blocks' shapes
+    k10 = []
+    for dt, n in ((torch.bfloat16, frames), (torch.float32,
+                                             min(frames, RESBLOCK_F32_FRAMES))):
+        name_dt = str(dt).split(".")[-1]
+        for name, C_, S, per_batch in RESBLOCK_SHAPES:
+            block = BasicBlock(C_, C_, 1, cfg.frontend.bn_epsilon, dt).to(dev).eval()
+            with torch.no_grad():
+                for conv in (block.conv1, block.conv2):
+                    conv.weight.copy_(torch.randn(conv.weight.shape, generator=g,
+                                                  device=dev) * (2.0 / (9 * C_)) ** 0.5)
+                for bn in (block.bn1, block.bn2):
+                    bn.weight.copy_(1.0 + 0.1 * torch.randn(C_, generator=g, device=dev))
+                    bn.bias.copy_(0.1 * torch.randn(C_, generator=g, device=dev))
+                    bn.running_mean.copy_(0.1 * torch.randn(C_, generator=g, device=dev))
+                    bn.running_var.copy_(1.0 + 0.2 * torch.rand(C_, generator=g, device=dev))
+            x = torch.relu(torch.randn((n, C_, S, S), generator=g, device=dev)).to(dt)
+            with torch.inference_mode():
+                a1, b1 = ops.fold_bn(block.bn1.weight, block.bn1.bias,
+                                     block.bn1.running_mean, block.bn1.running_var,
+                                     block.bn_epsilon)
+                a2, b2 = ops.fold_bn(block.bn2.weight, block.bn2.bias,
+                                     block.bn2.running_mean, block.bn2.running_var,
+                                     block.bn_epsilon)
+                args = (x, block.conv1.weight.to(dt), a1, b1,
+                        block.conv2.weight.to(dt), a2, b2)
+                got = ops.fused_resblock(*args)
+                want = ops.fused_resblock_plain(*args)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs()
+                top = want.float().abs().max().item()
+                if dt == torch.float32:
+                    ok = err.max().item() <= RESBLOCK_TOL["float32"] * top
+                else:
+                    tol = RESBLOCK_TOL["bfloat16"]
+                    ok = bool((err <= want.float().abs() * tol["rel"]
+                               + top * tol["floor"]).all())
+                max_err = err.max().item()
+                check(ok and bool(torch.isfinite(got).all()),
+                      f"K10 {name} {name_dt}: max abs err {max_err} (largest "
+                      f"element {top})")
+                module = block(x)
+                module_diff = (got.float() - module.float()).abs().max().item()
+                del got, want, err, module
+                flops = 2 * 2.0 * n * S * S * 9 * C_ * C_
+                n_bytes = (2 * x.numel() + 2 * 9 * C_ * C_) * x.element_size() + 16 * C_
+                bound_ms, bound_by = bound(
+                    n_bytes, flops, BF16_FLOPS if dt == torch.bfloat16 else F32_OPS)
+                timed = timing and dt == torch.bfloat16
+                k10.append(dict(
+                    case=f"{name} ({n},{C_},{S},{S})", dtype=name_dt,
+                    per_batch=per_batch, max_abs_err=max_err, largest=top,
+                    vs_module=module_diff,
+                    ms=cuda_ms(torch, lambda: ops.fused_resblock(*args)) if timed else None,
+                    plain_ms=cuda_ms(torch, lambda: ops.fused_resblock_plain(*args))
+                    if timed else None,
+                    module_ms=cuda_ms(torch, lambda: block(x)) if timed else None,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                    library_call="none: no single PyTorch call computes the block; "
+                    "module_ms is the BasicBlock's cuDNN composition"))
+            del x, block, args
+            torch.cuda.empty_cache()
+    for r in k10:
+        times = ("not timed" if r["ms"] is None else
+                 f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, module "
+                 f"(cuDNN) {r['module_ms']:.3f} ms")
+        print(f"phase 3d fused_resblock {r['case']} {r['dtype']}: max abs err "
+              f"{r['max_abs_err']:.3g} (largest element {r['largest']:.3g}), vs "
+              f"module {r['vs_module']:.3g}; {times}, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']})")
+
+    # ---- K11 at the decode loop's narrowest and widest segment
+    k11 = []
+    Tk = T
+    for dt in (torch.float32, torch.bfloat16):
+        name_dt = str(dt).split(".")[-1]
+        layer, d = _layer_for_check(torch, dev, dt, 11)
+        D, H, DI = d.d_model, d.n_head, d.d_inner
+        for L in (3, 17):
+            x = torch.randn((2, batch, L, D), generator=g, device=dev).to(dt)
+            ck = torch.randn((2, batch, Tk, D), generator=g, device=dev).to(dt)
+            cv = torch.randn((2, batch, Tk, D), generator=g, device=dev).to(dt)
+            causal = ops.mask_to_bias(
+                torch.ones(L, L, dtype=torch.bool, device=dev).triu(1)[None], L, L)
+            for bias in (None, causal):
+                with torch.inference_mode():
+                    args = (x, *layer_params_to_args(layer), ck, cv, H)
+                    mb = None if bias is None else bias[0]
+                    got = ops.fused_decoder_layer(*args, mask_bias=mb)
+                    want = ops.fused_decoder_layer_plain(*args, mask_bias=mb)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    check(err <= LAYER_TOL[name_dt] and bool(torch.isfinite(got).all()),
+                          f"K11 L={L} bias={bias is not None} {name_dt}: max abs err "
+                          f"{err} > {LAYER_TOL[name_dt]}")
+                    layer.use_fused_layer = False
+                    module = layer(x, ck, cv, bias)
+                    layer.use_fused_layer = True
+                    module_diff = (got.float() - module.float()).abs().max().item()
+                    del got, want, module
+                    rows_ = 2.0 * batch * L
+                    flops = (2 * rows_ * (6 * D * D + 2 * D * DI)
+                             + 2 * 2 * rows_ * D * (L + Tk))
+                    n_bytes = ((2 * x.numel() + 2 * ck.numel()
+                                + 2 * (6 * D * D + 2 * D * DI)) * x.element_size()
+                               + 2 * 4 * (13 * D + DI))
+                    bound_ms, bound_by = bound(
+                        n_bytes, flops, BF16_FLOPS if dt == torch.bfloat16 else F32_OPS)
+
+                    def module_call():
+                        layer.use_fused_layer = False
+                        out = layer(x, ck, cv, bias)
+                        layer.use_fused_layer = True
+                        return out
+                    k11.append(dict(
+                        case=f"L={L} {'causal bias' if bias is not None else 'no bias'} "
+                        f"(2,{batch},{L},{D})", dtype=name_dt, max_abs_err=err,
+                        vs_module=module_diff,
+                        ms=ms_of(lambda: ops.fused_decoder_layer(*args, mask_bias=mb)),
+                        plain_ms=ms_of(lambda: ops.fused_decoder_layer_plain(
+                            *args, mask_bias=mb)),
+                        module_ms=ms_of(module_call),
+                        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                        library_call="none: no single PyTorch call computes the "
+                        "layer; module_ms is the _SBLLayer composition (cuBLAS "
+                        "+ K1)"))
+            del x, ck, cv
+        del layer
+        torch.cuda.empty_cache()
+    for r in k11:
+        print(f"phase 3d fused_decoder_layer {r['case']} {r['dtype']}: max abs err "
+              f"{r['max_abs_err']:.3g} (tol {LAYER_TOL[r['dtype']]}), vs module path "
+              f"{r['vs_module']:.3g}; kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, module {r['module_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return k9, k10, k11
+
+
+def phase_path_a(torch, np, dev):
+    """Path A: sbl recognize with both eval-side switches on and K9 as the
+    ingest, at the full width."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
+    from sbl_for_multilingual_lip_reading_tpu_torch.models.layers import (
+        cast_dense_weights)
+    from sbl_for_multilingual_lip_reading_tpu_torch.recognize import (
+        Recognition, expected_launches, recognize_batch)
+
+    base = C.sbl()
+    cfg = dataclasses.replace(base, use_fused_decoder_layer=True)
+    T, raw, crop = cfg.data.frames, cfg.data.raw_size, cfg.data.crop_size
+    V, maxlen = cfg.decoder.vocab_size, cfg.decoder.maxlen
+    rng = np.random.default_rng(8)
+
+    def clips(batch):
+        return torch.from_numpy(rng.integers(0, 256, size=(batch, T, raw, raw),
+                                             dtype=np.uint8)).to(dev)
+
+    def recognize_stacked(model, clips_u8, events=None):
+        """recognize_batch with K9 in place of device_ingest + K2."""
+        def mark(i):
+            if events is not None:
+                events[i].record()
+        model.eval()
+        with torch.inference_mode(), cast_dense_weights(model):
+            mark(0)
+            xs = ops.stack_frames_u8(clips_u8, crop, model.frontend.dtype)
+            mark(1)
+            feats = model.frontend.forward_stacked(xs)
+            mark(2)
+            enc = model.encoder(feats)
+            mark(3)
+            out = Recognition(*model.decoder.decode(enc))
+            mark(4)
+        return out
+
+    on = build_model(cfg, dev, seed=0, use_pallas_resblock=True)
+    off = build_model(base, dev, seed=0)
+
+    small = clips(SWITCH_CHECK_BATCH)
+    a = recognize_stacked(on, small)
+    b = recognize_batch(on, small, crop)
+    c = recognize_batch(off, small, crop)
+    torch.cuda.synchronize()
+    check(torch.equal(a.logits_l2r, b.logits_l2r) and torch.equal(a.ys_r2l, b.ys_r2l),
+          "K9 as the ingest changes recognize's output")
+    first = max((a.logits_l2r[:, 0] - c.logits_l2r[:, 0]).abs().max().item(),
+                (a.logits_r2l[:, 0] - c.logits_r2l[:, 0]).abs().max().item())
+    agree = torch.cat([(a.ys_l2r == c.ys_l2r)[:, 1:],
+                       (a.ys_r2l == c.ys_r2l)[:, 1:]]).float().mean().item()
+    print(f"phase 7 bf16 B={SWITCH_CHECK_BATCH} switches on vs off: K9 ingest == "
+          f"device_ingest + K2 (bit-identical logits); first-step logits max abs "
+          f"diff {first:.3g} (tol {SWITCH_LOGIT_TOL}), token agreement {agree:.4f} "
+          f"(min {SWITCH_MIN_AGREEMENT})")
+    check(first <= SWITCH_LOGIT_TOL, f"first-step logits differ by {first}")
+    check(agree >= SWITCH_MIN_AGREEMENT, f"tokens agree only {agree}")
+
+    batch = clips(SLICE_BATCH)
+    recognize_stacked(on, batch)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = recognize_stacked(on, batch)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    expected = dict(expected_launches(cfg, use_pallas_resblock=True),
+                    stack_frames=0, stack_frames_u8=1)
+    print(f"phase 7 bf16 B={SLICE_BATCH} launches per batch: {launches} "
+          f"(expected {expected})")
+    check(launches == expected, f"launch counts {launches} != {expected}")
+    check((launches["stack_frames_u8"], launches["fused_resblock"],
+           launches["fused_decoder_layer"], launches["small_mha_flat"])
+          == (1, 5, 96, 6), f"path A launches {launches}")
+    for ys in (out.ys_l2r, out.ys_r2l):
+        check(tuple(ys.shape) == (SLICE_BATCH, maxlen + 1), "tokens shape")
+        check(int(ys.min()) >= 0 and int(ys.max()) < V, "token out of range")
+    for lg in (out.logits_l2r, out.logits_r2l):
+        check(tuple(lg.shape) == (SLICE_BATCH, maxlen, V), "logits shape")
+        check(bool(torch.isfinite(lg).all()), "non-finite logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    rates = {}
+    for label, fn in (("on", lambda: recognize_stacked(on, batch)),
+                      ("off", lambda: recognize_batch(off, batch, crop))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        rates[label] = 2 * SLICE_BATCH / (time.perf_counter() - t0)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    recognize_stacked(on, batch, events)
+    torch.cuda.synchronize()
+    stages = {n: events[i].elapsed_time(events[i + 1])
+              for i, n in enumerate(("ingest+stack (K9)", "frontend", "encoder",
+                                     "decoder"))}
+    print(f"phase 7 bf16 B={SLICE_BATCH}: switches on {rates['on']:.1f} clips/s, "
+          f"off {rates['off']:.1f} clips/s (same call), peak memory {peak_gb:.2f} "
+          f"GB; stage split with the switches on (ms per batch): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
+    del on, off
+    torch.cuda.empty_cache()
+    return launches, dict(clips_per_s_on=rates["on"], clips_per_s_off=rates["off"],
+                          stages=stages, first_step_logit_diff=first,
+                          token_agreement=agree)
+
+
+def phase_path_b(torch, np, dev):
+    """Path B: lrw1000 / lrw evaluation and the sbl beam through `cli test`."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import cli
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.data import device_ingest
+    from sbl_for_multilingual_lip_reading_tpu_torch.decode import (
+        bigram_from_dataset, make_uni_beam_decoder)
+    from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
+    from sbl_for_multilingual_lip_reading_tpu_torch.recognize import (
+        expected_launches, recognize_batch)
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.trainer import Trainer
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    results = {}
+    launches = None
+    for workload, preset, runs in (
+            ("lrw1000", C.lrw1000_seq2seq, ([], ["--beam-size", str(UNI_BEAM),
+                                                 "--bigram-lm"])),
+            ("lrw", C.lrw_seq2seq, ([],)),
+            ("sbl", C.sbl, (["--beam-size", str(UNI_BEAM)],))):
+        cfg = preset()
+        B = cfg.batch_size
+        common = ["--workload", workload, "--synthetic", "--synthetic-size",
+                  str(4 * B), "--max-eval-batches", "1"]
+        path = str(CKPT_DIR / workload)
+        model = build_model(cfg, dev, seed=0)
+        tr = Trainer(cfg, [], {}, model=model)
+        tr.save(path)
+        args = cli.build_argparser().parse_args(common)
+        train_ds, test_sets = cli.make_datasets(cfg, args, "test")
+        for extra in runs:
+            beam = UNI_BEAM if extra else None
+            big = None
+            if "--bigram-lm" in extra:
+                big = np.log(bigram_from_dataset(train_ds, cfg.decoder.vocab_size)
+                             + np.float32(1e-10))
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = cli.run_test(common + ["--checkpoint", path] + extra)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            want = {k: tr.validate_seq2seq(ds, 1, beam_size=beam, bigram_logp=big)
+                    for k, ds in test_sets.items()}
+            check(got == want, f"cli test {workload} {extra}: {got} != in-memory "
+                  f"model {want}")
+            for scores in got.values():
+                check(all(np.isfinite(v) for v in scores.values()),
+                      f"non-finite score in {scores}")
+            label = " ".join(extra) if extra else "greedy"
+            print(f"phase 8 cli test --workload {workload} {label} (B={B}, "
+                  f"{len(test_sets)} eval set(s), {seconds:.1f} s with the build of "
+                  f"the datasets): {got}, equal to the in-memory model's")
+            results[f"{workload} {label}"] = got
+            if workload == "lrw1000" and not extra:
+                launches = counts
+                expected = {k: v * len(test_sets)
+                            for k, v in expected_launches(cfg).items()}
+                print(f"phase 8 lrw1000 greedy launches: {launches} (expected "
+                      f"{expected})")
+                check(launches == expected, f"launch counts {launches} != {expected}")
+        if workload == "lrw1000":
+            # beam 1 == greedy, and the rates, on one resident batch
+            T, raw, crop = cfg.data.frames, cfg.data.raw_size, cfg.data.crop_size
+            clips = torch.from_numpy(np.random.default_rng(9).integers(
+                0, 256, size=(B, T, raw, raw), dtype=np.uint8)).to(dev)
+            video = device_ingest(clips, crop, model.frontend.dtype)
+            greedy = recognize_batch(model, clips, crop)
+            tokens1, _ = make_uni_beam_decoder(model, 1)(video)
+            check(torch.equal(tokens1[:, 0], greedy), "beam 1 != greedy tokens")
+            beam5 = make_uni_beam_decoder(model, UNI_BEAM)
+            tokens5, scores5 = beam5(video)
+            check(bool(torch.isfinite(scores5).all())
+                  and bool((scores5[:, :-1] >= scores5[:, 1:]).all()),
+                  "beam scores not finite and sorted")
+            rates = {}
+            for label, fn in (("greedy", lambda: recognize_batch(model, clips, crop)),
+                              ("beam", lambda: beam5(device_ingest(
+                                  clips, crop, model.frontend.dtype)))):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+                rates[label] = 3 * B / (time.perf_counter() - t0)
+            print(f"phase 8 lrw1000 bf16 B={B}: beam 1 == greedy tokens; greedy "
+                  f"{rates['greedy']:.1f} clips/s, beam {UNI_BEAM} "
+                  f"{rates['beam']:.1f} clips/s")
+            results["lrw1000 rates"] = rates
+            del clips, video
+        del model, tr
+        torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return launches, results
 
 
 def main() -> int:
@@ -950,6 +1419,15 @@ def main() -> int:
     launches, rate = phase_slice(torch, np, dev)
     train_launches, train = phase_train(torch, np, dev)
     entry_launches, entry = phase_entry(torch, np, dev)
+    k9, k10, k11 = phase_eval_kernels(torch, np, dev)
+    a_launches, path_a = phase_path_a(torch, np, dev)
+    b_launches, path_b = phase_path_b(torch, np, dev)
+    # every kernel of the two eval paths was launched on its path
+    for kernel in ("stack_frames_u8", "fused_resblock", "fused_decoder_layer",
+                   "small_mha_flat"):
+        check(a_launches[kernel] > 0, f"path A never launched {kernel}")
+    for kernel in ("small_mha_flat", "stack_frames"):
+        check(b_launches[kernel] > 0, f"path B never launched {kernel}")
 
     csrc = "sbl_for_multilingual_lip_reading_tpu_torch/csrc/"
     jax_ops = "sbl_for_multilingual_lip_reading_tpu/ops/"
@@ -957,10 +1435,12 @@ def main() -> int:
     def row(kernel, source, replaces, head, err, cases, **extra):
         return {"name": kernel, "route": "cuda", "source": csrc + source,
                 "replaces": jax_ops + replaces,
-                "launches": entry_launches[kernel],
+                "launches": max(entry_launches[kernel], a_launches[kernel]),
                 "launches_by_path": {"recognize": launches[kernel],
                                      "train_step": train_launches[kernel],
-                                     "entry_point": entry_launches[kernel]},
+                                     "entry_point": entry_launches[kernel],
+                                     "eval_switches": a_launches[kernel],
+                                     "uni_eval": b_launches[kernel]},
                 "max_abs_err": err, "ms": head["ms"],
                 "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                 "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -1024,10 +1504,30 @@ def main() -> int:
             per_step_plain_ms=sum(r[f"{key}_plain_ms"] * r["per_step"] for r in bn16),
             per_step_bound_ms=sum(r[f"{key}_bound"][0] * r["per_step"] for r in bn16),
             max_rel_err_of_abs_sum=max(r[f"{key}_err"] for r in stats)))
-    check(len(rows) == 8, "eight kernels")
+    # K9, K10, K11: the headline rows are bf16 at the path's shapes (K10:
+    # layer1's, the largest plane; K11: the widest segment with its bias);
+    # per_batch_ms sums a kernel's launches over one path A batch
+    rows.append(row("stack_frames_u8", "stem.cu", "stem.py:65",
+                    next(r for r in k9 if r["dtype"] == "bfloat16"), 0.0, k9))
+    rb16 = [r for r in k10 if r["dtype"] == "bfloat16"]
+    rows.append(row(
+        "fused_resblock", "resblock.cu", "resblock.py:53", rb16[0],
+        max(r["max_abs_err"] for r in rb16), k10,
+        per_batch_ms=sum(r["ms"] * r["per_batch"] for r in rb16),
+        per_batch_module_ms=sum(r["module_ms"] * r["per_batch"] for r in rb16),
+        per_batch_bound_ms=sum(r["bound_ms"] * r["per_batch"] for r in rb16)))
+    dl16 = [r for r in k11 if r["dtype"] == "bfloat16"]
+    rows.append(row(
+        "fused_decoder_layer", "decoder_layer.cu", "decoder_layer.py:159",
+        next(r for r in dl16 if r["case"].startswith("L=17 causal")),
+        max(r["max_abs_err"] for r in dl16), k11))
+    check(len(rows) == 11, "eleven kernels")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    check(all(k in r for r in rows for k in keys), "a kernel row lacks a key")
     print(json.dumps({"kernels": rows, "card": smi,
                       "recognize_clips_per_s": rate, "train": train,
-                      "entry_point": entry}))
+                      "entry_point": entry, "path_a": path_a, "path_b": path_b}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

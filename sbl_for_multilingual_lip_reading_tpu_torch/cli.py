@@ -1,6 +1,9 @@
 """Command-line entry points of the port: the reference's train.py / test.py
-surface for the ``sbl`` workloads (counterpart of the JAX package's
-``cli.py``, with the same flags).
+surface (counterpart of the JAX package's ``cli.py``, with the same flags).
+``train`` takes the ``sbl`` workloads; ``test`` also evaluates ``lrw`` and
+``lrw1000``, greedily or with ``--beam-size K`` (``--bigram-lm`` biases the
+unidirectional beam with a bigram table built from the TRAIN split, the
+LRW-1000 protocol; ``sbl`` uses the paired bidirectional beam).
 
     python -m sbl_for_multilingual_lip_reading_tpu_torch.cli train [flags]
     python -m sbl_for_multilingual_lip_reading_tpu_torch.cli test --checkpoint DIR [flags]
@@ -23,12 +26,13 @@ from typing import Dict, Optional
 from . import config as C
 
 WORKLOADS = ("sbl", "sbl_stage2", "lrw", "lrw1000", "classify")
+# workloads that `test` evaluates and `train` does not take yet
+EVAL_ONLY = {
+    "lrw": "ROADMAP.md queue A item 9b (unidirectional train step)",
+    "lrw1000": "ROADMAP.md queue A item 9b (unidirectional train step)",
+}
 NOT_PORTED = {
-    "lrw": "ROADMAP.md queue A item 9 (unidirectional workloads)",
-    "lrw1000": "ROADMAP.md queue A item 9 (unidirectional workloads)",
     "classify": "ROADMAP.md queue A item 11 (classify head)",
-    "beam_size": "ROADMAP.md queue A item 10 (beam search)",
-    "bigram_lm": "ROADMAP.md queue A item 10 (beam search)",
     "mesh": "ROADMAP.md queue A item 12 (data parallel)",
     "no_sync_batchnorm": "ROADMAP.md queue A item 12 (data parallel)",
     "remat_frontend": "ROADMAP.md queue A item 8 (remat_frontend)",
@@ -69,7 +73,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--lrw-path", type=str, default=None)
     p.add_argument("--lrw1000-images", type=str, default=None)
     p.add_argument("--lrw1000-manifest", type=str, default=None,
-                   help="TRAIN manifest (trn1.txt-style)")
+                   help="TRAIN manifest (trn1.txt-style; also the bigram-LM "
+                        "corpus)")
     p.add_argument("--lrw1000-eval-manifest", type=str, default=None,
                    help="eval manifest (val1.txt for training-time "
                         "validation, tst1.txt for test)")
@@ -95,12 +100,15 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--max-steps-per-epoch", type=int, default=None)
     p.add_argument("--max-eval-batches", type=int, default=None)
     p.add_argument("--beam-size", type=int, default=None,
-                   help="not ported yet (greedy decoding only)")
+                   help="beam search width for eval (default: greedy); "
+                        "sbl uses the paired bidirectional beam, "
+                        "unidirectional workloads the standard one")
     p.add_argument("--freeze", type=str, default=None,
                    help="comma-separated param subtrees to freeze, e.g. "
                         "'frontend,encoder' (reference requires_grad stages)")
     p.add_argument("--bigram-lm", action="store_true",
-                   help="not ported yet (beam search)")
+                   help="bias beam search with a bigram LM built from the "
+                        "train labels (LRW-1000 protocol)")
     p.add_argument("--remat-frontend", default=None,
                    action=argparse.BooleanOptionalAction,
                    help="not ported yet: the frontend is never "
@@ -112,14 +120,17 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(args) -> None:
-    """Raise for a flag whose path the port does not have yet."""
+def check_ported(args, command: str = "test") -> None:
+    """Raise for a flag (or, under ``train``, a workload) whose path the
+    port does not have yet."""
     unported = []
     if args.workload in NOT_PORTED:
         unported.append(("--workload " + args.workload, args.workload))
+    if command == "train" and args.workload in EVAL_ONLY:
+        raise NotImplementedError(
+            f"train --workload {args.workload} is not ported yet: "
+            f"{EVAL_ONLY[args.workload]}")
     for flag, key, on in (
-            ("--beam-size", "beam_size", args.beam_size is not None),
-            ("--bigram-lm", "bigram_lm", args.bigram_lm),
             ("--mesh-data/--mesh-model", "mesh",
              args.mesh_data > 1 or args.mesh_model > 1),
             ("--no-sync-batchnorm", "no_sync_batchnorm", args.no_sync_batchnorm),
@@ -163,7 +174,7 @@ def config_from_args(args) -> C.WorkloadConfig:
         opt_over["warmup_steps"] = args.warmup_steps
     optim = dataclasses.replace(cfg.optim, **opt_over)
     decoder = cfg.decoder
-    if args.teacher_forcing_rate is not None:
+    if decoder is not None and args.teacher_forcing_rate is not None:
         decoder = dataclasses.replace(
             decoder, teacher_forcing_rate=args.teacher_forcing_rate)
     data_over = {}
@@ -193,41 +204,47 @@ def make_datasets(cfg, args, eval_split: str = "val"):
     (the reference trains against the val splits and ``test.py`` evaluates
     the test split and an LRW-1000 tst1.txt manifest)."""
     from .data import SyntheticLipDataset
+    vocab = cfg.name if cfg.name in ("lrw", "lrw1000") else "sbl"
     if args.synthetic or not (args.lrw_path or args.lrw1000_manifest):
+        kind = {"sbl": "all", "lrw": "lrw", "lrw1000": "lrw1000"}[cfg.name]
         train = SyntheticLipDataset(size=args.synthetic_size,
                                     frames=cfg.data.frames,
-                                    raw_size=cfg.data.raw_size, kind="all")
+                                    raw_size=cfg.data.raw_size, kind=kind,
+                                    vocab=vocab)
         # seeds keyed off the split, so val and test sets are disjoint
         seed0 = 1 if eval_split == "val" else 3
         size = max(args.synthetic_size // 4, 4)
         valid = {name: SyntheticLipDataset(
             size=size, frames=cfg.data.frames, raw_size=cfg.data.raw_size,
-            kind=name, seed=seed0 + i)
-            for i, name in enumerate(("lrw", "lrw1000"))}
+            kind=name, vocab=vocab, seed=seed0 + i)
+            for i, name in enumerate(("lrw", "lrw1000"))
+            if kind in ("all", name)}
         return train, valid
     from .data import Lrw1000Dataset, LrwDataset, MixedBilingualDataset
     parts, valid = [], {}
     if args.lrw_path:
         parts.append(LrwDataset(args.lrw_path, "train", frames=cfg.data.frames,
-                                data_fraction=cfg.data.data_fraction))
+                                data_fraction=cfg.data.data_fraction,
+                                vocab=vocab))
         valid["lrw"] = LrwDataset(args.lrw_path, eval_split,
-                                  frames=cfg.data.frames)
+                                  frames=cfg.data.frames, vocab=vocab)
     if args.lrw1000_manifest:
         parts.append(Lrw1000Dataset(args.lrw1000_images, args.lrw1000_manifest,
                                     frames=cfg.data.frames,
-                                    raw_size=cfg.data.raw_size))
+                                    raw_size=cfg.data.raw_size, vocab=vocab))
     if args.lrw1000_eval_manifest:
         valid["lrw1000"] = Lrw1000Dataset(args.lrw1000_images,
                                           args.lrw1000_eval_manifest,
                                           frames=cfg.data.frames,
-                                          raw_size=cfg.data.raw_size)
+                                          raw_size=cfg.data.raw_size,
+                                          vocab=vocab)
     train = parts[0] if len(parts) == 1 else MixedBilingualDataset(*parts)
     return train, valid
 
 
-def _setup(argv):
+def _setup(argv, command: str):
     args = build_argparser().parse_args(argv)
-    check_ported(args)
+    check_ported(args, command)
     from .utils.device import resolve_device
     device = resolve_device("cpu" if args.cpu else None)
     return args, config_from_args(args), device
@@ -240,7 +257,7 @@ def run_train(argv=None):
     ``--checkpoint`` resumes (model, optimizer, update count, random
     number states) at the epoch after the saved one.  Returns the
     ``Trainer`` and the last epoch's results (``Trainer.fit``)."""
-    args, cfg, device = _setup(argv)
+    args, cfg, device = _setup(argv, "train")
     from .training import checkpoint as ckpt
     from .training.trainer import Trainer
     train_ds, valid_ds = make_datasets(cfg, args)
@@ -261,19 +278,31 @@ def run_train(argv=None):
 
 def run_test(argv=None) -> Dict[str, Dict[str, float]]:
     """``test``: load ``--checkpoint``, evaluate the test split of every
-    eval set, print and return {name: per-direction WER/PER}."""
-    args, cfg, device = _setup(argv)
+    eval set (greedy, or beam search with ``--beam-size``), print and return
+    {name: WER/PER, per direction for ``sbl``}."""
+    args, cfg, device = _setup(argv, "test")
+    import numpy as np
     from .models import build_model
     from .training import checkpoint as ckpt
     from .training.trainer import Trainer
-    _, valid_ds = make_datasets(cfg, args, eval_split="test")
+    train_ds, valid_ds = make_datasets(cfg, args, eval_split="test")
     model = build_model(cfg, device)
     if args.checkpoint:
         model.load_state_dict(ckpt.load(args.checkpoint)["model"])
     tr = Trainer(cfg, [], valid_ds, model=model)
+    bigram_logp = None
+    if args.bigram_lm and not cfg.decoder.bidirectional:
+        from .decode import bigram_from_dataset
+        # the reference's table is a TRAIN-corpus one; make_datasets always
+        # builds train_ds from the train split, so no test label leaks into
+        # the eval LM
+        big = bigram_from_dataset(train_ds, cfg.decoder.vocab_size)
+        bigram_logp = np.log(big + np.float32(1e-10))
     out = {}
     for name, ds in valid_ds.items():
-        out[name] = tr.validate_seq2seq(ds, args.max_eval_batches)
+        out[name] = tr.validate_seq2seq(ds, args.max_eval_batches,
+                                        beam_size=args.beam_size,
+                                        bigram_logp=bigram_logp)
         print(name, out[name])
     return out
 

@@ -7,16 +7,18 @@ port keeps its own copy because the machine it runs on has no JAX; the JAX
 package remains the source of truth, and ``tests/test_torch_port_package.py``
 checks that every field here equals its JAX counterpart in every preset.
 
-The ``sbl`` workload is ported: recognize, the train step and the training
-entry point (trainer, checkpoints, CLI); ``sbl_stage2`` is the same model
-with teacher forcing annealed to 0.1.
+The ``sbl`` workload is ported whole: recognize, the train step and the
+training entry point (trainer, checkpoints, CLI); ``sbl_stage2`` is the same
+model with teacher forcing annealed to 0.1.  The unidirectional ``lrw`` and
+``lrw1000`` workloads are ported for evaluation (greedy and beam search);
+their train step is not.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-from .vocab import TOTAL_PHONEMES
+from .vocab import LRW1000_PHONEMES, LRW_PHONEMES, TOTAL_PHONEMES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +48,10 @@ class FrontendConfig:
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
     vocab_size: int = 58
-    maxlen: int = 16
+    maxlen: int = 16                    # decode steps
+    target_pad_len: int = 14            # label buffer length
+    tie_embedding: bool = False         # SBL uses untied heads
+    bidirectional: bool = True          # SBL synchronous L2R + R2L
     fusion_mode: str = "symmetric"      # or "reference_aliased"
     teacher_forcing_rate: float = 0.5   # P(gold token) per decode step
     decode_segments: int = 8
@@ -102,6 +107,9 @@ class WorkloadConfig:
     # the hand-written kernels (K1-K5) instead of their plain versions, as
     # the field selects the Pallas kernels in JAX
     use_pallas_attention: bool = True
+    # the whole-decoder-layer kernel (K11, ops/decoder_layer.py) on
+    # deterministic decode steps; training steps keep the module composition
+    use_fused_decoder_layer: bool = False
     # checkpoint each decode step for the backward
     remat_decoder: bool = True
     # top-level parameter subtrees ("frontend", "encoder", "decoder") whose
@@ -111,19 +119,45 @@ class WorkloadConfig:
 
 def sbl() -> WorkloadConfig:
     """Headline SBL multilingual config: 58-token vocab, bidirectional decoder."""
-    return WorkloadConfig(name="sbl",
-                          decoder=DecoderConfig(vocab_size=len(TOTAL_PHONEMES)))
+    return WorkloadConfig(
+        name="sbl",
+        decoder=DecoderConfig(vocab_size=len(TOTAL_PHONEMES), bidirectional=True))
 
 
 def sbl_stage2() -> WorkloadConfig:
     """SBL fine-tuning stage: teacher forcing annealed 0.5 -> 0.1."""
     return WorkloadConfig(name="sbl", decoder=DecoderConfig(
-        vocab_size=len(TOTAL_PHONEMES), teacher_forcing_rate=0.1))
+        vocab_size=len(TOTAL_PHONEMES), bidirectional=True,
+        teacher_forcing_rate=0.1))
 
 
-def tiny_test() -> WorkloadConfig:
-    """CPU-runnable miniature of ``sbl`` for tests: 2 layers, d_model 64."""
-    base = sbl()
+def lrw_seq2seq() -> WorkloadConfig:
+    """LRW English seq2seq: 42-token vocab, unidirectional tied decoder."""
+    return WorkloadConfig(
+        name="lrw",
+        decoder=DecoderConfig(vocab_size=len(LRW_PHONEMES), bidirectional=False,
+                              tie_embedding=True, maxlen=14, target_pad_len=12),
+        # the LRW project's augmentation: per-clip RandomCrop + RandomDrop,
+        # no FrameRemoval
+        data=dataclasses.replace(DataConfig(), frame_removal_p=0.0,
+                                 random_drop_p=0.01, per_clip_crop=True),
+    )
+
+
+def lrw1000_seq2seq() -> WorkloadConfig:
+    """LRW-1000 Mandarin seq2seq: 48-token vocab, unidirectional tied decoder,
+    bigram-LM-biased beam search at eval."""
+    return WorkloadConfig(
+        name="lrw1000",
+        decoder=DecoderConfig(vocab_size=len(LRW1000_PHONEMES),
+                              bidirectional=False, tie_embedding=True,
+                              maxlen=16, target_pad_len=14),
+    )
+
+
+def tiny_test(name: str = "sbl") -> WorkloadConfig:
+    """CPU-runnable miniature for tests: 2 layers, d_model 64."""
+    base = {"sbl": sbl, "lrw": lrw_seq2seq, "lrw1000": lrw1000_seq2seq}[name]()
     dims = TransformerDims(d_model=64, n_head=4, d_k=16, d_v=16, d_inner=128,
                            n_enc_layers=2, n_dec_layers=2)
     return dataclasses.replace(
@@ -141,4 +175,5 @@ def tiny_test() -> WorkloadConfig:
     )
 
 
-PRESETS = {"sbl": sbl, "sbl_stage2": sbl_stage2}
+PRESETS = {"sbl": sbl, "sbl_stage2": sbl_stage2, "lrw": lrw_seq2seq,
+           "lrw1000": lrw1000_seq2seq}

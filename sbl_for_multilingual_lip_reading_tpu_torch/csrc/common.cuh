@@ -1,6 +1,7 @@
 // Helpers shared by the port's kernels (attention.cu, attention_train.cu,
-// ingest.cu, batchnorm.cu): dtype conversion to and from the f32 the
-// kernels compute in, and warp-wide max and sum.
+// ingest.cu, batchnorm.cu, stem.cu, resblock.cu, decoder_layer.cu): dtype
+// conversion to and from the f32 the kernels compute in, and warp-wide max
+// and sum.
 #pragma once
 
 #include <cuda_bf16.h>

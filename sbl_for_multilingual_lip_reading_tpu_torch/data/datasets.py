@@ -4,9 +4,9 @@ package's ``data/datasets.py``; the same files give the same samples).
 
 Samples are dicts of numpy arrays in the form of ``SyntheticLipDataset``'s:
 clips stay uint8 on the host, and crop, flip and normalization run on the
-device.  Labels use the unified 58-token vocabulary; the other workloads'
-token tables (``vocab="lrw"``/``"lrw1000"`` in JAX) and LRW-1000's audio
-stream wait for their workloads (ROADMAP.md queue A items 9 and 11).
+device.  ``vocab`` names the labels' token table ('sbl', 'lrw' or
+'lrw1000', as in JAX); LRW-1000's audio stream waits for its workload
+(ROADMAP.md queue A item 11).
 OpenCV decodes the LRW-1000 jpgs and is imported only when such a dataset
 is built, so the rest of the port runs without it.
 """
@@ -18,7 +18,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..vocab import encode_english_word, encode_pinyin_seq, word_class_id
+from ..vocab import encode_pinyin_ids, encode_word_ids, word_class_id
 from .manifest import Lrw1000Entry, read_manifest
 from .synthetic import _pad_labels
 
@@ -29,7 +29,8 @@ class LrwDataset:
     (``<root>/<WORD>/<split>/<WORD>_*.npy``, reference data_gen.py:137-151)."""
 
     def __init__(self, root: str, split: str = "train", frames: int = 30,
-                 pad_len: int = 14, data_fraction: float = 1.0):
+                 pad_len: int = 14, data_fraction: float = 1.0,
+                 vocab: str = "sbl"):
         self.frames = frames
         self.pad_len = pad_len
         self.samples: List[tuple] = []
@@ -40,7 +41,7 @@ class LrwDataset:
             for f in files:
                 word = os.path.basename(f).split("_")[0]
                 if word not in label_cache:
-                    ids = encode_english_word(word)
+                    ids = encode_word_ids(word, vocab)
                     label_cache[word] = (
                         _pad_labels(ids, pad_len),
                         _pad_labels(ids[::-1], pad_len),
@@ -78,7 +79,7 @@ class Lrw1000Dataset:
 
     def __init__(self, images_root: str, manifest_path: str,
                  frames: int = 30, raw_size: int = 96, pad_len: int = 14,
-                 limit: Optional[int] = None):
+                 limit: Optional[int] = None, vocab: str = "sbl"):
         try:
             import cv2
         except ImportError as e:
@@ -88,6 +89,7 @@ class Lrw1000Dataset:
         self.frames = frames
         self.raw = raw_size
         self.pad_len = pad_len
+        self.vocab = vocab
         self.entries: List[Lrw1000Entry] = read_manifest(manifest_path,
                                                          limit=limit)
 
@@ -114,7 +116,7 @@ class Lrw1000Dataset:
             img = cv2.resize(img, (self.raw, self.raw))
             clip[t] = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
             t += 1
-        ids = encode_pinyin_seq(e.pinyins)
+        ids = encode_pinyin_ids(e.pinyins, self.vocab)
         return {"clip_u8": clip, "labels": _pad_labels(ids, self.pad_len),
                 "labels_reverse": _pad_labels(ids[::-1], self.pad_len),
                 "lang_id": np.int32(1),
@@ -123,7 +125,7 @@ class Lrw1000Dataset:
 
     def labels_only(self, i: int) -> np.ndarray:
         """Label ids without decoding any jpg."""
-        return _pad_labels(encode_pinyin_seq(self.entries[i].pinyins),
+        return _pad_labels(encode_pinyin_ids(self.entries[i].pinyins, self.vocab),
                            self.pad_len)
 
 

@@ -1,6 +1,6 @@
 """Synthetic clip dataset: a stand-in for the licensed LRW / LRW-1000 data
-(a copy of the JAX package's ``data/synthetic.py::SyntheticLipDataset`` for
-the ``sbl`` vocabulary; the same index gives the same sample).
+(a copy of the JAX package's ``data/synthetic.py::SyntheticLipDataset``; the
+same index gives the same sample, in each of the three token tables).
 
 Index i seeds its own uint8 noise clip; even indices carry an LRW English
 word's phonemes, odd ones an LRW-1000 pinyin entry's, as the mixed bilingual
@@ -12,9 +12,8 @@ from typing import Dict
 
 import numpy as np
 
-from ..vocab import (IGNORE_ID, chinese_phoneme_map, encode_english_word,
-                     encode_pinyin_seq, lrw1000_words, lrw_words,
-                     word_class_id)
+from ..vocab import (IGNORE_ID, VOCABS, chinese_phoneme_map, encode_pinyin_ids,
+                     encode_word_ids, lrw1000_words, lrw_words, word_class_id)
 
 
 def _pad_labels(ids, pad_len: int) -> np.ndarray:
@@ -29,14 +28,20 @@ class SyntheticLipDataset:
     clip_u8 (frames, raw, raw) uint8, labels and labels_reverse (pad_len,)
     int32 IGNORE-padded phoneme ids, lang_id () int32 (0 = English,
     1 = Mandarin), word_id () int32 (the word's index among the classify
-    head's 1500) and n_frames () int32."""
+    head's 1500) and n_frames () int32.  ``vocab`` names the token table of
+    the labels: 'sbl' (58, unified), 'lrw' (42, English words only) or
+    'lrw1000' (48, Mandarin entries only)."""
 
     def __init__(self, size: int = 64, frames: int = 30, raw_size: int = 96,
-                 pad_len: int = 14, kind: str = "all", seed: int = 0):
+                 pad_len: int = 14, kind: str = "all", seed: int = 0,
+                 vocab: str = "sbl"):
         if kind not in ("all", "lrw", "lrw1000"):
             raise ValueError(f"unknown kind {kind!r}")
+        if vocab not in VOCABS:
+            raise ValueError(f"unknown vocab {vocab!r}")
         self.size, self.frames, self.raw = size, frames, raw_size
         self.pad_len, self.kind, self.seed = pad_len, kind, seed
+        self.vocab = vocab
         self._lrw = lrw_words()
         self._lrw1000 = [w for w in lrw1000_words()
                          if all(s in chinese_phoneme_map()
@@ -63,11 +68,11 @@ class SyntheticLipDataset:
                             dtype=np.uint8)
         if self._is_lrw(i):
             word = self._lrw[i % len(self._lrw)]
-            ids = encode_english_word(word)
+            ids = encode_word_ids(word, self.vocab)
             lang = 0
         else:
             word = self._lrw1000[i % len(self._lrw1000)]
-            ids = encode_pinyin_seq(word.split(" "))
+            ids = encode_pinyin_ids(word.split(" "), self.vocab)
             lang = 1
         word_id = word_class_id(word)
         return {

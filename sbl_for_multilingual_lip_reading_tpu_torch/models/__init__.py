@@ -1,21 +1,20 @@
-"""Models of the PyTorch port.  Only the SBL workloads (``sbl``,
-``sbl_stage2``) are ported so far."""
+"""Models of the PyTorch port: the bidirectional ``sbl`` / ``sbl_stage2``
+workloads and the unidirectional ``lrw`` / ``lrw1000`` ones."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
 from ..utils.device import resolve_device
 from .decoder_sbl import SBLDecoder
+from .decoder_uni import UniDecoder
 from .encoder import encoder_from_config
 from .frontend import frontend_from_config
-from .sbl import SBLTransformer
+from .sbl import SBLTransformer, UniTransformer
 
 _NOT_PORTED = {
-    "lrw": "ROADMAP.md queue A item 9 (unidirectional workloads)",
-    "lrw1000": "ROADMAP.md queue A item 9 (unidirectional workloads)",
     "classify": "ROADMAP.md queue A item 11 (classify head)",
 }
 
@@ -30,17 +29,24 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.init_weights(generator)
 
 
-def build_model(cfg, device=None, seed: Optional[int] = None) -> SBLTransformer:
+def build_model(cfg, device=None, seed: Optional[int] = None,
+                use_pallas_resblock: bool = False
+                ) -> Union[SBLTransformer, UniTransformer]:
     """Construct the eval-mode model for a WorkloadConfig (the port's, or the
     JAX package's: the fields read are the same) with f32 weights drawn
     from ``seed`` (default ``cfg.seed``) on the CPU, then moved to
     ``device``: the card when it is None (raising without one), the CPU
     only when asked.  ``.train()`` switches it to training.
-    ``cfg.use_pallas_attention`` selects the hand-written kernels (K1-K8) or
-    their plain PyTorch versions, as it selects the Pallas kernels in the
-    JAX package; ``PALLAS_BN`` in the environment builds the frontend with
-    ``FastBatchNorm`` (K7, K8), as it does in JAX."""
-    if cfg.name != "sbl":
+    ``cfg.use_pallas_attention`` selects the hand-written kernels or their
+    plain PyTorch versions, as it selects the Pallas kernels in the JAX
+    package; ``PALLAS_BN`` in the environment builds the frontend with
+    ``FastBatchNorm`` (K7, K8), as it does in JAX.  Two eval-side switches,
+    both off by default as in JAX: ``cfg.use_fused_decoder_layer`` (K11 on
+    the deterministic SBL decode) and ``use_pallas_resblock`` (K10 on the
+    eligible ResNet blocks in eval mode; a field of the frontend modules in
+    JAX, which no config carries).  A bidirectional decoder config gives an
+    ``SBLTransformer``, a unidirectional one a ``UniTransformer``."""
+    if cfg.decoder is None or cfg.name in _NOT_PORTED:
         raise NotImplementedError(
             f"workload {cfg.name!r} is not ported yet: "
             f"{_NOT_PORTED.get(cfg.name, 'ROADMAP.md queue A')}")
@@ -49,18 +55,26 @@ def build_model(cfg, device=None, seed: Optional[int] = None) -> SBLTransformer:
     kernels = cfg.use_pallas_attention
     dims, d = cfg.dims, cfg.decoder
     frontend = frontend_from_config(cfg.frontend, dtype=dtype,
-                                    use_kernels=kernels)
+                                    use_kernels=kernels,
+                                    use_pallas_resblock=use_pallas_resblock)
     encoder = encoder_from_config(dims, d_input=cfg.frontend.feature_dim,
                                   dtype=dtype, use_kernels=kernels)
-    decoder = SBLDecoder(
-        vocab_size=d.vocab_size, d_model=dims.d_model,
-        n_layers=dims.n_dec_layers, n_head=dims.n_head, d_k=dims.d_k,
-        d_v=dims.d_v, d_inner=dims.d_inner, pe_maxlen=dims.pe_maxlen,
-        maxlen=d.maxlen, fusion_mode=d.fusion_mode,
-        decode_segments=d.decode_segments, dtype=dtype, use_kernels=kernels,
-        dropout=dims.dropout, teacher_forcing_rate=d.teacher_forcing_rate,
-        remat=cfg.remat_decoder)
-    model = SBLTransformer(frontend, encoder, decoder)
+    common = dict(vocab_size=d.vocab_size, d_model=dims.d_model,
+                  n_layers=dims.n_dec_layers, n_head=dims.n_head, d_k=dims.d_k,
+                  d_v=dims.d_v, d_inner=dims.d_inner, pe_maxlen=dims.pe_maxlen,
+                  maxlen=d.maxlen, dtype=dtype, use_kernels=kernels,
+                  dropout=dims.dropout)
+    if d.bidirectional:
+        decoder = SBLDecoder(
+            fusion_mode=d.fusion_mode, decode_segments=d.decode_segments,
+            teacher_forcing_rate=d.teacher_forcing_rate,
+            remat=cfg.remat_decoder,
+            use_fused_layer=getattr(cfg, "use_fused_decoder_layer", False),
+            **common)
+        model = SBLTransformer(frontend, encoder, decoder)
+    else:
+        decoder = UniDecoder(tie_embedding=d.tie_embedding, **common)
+        model = UniTransformer(frontend, encoder, decoder)
     init_weights(model, torch.Generator().manual_seed(
         cfg.seed if seed is None else seed))
     return model.to(device).eval()

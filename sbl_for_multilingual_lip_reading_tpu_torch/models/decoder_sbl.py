@@ -46,6 +46,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import masks as M
 from ..ops.attention import mask_to_bias
+from ..ops.decoder_layer import (fused_decoder_layer, fused_decoder_layer_plain,
+                                 layer_params_to_args)
 from ..vocab import EOS_ID, IGNORE_ID, SOS_ID
 from .layers import (CachedCrossAttention, CrossKV, Dense, DropoutRNG,
                      MultiHeadAttention, PositionwiseFeedForward, dropout,
@@ -94,12 +96,17 @@ def _fuse_dual(h: torch.Tensor, rev_idx: torch.Tensor,
 
 class _SBLLayer(nn.Module):
     """One direction-stacked decoder layer: self-attn + cached cross-attn
-    + FFN, with weights (2, ...)."""
+    + FFN, with weights (2, ...).  With ``use_fused_layer`` a deterministic
+    call goes through kernel K11 (``ops/decoder_layer.py``), all three
+    sublayers and both directions in one launch; a training call keeps the
+    module composition (dropout, autograd)."""
 
     def __init__(self, d_model: int, n_head: int, d_k: int, d_v: int,
                  d_inner: int, dtype=torch.float32, use_kernels: bool = True,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, use_fused_layer: bool = False):
         super().__init__()
+        self.d_model, self.n_head, self.d_k, self.d_v = d_model, n_head, d_k, d_v
+        self.use_kernels, self.use_fused_layer = use_kernels, use_fused_layer
         kw = dict(dirs=DIRS, dropout=dropout)
         self.slf = MultiHeadAttention(d_model, n_head, d_k, d_v, dtype,
                                       use_kernels, **kw)
@@ -107,7 +114,31 @@ class _SBLLayer(nn.Module):
                                           use_kernels, **kw)
         self.ffn = PositionwiseFeedForward(d_model, d_inner, dtype, **kw)
 
+    def _fused_eligible(self, rng) -> bool:
+        """JAX ``_SBLLayer._fused_eligible``: the switch, a deterministic
+        call, d_k == d_v, and heads that fill the model width (the kernel
+        packs the biases and LayerNorm vectors into one (13, d_model) tile
+        and writes the (n_head * d_v)-wide context into the d_model-wide
+        residual stream)."""
+        return (self.use_fused_layer and rng is None and self.d_k == self.d_v
+                and self.n_head * self.d_k == self.d_model)
+
+    def _fused(self, h, k2, v2, bias):
+        if bias is not None:
+            # the kernel takes one (L, L) bias for the whole batch; the SBL
+            # step only builds batch-invariant causal/prefix masks, and a
+            # per-sample padding mask would silently mis-mask here
+            assert bias.shape[0] == 1, (
+                "fused layer needs a batch-invariant self-attn mask; got "
+                f"batch dim {bias.shape[0]} -- use the module path")
+            bias = bias[0]
+        fn = fused_decoder_layer if self.use_kernels else fused_decoder_layer_plain
+        return fn(h.contiguous(), *layer_params_to_args(self),
+                  k2.contiguous(), v2.contiguous(), self.n_head, mask_bias=bias)
+
     def forward(self, h, k2, v2, bias, rng=None):
+        if self._fused_eligible(rng):
+            return self._fused(h, k2, v2, bias)
         h = self.slf(h, h, h, bias=bias, rng=rng)
         h = self.cross(h, k2, v2, rng=rng)
         return self.ffn(h, rng)
@@ -121,7 +152,8 @@ class _SBLStep(nn.Module):
     def __init__(self, vocab_size: int, d_model: int, n_layers: int,
                  n_head: int, d_k: int, d_v: int, d_inner: int,
                  pe_maxlen: int, fusion_mode: str, dtype=torch.float32,
-                 use_kernels: bool = True, dropout: float = 0.1):
+                 use_kernels: bool = True, dropout: float = 0.1,
+                 use_fused_layer: bool = False):
         super().__init__()
         if fusion_mode not in ("symmetric", "reference_aliased"):
             raise ValueError(f"unknown fusion_mode: {fusion_mode}")
@@ -132,7 +164,8 @@ class _SBLStep(nn.Module):
                              persistent=False)
         for i in range(n_layers):
             self.add_module(f"layer_{i}", _SBLLayer(
-                d_model, n_head, d_k, d_v, d_inner, dtype, use_kernels, dropout))
+                d_model, n_head, d_k, d_v, d_inner, dtype, use_kernels, dropout,
+                use_fused_layer))
         self.tgt_word_prj = Dense(d_model, vocab_size, bias=False, dirs=DIRS,
                                   dtype=dtype)
 
@@ -177,14 +210,15 @@ class SBLDecoder(nn.Module):
                  maxlen: int = 16, fusion_mode: str = "symmetric",
                  decode_segments: int = 4, dtype=torch.float32,
                  use_kernels: bool = True, dropout: float = 0.1,
-                 teacher_forcing_rate: float = 0.5, remat: bool = True):
+                 teacher_forcing_rate: float = 0.5, remat: bool = True,
+                 use_fused_layer: bool = False):
         super().__init__()
         self.maxlen, self.decode_segments = maxlen, decode_segments
-        self.n_layers, self.dtype = n_layers, dtype
+        self.n_layers, self.dtype, self.vocab_size = n_layers, dtype, vocab_size
         self.teacher_forcing_rate, self.remat = teacher_forcing_rate, remat
         self.step = _SBLStep(vocab_size, d_model, n_layers, n_head, d_k, d_v,
                              d_inner, pe_maxlen, fusion_mode, dtype, use_kernels,
-                             dropout)
+                             dropout, use_fused_layer)
         for i in range(n_layers):
             self.add_module(f"cross_kv_{i}", CrossKV(d_model, n_head, d_k, d_v,
                                                      dtype, dirs=DIRS))
@@ -207,6 +241,15 @@ class SBLDecoder(nn.Module):
         enc = enc_output.to(self.dtype)
         return tuple(getattr(self, f"cross_kv_{i}")(enc)
                      for i in range(self.n_layers))
+
+    def step_logits_cached(self, ys_l2r: torch.Tensor, ys_r2l: torch.Tensor,
+                           enc_kv, step: int):
+        """Both directions' f32 logits (N, V) at position ``step`` given
+        paired token buffers (N, L) and precomputed cross K/V: the building
+        block of the bidirectional beam search.  Runs the decode loop's own
+        step module, deterministically, and writes no token."""
+        lg = self.step(torch.stack([ys_l2r, ys_r2l]), enc_kv, int(step), None)
+        return lg[0], lg[1]
 
     def _run(self, enc_output: torch.Tensor, gold: Optional[torch.Tensor],
              use_gold: Sequence[bool], rng: Optional[DropoutRNG]):

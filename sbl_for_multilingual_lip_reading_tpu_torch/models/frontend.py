@@ -22,8 +22,13 @@ block's ``bn1``, ``bn2`` and ``downsample_bn``) when the module's
 (read when the frontend is built); both default off.  JAX gives
 ``DotBatchNorm`` and ``GroupedBatchNorm`` precedence over it, and
 ``FastBatchNorm`` precedence over ``FusedBNAct``: none of the three is
-ported, so the choice here is between the two.  The JAX package's Pallas
-BasicBlock is not ported either.
+ported, so the choice here is between the two.
+
+``use_pallas_resblock`` (default False, as in JAX) sends every eligible
+BasicBlock in eval mode through kernel K10 (``ops/resblock.py``): stride 1
+and equal input and output widths, five of ResNet-18's eight blocks.
+``forward_stacked`` takes the already stacked and normalized output of K9
+(``ops/stem.py::stack_frames_u8``) in place of a clip.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.batchnorm import bn_train
+from ..ops.resblock import fold_bn, fused_resblock, fused_resblock_plain
 from ..ops.stem import stack_frames, stack_frames_plain
 from .layers import DropoutRNG, dropout
 
@@ -154,9 +160,12 @@ class BasicBlock(nn.Module):
     def __init__(self, c_in: int, filters: int, stride: int = 1,
                  bn_epsilon: float = 1e-5, dtype=torch.float32,
                  bn_momentum: float = 0.9, use_pallas_bn: bool = False,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, use_pallas_resblock: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.stride, self.bn_epsilon = stride, bn_epsilon
+        self.use_kernels = use_kernels
+        self.use_pallas_resblock = use_pallas_resblock
 
         def bn():
             return make_batchnorm(filters, bn_epsilon, bn_momentum,
@@ -176,7 +185,25 @@ class BasicBlock(nn.Module):
         if self.has_downsample:
             _he_normal_fan_out(self.downsample_conv.weight, g)
 
+    def _fused_eligible(self, x: torch.Tensor) -> bool:
+        """JAX ``BasicBlock._fused_eligible``: the switch, eval mode,
+        stride 1, equal widths."""
+        return (self.use_pallas_resblock and not self.training
+                and self.stride == 1
+                and x.shape[1] == self.conv2.weight.shape[0])
+
+    def _fused_eval(self, x: torch.Tensor) -> torch.Tensor:
+        a1, b1 = fold_bn(self.bn1.weight, self.bn1.bias, self.bn1.running_mean,
+                         self.bn1.running_var, self.bn_epsilon)
+        a2, b2 = fold_bn(self.bn2.weight, self.bn2.bias, self.bn2.running_mean,
+                         self.bn2.running_var, self.bn_epsilon)
+        fn = fused_resblock if self.use_kernels else fused_resblock_plain
+        return fn(x.contiguous(), self.conv1.weight.to(self.dtype), a1, b1,
+                  self.conv2.weight.to(self.dtype), a2, b2)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._fused_eligible(x):
+            return self._fused_eval(x)
         y = F.relu(self.bn1(self.conv1(x)).to(self.dtype))
         y = self.bn2(self.conv2(y)).to(self.dtype)
         residual = x
@@ -193,7 +220,8 @@ class ResNetTrunk(nn.Module):
     def __init__(self, c_in: int, channels: Sequence[int] = (64, 128, 256, 512),
                  blocks: Sequence[int] = (2, 2, 2, 2), bn_epsilon: float = 1e-5,
                  dtype=torch.float32, bn_momentum: float = 0.9,
-                 use_pallas_bn: bool = False, use_kernels: bool = True):
+                 use_pallas_bn: bool = False, use_kernels: bool = True,
+                 use_pallas_resblock: bool = False):
         super().__init__()
         self.dtype = dtype
         self.names = []
@@ -203,7 +231,8 @@ class ResNetTrunk(nn.Module):
                 name = f"layer{stage + 1}_block{b}"
                 self.add_module(name, BasicBlock(c_in, ch, stride, bn_epsilon,
                                                  dtype, bn_momentum,
-                                                 use_pallas_bn, use_kernels))
+                                                 use_pallas_bn, use_kernels,
+                                                 use_pallas_resblock))
                 self.names.append(name)
                 c_in = ch
 
@@ -222,7 +251,8 @@ class VisualFrontend(nn.Module):
                  feature_dim: int = 512, bn_epsilon: float = 1e-5,
                  dtype=torch.float32, use_kernels: bool = True,
                  dropout: float = 0.5, bn_momentum: float = 0.9,
-                 use_pallas_bn: bool = False):
+                 use_pallas_bn: bool = False,
+                 use_pallas_resblock: bool = False):
         super().__init__()
         self.dtype, self.use_kernels = dtype, use_kernels
         self.feature_dim, self.dropout = feature_dim, dropout
@@ -232,7 +262,8 @@ class VisualFrontend(nn.Module):
                                    use_pallas_bn, use_kernels)
         self.resnet = ResNetTrunk(conv3d_channels, resnet_channels,
                                   resnet_blocks, bn_epsilon, dtype, bn_momentum,
-                                  use_pallas_bn, use_kernels)
+                                  use_pallas_bn, use_kernels,
+                                  use_pallas_resblock)
 
     def init_weights(self, g: torch.Generator) -> None:
         _he_normal_fan_out(self.conv3d_weight, g)
@@ -241,10 +272,16 @@ class VisualFrontend(nn.Module):
                 rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         """BatchNorm follows the module's train/eval mode; ``rng`` (the
         training forward's random numbers) turns on ``feat_drop``."""
-        B, T, H, W = x.shape
         stack = stack_frames if self.use_kernels else stack_frames_plain
-        xs = stack(x.to(self.dtype).contiguous(), STEM_KT)
-        xs = xs.reshape(B * T, STEM_KT, H, W)
+        return self.forward_stacked(stack(x.to(self.dtype).contiguous(), STEM_KT),
+                                    rng)
+
+    def forward_stacked(self, xs: torch.Tensor,
+                        rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        """The frontend from the stacked stem input on: xs is (B, T, kt, S,
+        S) in the compute dtype, K2's or K9's output."""
+        B, T, kt, H, W = xs.shape
+        xs = xs.reshape(B * T, kt, H, W)
         y = F.conv2d(xs, self.conv3d_weight.to(self.dtype), stride=2, padding=3)
         y = F.relu(self.bn3d(y)).to(self.dtype)
         # the reference's MaxPool3d(k=(1,3,3), s=(1,2,2), p=(0,1,1)) with
@@ -255,8 +292,8 @@ class VisualFrontend(nn.Module):
         return y.reshape(B, T, self.feature_dim)
 
 
-def frontend_from_config(cfg, dtype=torch.float32,
-                         use_kernels: bool = True) -> VisualFrontend:
+def frontend_from_config(cfg, dtype=torch.float32, use_kernels: bool = True,
+                         use_pallas_resblock: bool = False) -> VisualFrontend:
     return VisualFrontend(
         conv3d_channels=cfg.conv3d_channels,
         resnet_channels=tuple(cfg.resnet_channels),
@@ -267,4 +304,5 @@ def frontend_from_config(cfg, dtype=torch.float32,
         use_kernels=use_kernels,
         dropout=cfg.dropout,
         bn_momentum=cfg.bn_momentum,
+        use_pallas_resblock=use_pallas_resblock,
     )

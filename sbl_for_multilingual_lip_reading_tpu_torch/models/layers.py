@@ -12,7 +12,7 @@
   the attention probabilities) in training.
 * ``CrossKV`` / ``CachedCrossAttention`` -- cross-attention with the
   encoder's K/V projected once per clip instead of once per decode step.
-* ``PositionwiseFeedForward``, ``EncoderLayer``,
+* ``PositionwiseFeedForward``, ``EncoderLayer``, ``DecoderLayer``,
   ``sinusoid_position_encoding``.
 * ``DropoutRNG`` / ``dropout`` -- the training forward's random numbers.
 
@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import (small_mha_dropout_flat, small_mha_flat,
+from ..ops.attention import (MASK_FILL, small_mha_dropout_flat, small_mha_flat,
                              small_mha_flat_plain)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
@@ -248,6 +248,36 @@ class MultiHeadAttention(nn.Module):
         out = dropout(self.fc(ctx), self.dropout, rng)
         return _post_ln(self.layer_norm, out, q, self.dtype)
 
+    def decode_step(self, x: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, step: int):
+        """One autoregressive self-attention step with a K/V cache (JAX
+        ``MultiHeadAttention.decode_step``; plain einsums there, plain
+        torch here): projects only the new position and attends it against
+        the flat (B, L, h*d) caches.
+
+        x: (B, 1, d_model), the layer input at position ``step``;
+        k_cache/v_cache: projected caches whose slots >= step are unset.
+        Slot ``step`` is written IN PLACE (JAX returns updated copies; the
+        callers here own their caches).  Returns (out (B, 1, d_model),
+        k_cache, v_cache).  Deterministic path only."""
+        h = self.n_head
+        B, L, HD = k_cache.shape
+        d = HD // h
+        f32 = torch.float32
+        q2 = self.w_qs(x)
+        k_cache[:, step] = self.w_ks(x)[:, 0]
+        v_cache[:, step] = self.w_vs(x)[:, 0]
+        qh = q2.reshape(B, h, d).to(f32)
+        kh = k_cache.reshape(B, L, h, d).to(f32)
+        vh = v_cache.reshape(B, L, h, d).to(f32)
+        logits = torch.einsum("bhd,bkhd->bhk", qh, kh) / math.sqrt(d)
+        invalid = torch.arange(L, device=x.device) > step
+        logits = torch.where(invalid[None, None, :], MASK_FILL, logits)
+        attn = torch.softmax(logits, dim=-1).to(self.dtype)
+        ctx = torch.einsum("bhk,bkhd->bhd", attn.to(f32), vh).to(self.dtype)
+        out = self.fc(ctx.reshape(B, 1, HD))
+        return _post_ln(self.layer_norm, out, x, self.dtype), k_cache, v_cache
+
 
 class CrossKV(nn.Module):
     """Cross-attention K/V projections, split out so the decoder projects
@@ -333,3 +363,32 @@ class EncoderLayer(nn.Module):
         if non_pad_mask is not None:
             x = x * non_pad_mask.to(x.dtype)
         return x
+
+
+class DecoderLayer(nn.Module):
+    """Self-attention, uncached cross-attention over the encoder output and
+    FFN, each followed by the optional non-pad multiply (JAX
+    ``DecoderLayer``; the decoders use the cached forms above)."""
+
+    def __init__(self, d_model: int, d_inner: int, n_head: int, d_k: int,
+                 d_v: int, dtype=torch.float32, use_kernels: bool = True,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.slf_attn = MultiHeadAttention(d_model, n_head, d_k, d_v, dtype,
+                                           use_kernels, dropout=dropout)
+        self.enc_attn = MultiHeadAttention(d_model, n_head, d_k, d_v, dtype,
+                                           use_kernels, dropout=dropout)
+        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, dtype,
+                                               dropout=dropout)
+
+    def forward(self, x: torch.Tensor, enc_output: torch.Tensor,
+                non_pad_mask: Optional[torch.Tensor] = None,
+                slf_bias: Optional[torch.Tensor] = None,
+                dec_enc_bias: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+        def keep(h):
+            return h if non_pad_mask is None else h * non_pad_mask.to(h.dtype)
+        x = keep(self.slf_attn(x, x, x, bias=slf_bias, rng=rng))
+        x = keep(self.enc_attn(x, enc_output, enc_output, bias=dec_enc_bias,
+                               rng=rng))
+        return keep(self.pos_ffn(x, rng))

@@ -1,5 +1,6 @@
-"""Top-level SBL model: frontend -> encoder -> bidirectional decoder
-(counterpart of the JAX package's ``models/sbl.py::SBLTransformer``)."""
+"""Top-level seq2seq models: frontend -> encoder -> decoder (counterpart of
+the JAX package's ``models/sbl.py``): ``SBLTransformer`` with the
+bidirectional decoder, ``UniTransformer`` with the unidirectional one."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
@@ -8,6 +9,7 @@ import torch
 from torch import nn
 
 from .decoder_sbl import SBLDecoder
+from .decoder_uni import UniDecoder
 from .encoder import Encoder
 from .frontend import VisualFrontend
 from .layers import DropoutRNG
@@ -47,3 +49,27 @@ class SBLTransformer(nn.Module):
         """Greedy bidirectional decode: (ys_l2r, ys_r2l), (B, maxlen+1) ids
         with the leading sos."""
         return self.decoder.recognize(self.encode(video))
+
+
+class UniTransformer(nn.Module):
+    """Unidirectional seq2seq model (the ``lrw`` / ``lrw1000`` workloads)."""
+
+    def __init__(self, frontend: VisualFrontend, encoder: Encoder,
+                 decoder: UniDecoder):
+        super().__init__()
+        self.frontend, self.encoder, self.decoder = frontend, encoder, decoder
+
+    def forward(self, video: torch.Tensor, labels: torch.Tensor):
+        """Deterministic teacher-forced forward (JAX ``__call__`` with
+        train=False): (f32 logits (B, maxlen, V), IGNORE-padded gold)."""
+        return self.decoder(labels, self.encode(video))
+
+    def encode(self, video: torch.Tensor) -> torch.Tensor:
+        """video: (B, T, H, W) normalized grayscale -> encoder output
+        (B, T, d_model)."""
+        return self.encoder(self.frontend(video))
+
+    def recognize(self, video: torch.Tensor,
+                  maxlen: Optional[int] = None) -> torch.Tensor:
+        """KV-cached greedy decode: (B, maxlen+1) ids with the leading sos."""
+        return self.decoder.recognize_greedy(self.encode(video), maxlen=maxlen)

@@ -8,13 +8,18 @@ from .attention import (MASK_FILL, dropout_keep_mask_flat,
                         small_mha_flat, small_mha_flat_plain)
 from .batchnorm import (bn_train, channel_sums, channel_sums_pair,
                         channel_sums_pair_plain, channel_sums_plain)
+from .decoder_layer import (fused_decoder_layer, fused_decoder_layer_plain,
+                            layer_params_to_args)
 from .ingest import ingest_train, ingest_train_plain
-from .stem import stack_frames, stack_frames_plain
+from .resblock import fold_bn, fused_resblock, fused_resblock_plain
+from .stem import (stack_frames, stack_frames_plain, stack_frames_u8,
+                   stack_frames_u8_plain)
 
-# K1 ... K8, in the order they were ported
+# K1 ... K11, in the order they were ported
 KERNELS = (small_mha_flat, stack_frames, small_mha_dropout_fwd_flat,
            small_mha_dropout_bwd_flat, dropout_keep_mask_flat, ingest_train,
-           channel_sums, channel_sums_pair)
+           channel_sums, channel_sums_pair, stack_frames_u8, fused_resblock,
+           fused_decoder_layer)
 
 
 def reset_launch_counts() -> None:

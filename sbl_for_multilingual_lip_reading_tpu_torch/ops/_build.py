@@ -66,7 +66,25 @@ _SIGNATURES = {
     # device, stream
     "sbl_channel_sums_pair": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _P],
+    # clips, out, B, T, H, W, crop, c0, kt, inv_std, shift, dtype, device,
+    # stream
+    "sbl_stack_frames_u8": [_P, _P, _LL, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                            _P],
+    # x, w1, w2, aff, out, N, C, S, Bt, BH, dtype, device, stream
+    "sbl_fused_resblock": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, wq, wk, wv, fc, wq2, fc2, w1, w2, vecs, b1, ck, cv, bias, out, dirs,
+    # B, L, D, H, dk, DI, Tk, Bt, scale, dtype, device, stream
+    "sbl_fused_decoder_layer": [_P] * 15 + [_I] * 9 + [_F, _I, _I, _P],
 }
+# shared-memory sizing helpers: plain ints in, bytes out
+_SIZERS = {
+    # C, S, Bt, BH, elem
+    "sbl_resblock_smem_bytes": [_I] * 5,
+    # Bt, L, D, dk, Tk, elem
+    "sbl_decoder_layer_smem_bytes": [_I] * 6,
+}
+# dynamic shared memory a block may ask for on sm_90 (227 KB)
+MAX_SMEM_BYTES = 232448
 
 
 def find_nvcc() -> Optional[str]:
@@ -134,6 +152,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in _SIZERS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
     return lib
 
 

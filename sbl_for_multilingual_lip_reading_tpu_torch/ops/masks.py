@@ -23,3 +23,13 @@ def non_pad_mask_from_lengths(lengths: torch.Tensor,
     """(B,) -> (B, T, 1) float mask, 1.0 at valid positions."""
     pos = torch.arange(max_len, device=lengths.device)[None, :]
     return (pos < lengths[:, None])[..., None].to(torch.float32)
+
+
+def key_pad_mask_from_ids(seq_k: torch.Tensor, pad_id: int) -> torch.Tensor:
+    """(B, Tk) -> (B, 1, Tk) True where the key token == pad_id."""
+    return (seq_k == pad_id)[:, None, :]
+
+
+def non_pad_mask_from_ids(seq: torch.Tensor, pad_id: int) -> torch.Tensor:
+    """(B, T) -> (B, T, 1) float mask, 1.0 where token != pad_id."""
+    return (seq != pad_id)[..., None].to(torch.float32)

@@ -88,7 +88,8 @@ def expected_launches(cfg) -> Dict[str, int]:
     enc = cfg.dims.n_enc_layers
     dec = 2 * cfg.decoder.maxlen * cfg.dims.n_dec_layers
     bns = frontend_bn_count(cfg.frontend) if pallas_bn_on(False) else 0
-    return {"small_mha_flat": 0, "stack_frames": 1,
+    return {"stack_frames_u8": 0, "fused_resblock": 0, "fused_decoder_layer": 0,
+            "small_mha_flat": 0, "stack_frames": 1,
             "small_mha_dropout_fwd_flat": enc + dec * (2 if cfg.remat_decoder else 1),
             "small_mha_dropout_bwd_flat": enc + dec,
             "dropout_keep_mask_flat": 0,
@@ -151,3 +152,17 @@ def make_sbl_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer
 
     step.state = state
     return step
+
+
+def make_uni_eval_step(model: torch.nn.Module, cfg) -> Callable:
+    """``eval_step(batch) -> ys`` for a ``UniTransformer`` (JAX
+    ``make_uni_eval_step``): eval ingest, then the KV-cached greedy decode;
+    ys is (B, maxlen+1) ids with the leading sos."""
+    from ..recognize import recognize_batch
+    crop = cfg.data.crop_size
+
+    def eval_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return recognize_batch(model, batch["clip_u8"], crop,
+                               n_frames=batch.get("n_frames"))
+
+    return eval_step

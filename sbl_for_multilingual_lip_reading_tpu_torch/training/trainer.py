@@ -1,6 +1,8 @@
 """The training entry point of the ``sbl`` workloads (counterpart of the
-JAX package's ``training/trainer.py``): the epoch loop, greedy validation
-with WER/PER, the best-model checkpoint, and ``train_steps``.
+JAX package's ``training/trainer.py``): the epoch loop, validation with
+WER/PER (greedy or beam search), the best-model checkpoint, and
+``train_steps``.  For the unidirectional ``lrw`` / ``lrw1000`` workloads it
+evaluates (``validate_seq2seq``); their train step is not ported yet.
 
 Reproduces the reference's protocol (SBL train.py): epoch loop -> train
 (dual 0.5 * (l2r + r2l) loss) -> validation on each eval set (greedy
@@ -29,6 +31,7 @@ from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..data.ingest import device_ingest
 from ..data.pipeline import Batcher, background_iter, prefetch_to_device
 from ..data.sampler import TwoStreamBatchSampler
 from ..data.transforms import make_train_plans
@@ -41,7 +44,8 @@ from ..utils.profiler import StepTimer
 from ..vocab import EOS_ID, IGNORE_ID, SOS_ID, TOTAL_PHONEMES
 from . import checkpoint as ckpt
 from .schedule import make_optimizer
-from .steps import make_sbl_train_step
+from .state import TrainState
+from .steps import make_sbl_train_step, make_uni_eval_step
 
 
 def attach_plans(batch: Dict, rng: np.random.Generator, cfg) -> Dict:
@@ -93,14 +97,17 @@ class _Scores:
                 per_compute(self.pred_ph, self.gold_ph))
 
 
-BEAM_NOT_PORTED = "beam search is not ported yet: ROADMAP.md queue A item 10"
+UNI_TRAIN_NOT_PORTED = ("the unidirectional train step is not ported yet: "
+                        "ROADMAP.md queue A item 9b (make_uni_train_step)")
 
 
 class Trainer:
-    """Config-driven trainer of the ``sbl`` / ``sbl_stage2`` workloads on
-    one device: the card unless ``device`` (or a given ``model``'s device)
-    says otherwise.  Other workloads raise ``NotImplementedError`` naming
-    their ROADMAP item (from ``build_model``)."""
+    """Config-driven trainer on one device: the card unless ``device`` (or
+    a given ``model``'s device) says otherwise.  It trains and evaluates
+    the ``sbl`` / ``sbl_stage2`` workloads and evaluates ``lrw`` /
+    ``lrw1000`` (``train_epoch`` and ``fit`` raise for those, naming the
+    ROADMAP item); ``classify`` raises ``NotImplementedError`` from
+    ``build_model``."""
 
     def __init__(self, cfg, train_dataset, valid_datasets: Optional[Dict] = None,
                  checkpoint_dir: Optional[str] = None, device=None,
@@ -131,9 +138,14 @@ class Trainer:
         """A fresh Adam and train step at update 0 (after a transfer load,
         as the reference rebuilds its optimizer, train.py:106-109)."""
         self.optimizer = make_optimizer(self.model, self.cfg.optim)
-        self.train_step = make_sbl_train_step(self.model, self.optimizer,
-                                              self.cfg)
-        self.state = self.train_step.state
+        if self.cfg.decoder.bidirectional:
+            self.train_step = make_sbl_train_step(self.model, self.optimizer,
+                                                  self.cfg)
+            self.state = self.train_step.state
+        else:
+            self.train_step = None
+            self.eval_step = make_uni_eval_step(self.model, self.cfg)
+            self.state = TrainState(self.model, self.optimizer, self.cfg.optim)
 
     # ---------------------------------------------------------- checkpoints
     def rng_state(self) -> Dict:
@@ -209,6 +221,8 @@ class Trainer:
         appends each step's metrics to ``history`` when one is given.  A
         step's loss is read while the next step runs, so the read does not
         hold the card idle."""
+        if self.train_step is None:
+            raise NotImplementedError(UNI_TRAIN_NOT_PORTED)
         losses = AverageMeter()
         if self.cache_on_device:
             if self.cfg.secondary_batch_size:
@@ -261,11 +275,23 @@ class Trainer:
 
     # ----------------------------------------------------------------- eval
     def validate_seq2seq(self, dataset, max_batches: Optional[int] = None,
-                         beam_size: Optional[int] = None) -> Dict[str, float]:
-        """Greedy bidirectional decode of every sample (the ragged tail
-        batch kept) and WER/PER per direction."""
-        if beam_size is not None:
-            raise NotImplementedError(BEAM_NOT_PORTED)
+                         beam_size: Optional[int] = None,
+                         bigram_logp=None) -> Dict[str, float]:
+        """Decode every sample (the ragged tail batch kept) and score WER/PER
+        (JAX ``validate_seq2seq``): greedily by default, both directions for
+        SBL.  With ``beam_size``, batched beam search: paired bidirectional
+        frontiers for SBL (``decode/beam.py::sbl_beam_search``), or the
+        unidirectional beam, optionally biased by a (V, V) bigram log table
+        (the LRW-1000 eval protocol); the best hypothesis is scored."""
+        bidi = self.cfg.decoder.bidirectional
+        beam_fn = None
+        if beam_size is not None and bidi:
+            from ..decode.beam import make_sbl_beam_decoder
+            beam_fn = make_sbl_beam_decoder(self.model, beam_size)
+        elif beam_size is not None:
+            from ..decode.beam import make_uni_beam_decoder
+            beam_fn = make_uni_beam_decoder(self.model, beam_size,
+                                            bigram_logp=bigram_logp)
         crop = self.cfg.data.crop_size
         l2r, r2l = _Scores(), _Scores()
         batcher = Batcher(dataset, self.cfg.batch_size, shuffle=False,
@@ -273,14 +299,32 @@ class Trainer:
         for i, batch in enumerate(prefetch_to_device(iter(batcher), self.device)):
             if max_batches is not None and i >= max_batches:
                 break
-            out = recognize_batch(self.model, batch["clip_u8"], crop,
-                                  n_frames=batch.get("n_frames"))
-            l2r.add(out.ys_l2r.cpu().numpy(), batch["labels"].cpu().numpy())
-            r2l.add(out.ys_r2l.cpu().numpy(),
-                    batch["labels_reverse"].cpu().numpy())
+            gold = batch["labels"].cpu().numpy()
+            if beam_fn is not None:
+                self.model.eval()
+                video = device_ingest(batch["clip_u8"], crop,
+                                      self.model.frontend.dtype,
+                                      n_frames=batch.get("n_frames"))
+                if bidi:
+                    tok_l, tok_r, _ = beam_fn(video)
+                    l2r.add(tok_l[:, 0].cpu().numpy(), gold)
+                    r2l.add(tok_r[:, 0].cpu().numpy(),
+                            batch["labels_reverse"].cpu().numpy())
+                else:
+                    tokens, _ = beam_fn(video)
+                    l2r.add(tokens[:, 0].cpu().numpy(), gold)
+            elif bidi:
+                out = recognize_batch(self.model, batch["clip_u8"], crop,
+                                      n_frames=batch.get("n_frames"))
+                l2r.add(out.ys_l2r.cpu().numpy(), gold)
+                r2l.add(out.ys_r2l.cpu().numpy(),
+                        batch["labels_reverse"].cpu().numpy())
+            else:
+                l2r.add(self.eval_step(batch).cpu().numpy(), gold)
         res = {}
         res["l2r_wer"], res["l2r_per"] = l2r.finish()
-        res["r2l_wer"], res["r2l_per"] = r2l.finish()
+        if bidi:
+            res["r2l_wer"], res["r2l_per"] = r2l.finish()
         return res
 
     # ------------------------------------------------------------------ fit
@@ -290,6 +334,8 @@ class Trainer:
         """Epochs ``start_epoch .. epochs-1``: train, validate every eval
         set, keep the best (least sum of l2r WER; the train loss without
         eval sets) and checkpoint to ``checkpoint_dir`` after each."""
+        if self.train_step is None:
+            raise NotImplementedError(UNI_TRAIN_NOT_PORTED)
         last: Dict = {}
         loss = float("nan")
         for epoch in range(start_epoch, epochs):

@@ -1,5 +1,6 @@
-"""Phoneme vocabulary of the SBL workloads: token ids, id -> symbol, and
-word -> token ids for the synthetic dataset's labels.
+"""Phoneme vocabularies of the seq2seq workloads (the unified 58 tokens of
+``sbl``, the 42 of ``lrw``, the 48 of ``lrw1000``): token ids, id -> symbol,
+and word -> token ids for the datasets' labels.
 
 A copy of what the port needs from the JAX package's ``vocab/phonemes.py``
 and its data tables (``assets/``: the ARPABET table of the 500 LRW words,
@@ -28,6 +29,24 @@ TOTAL_PHONEMES: List[str] = [
     "ch", "ae", "au", "er", "d", "f", "ei", "w", "a", "oi", "b", "uu",
     "g", "sh", "dh", "u", "zh1", "an", "ang", "en", "eng", "ie", "in",
     "ing", "uo", "ts", "iii", "ong", "j", "yu", "yue", "q", "x",
+]
+
+# the 42-token English vocabulary of the LRW seq2seq project; it spells two
+# phonemes differently from TOTAL_PHONEMES ('ing' for 'ng', 'a2' for 'a1')
+LRW_PHONEMES: List[str] = [
+    "<sos>", "<eos>", "s", "p", "ii", "k", "i", "ing", "l", "e", "v",
+    "e1", "a2", "m", "z", "zh", "o", "r", "eu", "t", "ai", "h", "th",
+    "y", "n", "ch", "ae", "au", "er", "d", "f", "ei", "w", "a", "oi",
+    "b", "uu", "g", "sh", "dh", "u", "zh1",
+]
+
+# the 48-token Mandarin vocabulary of the LRW-1000 seq2seq project
+LRW1000_PHONEMES: List[str] = [
+    "sos", "eos", "s", "au", "m", "i", "p", "ii", "t", "q", "yu", "x",
+    "j", "an", "y", "eu", "sh", "iii", "d", "ong", "ang", "zh", "l",
+    "e1", "f", "g", "eng", "ts", "uo", "a", "ch", "w", "en", "h", "u",
+    "ai", "yue", "uu", "in", "ing", "ei", "z", "b", "zh1", "k", "ie",
+    "er", "n",
 ]
 
 
@@ -98,6 +117,30 @@ def encode_pinyin_seq(pinyins: Sequence[str]) -> List[int]:
     """Pinyin syllables -> unified token ids (concatenated)."""
     cmap = chinese_phoneme_map()
     return [TOTAL_PHONEMES.index(ph) for py in pinyins for ph in cmap[py]]
+
+
+_LRW_RESPELL = {"ng": "ing", "a1": "a2"}
+VOCABS = ("sbl", "lrw", "lrw1000")
+
+
+def encode_word_ids(word: str, vocab: str = "sbl") -> List[int]:
+    """English word -> token ids in the requested table: 'sbl' = the
+    unified 58 tokens, 'lrw' = the LRW project's own 42 (JAX
+    ``data/datasets.py::encode_word_ids``)."""
+    if vocab == "lrw":
+        emap = english_phoneme_map()
+        phs = [emap[a] for a in lrw_word_arpabet()[word.upper()]]
+        return [LRW_PHONEMES.index(_LRW_RESPELL.get(p, p)) for p in phs]
+    return encode_english_word(word)
+
+
+def encode_pinyin_ids(pinyins: Sequence[str], vocab: str = "sbl") -> List[int]:
+    """Pinyin syllables -> token ids: 'sbl' = the unified 58 tokens,
+    'lrw1000' = the Mandarin project's 48 (JAX ``encode_pinyin_ids``)."""
+    if vocab == "lrw1000":
+        cmap = chinese_phoneme_map()
+        return [LRW1000_PHONEMES.index(ph) for py in pinyins for ph in cmap[py]]
+    return encode_pinyin_seq(pinyins)
 
 
 @functools.lru_cache(None)

@@ -68,6 +68,14 @@ tr, _ = cli.run_train(["--epochs", "1", "--max-steps-per-epoch", "1",
 assert tr.state.step == 1
 out = cli.run_test(["--checkpoint", save] + tiny)
 assert set(out) == {"lrw", "lrw1000"}
+# the unidirectional eval path: a checkpoint, then beam search with the LM
+C.PRESETS["lrw1000"] = lambda: C.tiny_test("lrw1000")
+uni = ["--workload", "lrw1000"] + tiny
+trainer.Trainer(cli.config_from_args(cli.build_argparser().parse_args(uni)),
+                [], {}, device="cpu").save(save + "_uni")
+out = cli.run_test(["--checkpoint", save + "_uni", "--beam-size", "2",
+                    "--bigram-lm"] + uni)
+assert set(out) == {"lrw1000"} and set(out["lrw1000"]) == {"l2r_wer", "l2r_per"}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "sbl_for_multilingual_lip_reading_tpu"))
 assert not loaded, loaded
@@ -82,8 +90,9 @@ def _run(args, cwd):
 
 
 def test_port_never_imports_jax(tmp_path):
-    # every module of the port, recognize, a train step, and a tiny
-    # `cli train --cpu` then `cli test --cpu`
+    # every module of the port, recognize, a train step, a tiny
+    # `cli train --cpu` then `cli test --cpu`, and
+    # `cli test --cpu --workload lrw1000 --beam-size 2 --bigram-lm`
     res = _run([sys.executable, "-c", _NO_JAX_SCRIPT, str(tmp_path / "ckpt")],
                REPO)
     assert res.returncode == 0, res.stderr[-2000:]
@@ -129,10 +138,14 @@ def _assert_fields_match(port_cfg, jax_cfg, path="cfg"):
             assert mine == theirs, f"{path}.{f.name}: {mine!r} != {theirs!r}"
 
 
-@pytest.mark.parametrize("preset", ["sbl", "sbl_stage2", "tiny_test"])
+@pytest.mark.parametrize("preset", ["sbl", "sbl_stage2", "lrw", "lrw1000",
+                                    "tiny_test", "tiny_lrw", "tiny_lrw1000"])
 def test_port_config_matches_jax(preset):
     if preset == "tiny_test":
         mine, theirs = port_config.tiny_test(), C.tiny_test("sbl")
+    elif preset.startswith("tiny_"):
+        name = preset[len("tiny_"):]
+        mine, theirs = port_config.tiny_test(name), C.tiny_test(name)
     else:
         mine, theirs = port_config.PRESETS[preset](), C.PRESETS[preset]()
     _assert_fields_match(mine, theirs)
@@ -191,7 +204,7 @@ def test_profile_recognize_refuses_without_a_card():
     assert "no CUDA device" in res.stderr
 
 
-@pytest.mark.parametrize("name", ["lrw", "lrw1000", "classify"])
+@pytest.mark.parametrize("name", ["classify"])
 def test_build_model_refuses_unported_workloads(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(C.tiny_test(name), "cpu")
@@ -258,7 +271,8 @@ def test_recognize_calls_each_kernel_wrapper_as_counted(monkeypatch):
 def test_launch_counts_reset_and_read():
     names = ("small_mha_flat", "stack_frames", "small_mha_dropout_fwd_flat",
              "small_mha_dropout_bwd_flat", "dropout_keep_mask_flat",
-             "ingest_train", "channel_sums", "channel_sums_pair")
+             "ingest_train", "channel_sums", "channel_sums_pair",
+             "stack_frames_u8", "fused_resblock", "fused_decoder_layer")
     for i, fn in enumerate(ops.KERNELS):
         fn.launches = i + 1
     assert ops.launch_counts() == {n: i + 1 for i, n in enumerate(names)}
@@ -292,4 +306,5 @@ def test_kernel_library_is_keyed_by_its_sources(monkeypatch, tmp_path):
     monkeypatch.undo()
     names = {p.name for p in _build.sources()}
     assert {"attention.cu", "attention_train.cu", "stem.cu", "ingest.cu",
-            "batchnorm.cu", "common.cuh"} <= names
+            "batchnorm.cu", "resblock.cu", "decoder_layer.cu", "common.cuh",
+            "gemm_tile.cuh"} <= names

@@ -46,7 +46,8 @@ FLIPPED_MAX = 0.02
 def _bf16_reference():
     """One JAX train step at bf16 on its TPU kernel path, and its inputs."""
     setup = _setup()
-    cfg = _cfg(compute_dtype="bfloat16")
+    # the production adam_eps: FLIPPED_MAX counts full steps of lr
+    cfg = _cfg(compute_dtype="bfloat16", adam_eps=1e-9)
     batch = {k: jnp.asarray(v) for k, v in setup["batches"][0].items()}
     rng = jax.random.PRNGKey(5)
     state = _jax_state(cfg, setup["variables"])
