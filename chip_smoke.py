@@ -64,7 +64,33 @@ line (phase 2 adds nvcc's per-kernel register report):
      and with --beam-size 5 --bigram-lm at the preset's batch (WER/PER equal
      to the in-memory model's), beam 1 == greedy tokens, `lrw` greedy, `sbl`
      --beam-size 5; clips/s of greedy and beam 5;
-  9. a JSON line of the eleven kernels (each with its launches on every
+  3e. the layout twins and K12 vs their plain versions, d = 64, f32 and
+     bf16: fused_small_mha at (1024,17,8,64) causal, bit-identical to K1 on
+     the flat view and within K1_TOL of its plain version; small_mha's
+     gradients (K1 forward, K4 at rate 0 backward) at (480,17,8,64) causal
+     within TRAIN_TOL; the dropout twins at (480,17,8,64) causal and at
+     T = 31 and 32, bit-identical to K3 and K4 on the views and within
+     TRAIN_TOL of their plain versions given dropout_keep_mask's mask;
+     dropout_keep_mask bit-exact against the plain Philox; K12 fused_mha at
+     (512,8,17,64) and (512,8,30,64) with per-head, head-broadcast and no
+     bias within K1_TOL; times of each, its plain version and the
+     scaled_dot_product_attention forward or backward;
+  9. path C, `lrw1000` training at the full width, bf16, B=240: kernel path
+     vs plain path for one step at B=TRAIN_CHECK_BATCH (phase 5's
+     tolerances); `cli train --workload lrw1000` for two steps and a
+     validation (launches per step of K3 and K4 as expected_launches counts
+     them), `cli test` on its checkpoint (WER/PER equal to the in-memory
+     model's), `lrw` for one step; ms/step, clips/s and peak memory of the
+     B=240 step;
+  10. path D, `classify` at the full width, bf16, B=120, 31 frames: kernel
+     path vs plain path for one step; `cli train --workload classify` for
+     two steps and `cli test --workload classify` (word and language
+     accuracy equal to the in-memory model's); ms/step, clips/s, peak
+     memory; then the three-stage recipe at the full width and depth with
+     one step per stage on seeded synthetic data: the frozen stages'
+     frontend and encoder bit-identical, the transferred counts equal to the
+     frontend and encoder parameters of the classify checkpoint;
+  11. a JSON line of the seventeen kernels (each with its launches on every
      path, its error, its time, its plain version's, its bound on the card
      and a library call's time where one PyTorch call computes the same
      function), then the result line {"ok": true, "device": {...}}.
@@ -493,6 +519,222 @@ def phase_train_kernels(torch, dev):
     return rows
 
 
+def phase_twin_kernels(torch, dev, timing=True):
+    """The (B, T, H, d) twins (the flat kernels on views) and K12 fused_mha
+    against their plain versions and against the flat kernels; times of
+    kernel, plain version and scaled_dot_product_attention; bounds."""
+    import torch.nn.functional as F
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    g = torch.Generator(device=dev).manual_seed(12)
+    H, d = 8, 64
+    rows = {k: [] for k in ("fused_small_mha", "small_mha_bwd",
+                            "small_mha_dropout_fwd", "small_mha_dropout_bwd",
+                            "dropout_keep_mask", "fused_mha")}
+
+    def ms_of(fn):
+        return cuda_ms(torch, fn) if timing else float("nan")
+
+    def causal_bias(T):
+        return ops.mask_to_bias(
+            torch.ones(T, T, dtype=torch.bool, device=dev).triu(1)[None], T, T)
+
+    def headed(B, T, dt):
+        return torch.randn((B, T, H, d), generator=g, device=dev, dtype=dt)
+
+    def flat(t):
+        return t.view(t.shape[0], t.shape[1], -1)
+
+    def sdpa_views(t):       # (B, T, H, d) -> sdpa's (B, H, T, d) view
+        return t.transpose(1, 2)
+
+    def add(kernel, case, name_dt, err, ms, plain_ms, bound_, lib, **extra):
+        rows[kernel].append(dict(
+            case=case, dtype=name_dt, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_[0], bound_by=bound_[1], library_ms=lib[0],
+            library_call=lib[1], **extra))
+
+    for dt in (torch.float32, torch.bfloat16):
+        name_dt = str(dt).split(".")[-1]
+        item = torch.tensor([], dtype=dt).element_size()
+        # ---- fused_small_mha: K1 on the view, at the decoder's shape
+        B, T = 2 * SLICE_BATCH, 17
+        bias = causal_bias(T)
+        q, k, v = (headed(B, T, dt) for _ in range(3))
+        got = ops.fused_small_mha(q, k, v, bias)
+        flat_out = ops.small_mha_flat(flat(q), flat(k), flat(v), H, bias=bias)
+        want = ops.fused_small_mha_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        check(torch.equal(flat(got), flat_out),
+              f"fused_small_mha {name_dt}: not bit-identical to K1 on the view")
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= K1_TOL[name_dt], f"fused_small_mha {name_dt}: {err}")
+        mask = bias.to(dt)[:, None]
+        add("fused_small_mha", f"({B},{T},{H},{d}) causal", name_dt, err,
+            ms_of(lambda: ops.fused_small_mha(q, k, v, bias)),
+            ms_of(lambda: ops.fused_small_mha_plain(q, k, v, bias)),
+            attention_bound(B, T, T, H, d, item, bias, 2),
+            library_time(torch, lambda: F.scaled_dot_product_attention(
+                sdpa_views(q), sdpa_views(k), sdpa_views(v), attn_mask=mask),
+                "F.scaled_dot_product_attention on (B,H,T,64) views")
+            if timing else (None, "not timed"))
+        del q, k, v, got, flat_out, want
+
+        # ---- small_mha: K1 forward, K4 at rate 0 backward, the train shape
+        B = 2 * TRAIN_BATCH
+        q, k, v, dout = (headed(B, T, dt) for _ in range(4))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ops.small_mha(*leaves, bias).backward(dout)
+        wants = ops.small_mha_bwd_plain(q, k, v, bias, None, dout)
+        bwd = ops.small_mha_bwd(q, k, v, bias, None, dout)
+        flat_bwd = ops.small_mha_dropout_bwd_flat(
+            flat(q), flat(k), flat(v), H, bias, 0, 0.0, None, flat(dout))
+        torch.cuda.synchronize()
+        err = 0.0
+        for which, leaf, a, b, c in zip("qkv", leaves, bwd, wants, flat_bwd):
+            check(torch.equal(leaf.grad, a) and torch.equal(flat(a), c),
+                  f"small_mha d{which} {name_dt}: not K4 at rate 0 on the view")
+            e, ok = _train_close(a, b, "grad")
+            check(ok and bool(torch.isfinite(a).all()),
+                  f"small_mha d{which} {name_dt}: max abs err {e}")
+            err = max(err, e)
+        lib = (None, "not timed")
+        if timing:
+            gq, gk, gv = (sdpa_views(t).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(gq, gk, gv, attn_mask=mask)
+            lib = library_time(torch, lambda: torch.autograd.grad(
+                lib_out, (gq, gk, gv), sdpa_views(dout), retain_graph=True),
+                "the backward of F.scaled_dot_product_attention")
+        bwd_bound = bound(
+            attention_bound(B, T, T, H, d, item, bias, 0)[0] * HBM_BYTES_S / 1e3
+            + 3 * B * T * H * d * item, 5 * 2.0 * B * H * T * T * d, BF16_FLOPS)
+        add("small_mha_bwd", f"({B},{T},{H},{d}) causal", name_dt, err,
+            ms_of(lambda: ops.small_mha_bwd(q, k, v, bias, None, dout)),
+            ms_of(lambda: ops.small_mha_bwd_plain(q, k, v, bias, None, dout)),
+            bwd_bound, lib)
+        del leaves, wants, bwd, flat_bwd, q, k, v, dout
+
+        # ---- the dropout twins and their mask: the decoder's shape and the
+        # kernels' limit (classify's encoder runs at T = 31)
+        for case, B, T, with_bias in (
+                (f"({2 * TRAIN_BATCH},17,{H},{d}) causal", 2 * TRAIN_BATCH, 17, True),
+                (f"({TRAIN_BATCH},31,{H},{d})", TRAIN_BATCH, 31, False),
+                (f"({TRAIN_BATCH},32,{H},{d}) causal", TRAIN_BATCH, 32, True)):
+            bias = causal_bias(T) if with_bias else None
+            seed = 2000 + B * T
+            q, k, v, dout = (headed(B, T, dt) for _ in range(4))
+            keep = ops.dropout_keep_mask(B, T, T, H, seed, DROPOUT_RATE, dev)
+            plain_keep = ops.dropout_keep_mask_flat_plain(B, T, T, H, seed,
+                                                          DROPOUT_RATE, dev)
+            flat_keep = ops.dropout_keep_mask_flat(B, T, T, H, seed,
+                                                   DROPOUT_RATE, dev)
+            torch.cuda.synchronize()
+            check(torch.equal(keep, plain_keep) and torch.equal(keep, flat_keep),
+                  f"dropout_keep_mask {case}: not the plain (and flat) Philox")
+            frac = keep.float().mean().item()
+            check(KEEP_FRACTION[0] <= frac <= KEEP_FRACTION[1],
+                  f"dropout_keep_mask {case}: keep fraction {frac}")
+            args = (q, k, v, bias, seed, None, DROPOUT_RATE)
+            fargs = (flat(q), flat(k), flat(v), H, bias, seed, DROPOUT_RATE, None)
+            out = ops.small_mha_dropout_fwd(*args)
+            check(torch.equal(flat(out), ops.small_mha_dropout_fwd_flat(*fargs)),
+                  f"small_mha_dropout_fwd {case} {name_dt}: not K3 on the view")
+            fwd_err, ok = _train_close(
+                out, ops.small_mha_dropout_fwd_plain(*args, keep=plain_keep), "fwd")
+            check(ok and bool(torch.isfinite(out).all()),
+                  f"small_mha_dropout_fwd {case} {name_dt}: {fwd_err}")
+            grads = ops.small_mha_dropout_bwd(*args, dout)
+            flat_grads = ops.small_mha_dropout_bwd_flat(*fargs, flat(dout))
+            wants = ops.small_mha_dropout_bwd_plain(*args, dout, keep=plain_keep)
+            bwd_err = 0.0
+            for which, a, b, c in zip("qkv", grads, wants, flat_grads):
+                check(torch.equal(flat(a), c),
+                      f"small_mha_dropout_bwd {case} d{which}: not K4 on the view")
+                e, ok = _train_close(a, b, "grad")
+                check(ok and bool(torch.isfinite(a).all()),
+                      f"small_mha_dropout_bwd {case} {name_dt} d{which}: {e}")
+                bwd_err = max(bwd_err, e)
+            mask = None if bias is None else bias.to(dt)[:, None]
+            fwd_lib = bwd_lib = (None, "not timed")
+            if timing:
+                fwd_lib = library_time(torch, lambda: F.scaled_dot_product_attention(
+                    sdpa_views(q), sdpa_views(k), sdpa_views(v), attn_mask=mask,
+                    dropout_p=DROPOUT_RATE),
+                    "F.scaled_dot_product_attention(dropout_p=0.1) on (B,H,T,64) views")
+                gq, gk, gv = (sdpa_views(t).detach().requires_grad_(True)
+                              for t in (q, k, v))
+                lib_out = F.scaled_dot_product_attention(
+                    gq, gk, gv, attn_mask=mask, dropout_p=DROPOUT_RATE)
+                bwd_lib = library_time(torch, lambda: torch.autograd.grad(
+                    lib_out, (gq, gk, gv), sdpa_views(dout), retain_graph=True),
+                    "the backward of F.scaled_dot_product_attention(dropout_p=0.1)")
+            fwd_bound = attention_bound(B, T, T, H, d, item, bias, 2)
+            bwd_bound = bound(
+                attention_bound(B, T, T, H, d, item, bias, 0)[0] * HBM_BYTES_S / 1e3
+                + 3 * B * T * H * d * item, 5 * 2.0 * B * H * T * T * d, BF16_FLOPS)
+            add("small_mha_dropout_fwd", case, name_dt, fwd_err,
+                ms_of(lambda: ops.small_mha_dropout_fwd(*args)),
+                ms_of(lambda: ops.small_mha_dropout_fwd_plain(*args)),
+                fwd_bound, fwd_lib, keep_fraction=frac)
+            add("small_mha_dropout_bwd", case, name_dt, bwd_err,
+                ms_of(lambda: ops.small_mha_dropout_bwd(*args, dout)),
+                ms_of(lambda: ops.small_mha_dropout_bwd_plain(*args, dout)),
+                bwd_bound, bwd_lib)
+            if dt == torch.bfloat16:   # the mask does not depend on the dtype
+                add("dropout_keep_mask", f"({B},{H},{T},{T})", name_dt, 0.0,
+                    ms_of(lambda: ops.dropout_keep_mask(B, T, T, H, seed,
+                                                        DROPOUT_RATE, dev)),
+                    ms_of(lambda: ops.dropout_keep_mask_flat_plain(
+                        B, T, T, H, seed, DROPOUT_RATE, dev)),
+                    bound(B * H * T * T, 80.0 * B * H * T * T, F32_OPS),
+                    (None, "none: no PyTorch call draws this Philox mask"),
+                    keep_fraction=frac)
+            del q, k, v, dout, out, grads, flat_grads, wants, keep, plain_keep
+
+        # ---- K12: the head-major layout, per-head / broadcast / no bias
+        for T in (17, 30):
+            B = SLICE_BATCH
+            q, k, v = (torch.randn((B, H, T, d), generator=g, device=dev, dtype=dt)
+                       for _ in range(3))
+            causal = ops.mask_to_bias(
+                torch.ones(T, T, dtype=torch.bool, device=dev).triu(1)[None], T, T)
+            per_head = (causal[:, None] + torch.randn((B, H, T, T), generator=g,
+                                                      device=dev)).contiguous()
+            for label, bias in (("per-head bias", per_head),
+                                ("head-broadcast causal", causal[:, None].expand(
+                                    B, 1, T, T).contiguous()),
+                                ("no bias", None)):
+                got = ops.fused_mha(q, k, v, bias)
+                want = ops.fused_mha_plain(q, k, v, bias)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                check(err <= K1_TOL[name_dt] and bool(torch.isfinite(got).all()),
+                      f"fused_mha T={T} {label} {name_dt}: max abs err {err}")
+                mask = None if bias is None else bias.to(dt)
+                n_bytes = 4 * B * H * T * d * item + (0 if bias is None else
+                                                      bias.numel() * 4)
+                add("fused_mha", f"({B},{H},{T},{d}) {label}", name_dt, err,
+                    ms_of(lambda: ops.fused_mha(q, k, v, bias)),
+                    ms_of(lambda: ops.fused_mha_plain(q, k, v, bias)),
+                    bound(n_bytes, 2 * 2.0 * B * H * T * T * d, BF16_FLOPS),
+                    library_time(torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask),
+                        "F.scaled_dot_product_attention (its own layout)")
+                    if timing else (None, "not timed"))
+            del q, k, v, per_head, got, want
+        torch.cuda.empty_cache()
+
+    for kernel, rs in rows.items():
+        for r in rs:
+            lib = ("n/a" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f} ms")
+            print(f"phase 3e {kernel} {r['case']} {r['dtype']}: max abs err "
+                  f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
 def phase_slice(torch, np, dev):
     from sbl_for_multilingual_lip_reading_tpu_torch import config as C
     from sbl_for_multilingual_lip_reading_tpu_torch import ops
@@ -607,22 +849,22 @@ def train_batch(torch, np, dev, cfg, data, n, seed):
 
 
 def kernel_vs_plain_step(torch, dev, cfg, small, label):
-    """One train step on the kernel path and one on the plain path (the
-    kernels' plain versions), same weights, batch and generator seed, so
-    the same dropout masks and coins: loss, every gradient and the BN
-    running statistics, f32 and bf16."""
+    """One train step of ``cfg``'s workload on the kernel path and one on
+    the plain path (the kernels' plain versions), same weights, batch and
+    generator seed, so the same dropout masks and coins: loss, every
+    gradient and the BN running statistics, f32 and bf16."""
     from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
     from sbl_for_multilingual_lip_reading_tpu_torch.training.schedule import (
         make_optimizer)
     from sbl_for_multilingual_lip_reading_tpu_torch.training.steps import (
-        make_sbl_train_step)
+        make_train_step)
     for dtype in ("float32", "bfloat16"):
         runs = []
         for kernels in (True, False):
             c = dataclasses.replace(cfg, compute_dtype=dtype,
                                     use_pallas_attention=kernels)
             model = build_model(c, dev, seed=0)
-            step = make_sbl_train_step(model, make_optimizer(model, c.optim), c)
+            step = make_train_step(model, make_optimizer(model, c.optim), c)
             loss = step(small, torch.Generator().manual_seed(5))["loss"].item()
             runs.append((loss, {n: p.grad.detach().clone()
                                 for n, p in model.named_parameters()},
@@ -645,6 +887,45 @@ def kernel_vs_plain_step(torch, dev, cfg, small, label):
         check(bn_err <= TRAIN_BN_TOL[dtype], f"{dtype} BN stats differ")
         del runs, gk, gp
     torch.cuda.empty_cache()
+
+
+def time_train_step(torch, np, step, batch, B, label):
+    """TRAIN_WARMUP + TRAIN_TIMED steps on one resident batch: ms/step,
+    clips/s, peak memory and the stage split of one more step."""
+    gen = torch.Generator().manual_seed(3)
+    for _ in range(TRAIN_WARMUP):
+        step(batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step(batch, gen)["loss"] for _ in range(TRAIN_TIMED)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / TRAIN_TIMED
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [x.item() for x in losses]
+    check(all(np.isfinite(losses)), f"{label}: non-finite losses {losses}")
+    marks = []
+    step(batch, gen, marks=marks)
+    torch.cuda.synchronize()
+    stages = {name: a.elapsed_time(b) for (_, a), (name, b) in zip(marks, marks[1:])}
+    print(f"{label} bf16 B={B}: {dt * 1e3:.1f} ms/step, {B / dt:.1f} clips/s over "
+          f"{TRAIN_TIMED} steps, peak memory {peak_gb:.2f} GB; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; stage split (device "
+          f"timeline, ms per step): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
+    return dict(ms_per_step=dt * 1e3, clips_per_s=B / dt, peak_gb=peak_gb,
+                stages=stages)
+
+
+def _cli_train(torch, cli, ops, argv):
+    """`cli train` with the launch counts set to 0 just before and read just
+    after: (trainer, fit's result, counts, seconds)."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr, out = cli.run_train(argv)
+    torch.cuda.synchronize()
+    return tr, out, ops.launch_counts(), time.perf_counter() - t0
 
 
 def phase_train(torch, np, dev):
@@ -697,31 +978,8 @@ def phase_train(torch, np, dev):
     # timing: the train step on one resident batch
     step = make_sbl_train_step(model, result.optimizer, cfg)
     step.state.step = len(result.history)
-    batch = device_batch(TRAIN_BATCH, 2)
-    gen = torch.Generator().manual_seed(3)
-    for _ in range(TRAIN_WARMUP):
-        step(batch, gen)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    losses = [step(batch, gen)["loss"] for _ in range(TRAIN_TIMED)]
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / TRAIN_TIMED
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    losses = [x.item() for x in losses]
-    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
-    marks = []
-    step(batch, gen, marks=marks)
-    torch.cuda.synchronize()
-    stages = {name: a.elapsed_time(b) for (_, a), (name, b) in zip(marks, marks[1:])}
-    rate = TRAIN_BATCH / dt
-    print(f"phase 5 bf16 B={TRAIN_BATCH}: {dt * 1e3:.1f} ms/step, {rate:.1f} "
-          f"clips/s over {TRAIN_TIMED} steps, peak memory {peak_gb:.2f} GB; "
-          f"losses {', '.join(f'{x:.4f}' for x in losses)}")
-    print("phase 5 bf16 stage split (device timeline, ms per step): "
-          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
-    return launches, dict(ms_per_step=dt * 1e3, clips_per_s=rate,
-                          peak_gb=peak_gb, stages=stages)
+    return launches, time_train_step(torch, np, step, device_batch(TRAIN_BATCH, 2),
+                                     TRAIN_BATCH, "phase 5")
 
 
 def phase_ingest_bn_kernels(torch, np, dev):
@@ -884,14 +1142,9 @@ def phase_entry(torch, np, dev):
     stage1, stage2 = str(CKPT_DIR / "stage1"), str(CKPT_DIR / "stage2")
     common = ["--workload", "sbl", "--synthetic", "--synthetic-size",
               str(ENTRY_STEPS * TRAIN_BATCH), "--max-eval-batches", "1"]
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    tr, out = cli.run_train(common + ["--epochs", "1", "--max-steps-per-epoch",
-                                      str(ENTRY_STEPS), "--save-dir", stage1])
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    tr, out, launches, seconds = _cli_train(torch, cli, ops, common + [
+        "--epochs", "1", "--max-steps-per-epoch", str(ENTRY_STEPS),
+        "--save-dir", stage1])
     n_eval = len(tr.valid_datasets)
     per_step = expected_launches(cfg)
     expected = {k: ENTRY_STEPS * per_step[k] + n_eval * v
@@ -1398,6 +1651,182 @@ def phase_path_b(torch, np, dev):
     return launches, results
 
 
+def phase_path_c(torch, np, dev):
+    """Path C: lrw1000 (and lrw) training at the full width, bf16."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import cli
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.data import SyntheticLipDataset
+    from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
+    from sbl_for_multilingual_lip_reading_tpu_torch.recognize import (
+        expected_launches as eval_launches)
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.schedule import (
+        make_optimizer)
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.steps import (
+        expected_launches, make_uni_train_step)
+
+    cfg = C.lrw1000_seq2seq()
+    B = cfg.batch_size
+    data = SyntheticLipDataset(size=B, frames=cfg.data.frames,
+                               raw_size=cfg.data.raw_size, kind="lrw1000",
+                               vocab="lrw1000", seed=0)
+    kernel_vs_plain_step(torch, dev, cfg, train_batch(
+        torch, np, dev, cfg, data, TRAIN_CHECK_BATCH, 1), "phase 9 lrw1000")
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    path = str(CKPT_DIR / "lrw1000")
+    common = ["--workload", "lrw1000", "--synthetic", "--synthetic-size",
+              str(ENTRY_STEPS * B), "--max-eval-batches", "1"]
+    tr, out, launches, seconds = _cli_train(torch, cli, ops, common + [
+        "--epochs", "1", "--max-steps-per-epoch", str(ENTRY_STEPS),
+        "--save-dir", path])
+    n_eval = len(tr.valid_datasets)
+    per_step = expected_launches(cfg)
+    expected = {k: ENTRY_STEPS * per_step[k] + n_eval * v
+                for k, v in eval_launches(cfg).items()}
+    print(f"phase 9 cli train --workload lrw1000: {ENTRY_STEPS} steps of B={B} and "
+          f"{n_eval} eval batch(es) in {seconds:.1f} s; launches {launches} "
+          f"(expected {expected}; per step {per_step})")
+    check(launches == expected, f"launch counts {launches} != {expected}")
+    check((per_step["small_mha_dropout_fwd_flat"], per_step["small_mha_dropout_bwd_flat"])
+          == (cfg.dims.n_enc_layers + 2 * cfg.dims.n_dec_layers,) * 2,
+          f"per-step K3/K4 launches {per_step}")
+    check(np.isfinite(out["train_loss"]) and tr.state.step == ENTRY_STEPS,
+          f"lrw1000 training: loss {out['train_loss']}, step {tr.state.step}")
+    got = cli.run_test(common + ["--checkpoint", path])
+    _, test_sets = cli.make_datasets(tr.cfg, cli.build_argparser().parse_args(
+        common), "test")
+    want = {k: tr.validate_seq2seq(ds, 1) for k, ds in test_sets.items()}
+    check(got == want, f"cli test lrw1000 {got} != in-memory model {want}")
+    print(f"phase 9 cli train --workload lrw1000: loss {out['train_loss']:.4f}; "
+          f"cli test {got}, equal to the in-memory model's")
+    del tr
+    torch.cuda.empty_cache()
+
+    lrw, lrw_out, _, lrw_s = _cli_train(torch, cli, ops, [
+        "--workload", "lrw", "--synthetic", "--synthetic-size",
+        str(C.lrw_seq2seq().batch_size), "--max-eval-batches", "1", "--epochs",
+        "1", "--max-steps-per-epoch", "1", "--save-dir", str(CKPT_DIR / "lrw")])
+    check(np.isfinite(lrw_out["train_loss"]) and lrw.state.step == 1,
+          f"lrw training: loss {lrw_out['train_loss']}")
+    print(f"phase 9 cli train --workload lrw: 1 step in {lrw_s:.1f} s, loss "
+          f"{lrw_out['train_loss']:.4f}, eval {lrw_out['lrw']}")
+    del lrw
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    model = build_model(cfg, dev, seed=0)
+    step = make_uni_train_step(model, make_optimizer(model, cfg.optim), cfg)
+    timing = time_train_step(torch, np, step, train_batch(
+        torch, np, dev, cfg, data, B, 2), B, "phase 9 lrw1000")
+    del model, step
+    torch.cuda.empty_cache()
+    return launches, dict(cli_seconds=seconds, loss=out["train_loss"],
+                          eval=out, per_step_launches=per_step, **timing)
+
+
+def phase_path_d(torch, np, dev):
+    """Path D: classify at the full width, bf16, B=120; then the recipe."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import cli
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.data import SyntheticLipDataset
+    from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
+    from sbl_for_multilingual_lip_reading_tpu_torch.training import checkpoint
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.recipe import (
+        run_three_stage_recipe)
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.schedule import (
+        make_optimizer)
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.steps import (
+        expected_launches, make_classify_train_step)
+
+    cfg = C.classify()
+    B, T, raw = cfg.batch_size, cfg.data.frames, cfg.data.raw_size
+    data = SyntheticLipDataset(size=B, frames=T, raw_size=raw, seed=0)
+    kernel_vs_plain_step(torch, dev, cfg, train_batch(
+        torch, np, dev, cfg, data, TRAIN_CHECK_BATCH, 1), "phase 10 classify")
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    path = str(CKPT_DIR / "classify")
+    common = ["--workload", "classify", "--synthetic", "--synthetic-size",
+              str(ENTRY_STEPS * B), "--max-eval-batches", "1"]
+    tr, out, launches, seconds = _cli_train(torch, cli, ops, common + [
+        "--epochs", "1", "--max-steps-per-epoch", str(ENTRY_STEPS),
+        "--save-dir", path])
+    n_eval = len(tr.valid_datasets)
+    per_step = expected_launches(cfg)
+    # an eval batch: the frame stack and one attention per encoder layer
+    per_eval = dict(dict.fromkeys(per_step, 0), stack_frames=1,
+                    small_mha_flat=cfg.dims.n_enc_layers)
+    expected = {k: ENTRY_STEPS * per_step[k] + n_eval * per_eval[k]
+                for k in per_step}
+    print(f"phase 10 cli train --workload classify: {ENTRY_STEPS} steps of B={B} "
+          f"and {n_eval} eval batch(es) in {seconds:.1f} s; launches {launches} "
+          f"(expected {expected})")
+    check(launches == expected, f"launch counts {launches} != {expected}")
+    check(np.isfinite(out["train_loss"]) and tr.state.step == ENTRY_STEPS,
+          f"classify training: loss {out['train_loss']}, step {tr.state.step}")
+    got = cli.run_test(common + ["--checkpoint", path])
+    _, test_sets = cli.make_datasets(tr.cfg, cli.build_argparser().parse_args(
+        common), "test")
+    want = {k: tr.validate_classify(ds, 1) for k, ds in test_sets.items()}
+    check(got == want, f"cli test classify {got} != in-memory model {want}")
+    print(f"phase 10 cli train --workload classify: loss {out['train_loss']:.4f}; "
+          f"cli test {got}, equal to the in-memory model's")
+    del tr
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    model = build_model(cfg, dev, seed=0)
+    step = make_classify_train_step(model, make_optimizer(model, cfg.optim), cfg)
+    timing = time_train_step(torch, np, step, train_batch(
+        torch, np, dev, cfg, data, B, 2), B, "phase 10 classify")
+    del model, step
+    torch.cuda.empty_cache()
+
+    # the three-stage recipe at the full width and depth, one step a stage
+    sbl = C.sbl()
+    t0 = time.perf_counter()
+    records = run_three_stage_recipe(
+        cfg, sbl, SyntheticLipDataset(size=B, frames=T, raw_size=raw, seed=1),
+        SyntheticLipDataset(size=sbl.batch_size, frames=sbl.data.frames,
+                            raw_size=raw, seed=2),
+        SyntheticLipDataset(size=sbl.batch_size, frames=sbl.data.frames,
+                            raw_size=raw, seed=3),
+        str(CKPT_DIR / "recipe"), classify_steps=1, stage_steps=1,
+        max_eval_batches=1, device=dev)
+    torch.cuda.synchronize()
+    recipe_s = time.perf_counter() - t0
+    stage1 = checkpoint.load(str(CKPT_DIR / "recipe" / "stage1_classify"))["model"]
+    frozen = [k for k in stage1 if k.startswith(("frontend.", "encoder."))
+              and "running" not in k]
+    stages = [checkpoint.load(str(CKPT_DIR / "recipe" / r["stage"]))["model"]
+              for r in records[1:]]
+    check([r["stage"] for r in records] == ["classify", "stage2_tf05_frozen",
+                                            "stage2_tf01_frozen", "stage3_finetune"],
+          f"recipe stages {[r['stage'] for r in records]}")
+    check(all(np.isfinite(r["loss"]) for r in records), "recipe: non-finite loss")
+    check(records[1]["transferred"] == len(frozen),
+          f"transferred {records[1]['transferred']} != {len(frozen)} frontend and "
+          f"encoder parameters in the classify checkpoint")
+    for k in frozen:
+        check(torch.equal(stages[0][k], stage1[k]) and torch.equal(stages[1][k],
+                                                                   stage1[k]),
+              f"recipe: frozen {k} moved in stage 2")
+    check(any(not torch.equal(stages[2][k], stage1[k]) for k in frozen),
+          "recipe: the finetune moved no frontend or encoder parameter")
+    summary = [{k: r[k] for k in ("stage", "loss", "wer", "transferred") if k in r}
+               for r in records]
+    print(f"phase 10 recipe (full width and depth, 1 step a stage) in "
+          f"{recipe_s:.1f} s: {summary}; {len(frozen)} frozen tensors "
+          f"bit-identical through stage 2")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches, dict(cli_seconds=seconds, loss=out["train_loss"], eval=out,
+                          per_step_launches=per_step, recipe_seconds=recipe_s,
+                          recipe=summary, **timing)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1411,23 +1840,45 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     _set_switches(False)
 
+    t_start = time.perf_counter()
+
+    def timed(phase, fn, *args):
+        """Run one phase and print its wall time on the host clock."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {phase} took {time.perf_counter() - t0:.1f} s")
+        return out
+
     smi, name = phase_card(torch)
-    phase_build()
-    kernels = phase_kernels(torch, dev)
-    train_kernels = phase_train_kernels(torch, dev)
-    ingest, stats = phase_ingest_bn_kernels(torch, np, dev)
-    launches, rate = phase_slice(torch, np, dev)
-    train_launches, train = phase_train(torch, np, dev)
-    entry_launches, entry = phase_entry(torch, np, dev)
-    k9, k10, k11 = phase_eval_kernels(torch, np, dev)
-    a_launches, path_a = phase_path_a(torch, np, dev)
-    b_launches, path_b = phase_path_b(torch, np, dev)
-    # every kernel of the two eval paths was launched on its path
+    timed("2", phase_build)
+    kernels = timed("3", phase_kernels, torch, dev)
+    train_kernels = timed("3b", phase_train_kernels, torch, dev)
+    ingest, stats = timed("3c", phase_ingest_bn_kernels, torch, np, dev)
+    twins = timed("3e", phase_twin_kernels, torch, dev)
+    launches, rate = timed("4", phase_slice, torch, np, dev)
+    train_launches, train = timed("5", phase_train, torch, np, dev)
+    entry_launches, entry = timed("6", phase_entry, torch, np, dev)
+    k9, k10, k11 = timed("3d", phase_eval_kernels, torch, np, dev)
+    a_launches, path_a = timed("7", phase_path_a, torch, np, dev)
+    b_launches, path_b = timed("8", phase_path_b, torch, np, dev)
+    c_launches, path_c = timed("9", phase_path_c, torch, np, dev)
+    d_launches, path_d = timed("10", phase_path_d, torch, np, dev)
+    print(f"phases 1-10 took {time.perf_counter() - t_start:.1f} s")
+    # every kernel of the eval and training paths was launched on its path
     for kernel in ("stack_frames_u8", "fused_resblock", "fused_decoder_layer",
                    "small_mha_flat"):
         check(a_launches[kernel] > 0, f"path A never launched {kernel}")
     for kernel in ("small_mha_flat", "stack_frames"):
         check(b_launches[kernel] > 0, f"path B never launched {kernel}")
+    for kernel in ("small_mha_dropout_fwd_flat", "small_mha_dropout_bwd_flat"):
+        check(c_launches[kernel] > 0, f"path C never launched {kernel}")
+    for kernel in ("small_mha_flat", "stack_frames", "small_mha_dropout_fwd_flat",
+                   "small_mha_dropout_bwd_flat"):
+        check(d_launches[kernel] > 0, f"path D never launched {kernel}")
+    by_path = {"recognize": launches, "train_step": train_launches,
+               "entry_point": entry_launches, "eval_switches": a_launches,
+               "uni_eval": b_launches, "uni_train": c_launches,
+               "classify": d_launches}
 
     csrc = "sbl_for_multilingual_lip_reading_tpu_torch/csrc/"
     jax_ops = "sbl_for_multilingual_lip_reading_tpu/ops/"
@@ -1435,12 +1886,8 @@ def main() -> int:
     def row(kernel, source, replaces, head, err, cases, **extra):
         return {"name": kernel, "route": "cuda", "source": csrc + source,
                 "replaces": jax_ops + replaces,
-                "launches": max(entry_launches[kernel], a_launches[kernel]),
-                "launches_by_path": {"recognize": launches[kernel],
-                                     "train_step": train_launches[kernel],
-                                     "entry_point": entry_launches[kernel],
-                                     "eval_switches": a_launches[kernel],
-                                     "uni_eval": b_launches[kernel]},
+                "launches": max(p[kernel] for p in by_path.values()),
+                "launches_by_path": {k: p[kernel] for k, p in by_path.items()},
                 "max_abs_err": err, "ms": head["ms"],
                 "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                 "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -1521,13 +1968,37 @@ def main() -> int:
         "fused_decoder_layer", "decoder_layer.cu", "decoder_layer.py:159",
         next(r for r in dl16 if r["case"].startswith("L=17 causal")),
         max(r["max_abs_err"] for r in dl16), k11))
-    check(len(rows) == 11, "eleven kernels")
+    # the layout twins and K12: no model path of either package calls them,
+    # so they launch on no path (0 everywhere); the headline rows are bf16 at
+    # the decoder's shapes (the dropout mask's at the decoder's, K12 at
+    # (512,8,17,64) with the per-head bias)
+    for kernel, source, replaces, headline in (
+            ("fused_small_mha", "attention.cu", "attention.py:493",
+             f"({2 * SLICE_BATCH},17,8,64) causal"),
+            ("small_mha_bwd", "attention_train.cu", "attention.py:156",
+             f"({2 * TRAIN_BATCH},17,8,64) causal"),
+            ("small_mha_dropout_fwd", "attention_train.cu", "attention.py:286",
+             f"({2 * TRAIN_BATCH},17,8,64) causal"),
+            ("small_mha_dropout_bwd", "attention_train.cu", "attention.py:334",
+             f"({2 * TRAIN_BATCH},17,8,64) causal"),
+            ("dropout_keep_mask", "attention_train.cu", "attention.py:404",
+             f"({2 * TRAIN_BATCH},8,17,17)"),
+            ("fused_mha", "attention.cu", "attention.py:56",
+             f"({SLICE_BATCH},8,17,64) per-head bias")):
+        rs = twins[kernel]
+        head = next(r for r in rs if r["case"] == headline
+                    and r["dtype"] == "bfloat16")
+        rows.append(row(kernel, source, replaces, head,
+                        max(r["max_abs_err"] for r in rs if r["dtype"] == "bfloat16"),
+                        rs, on_main_path=False))
+    check(len(rows) == 17, "seventeen kernels")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     check(all(k in r for r in rows for k in keys), "a kernel row lacks a key")
     print(json.dumps({"kernels": rows, "card": smi,
                       "recognize_clips_per_s": rate, "train": train,
-                      "entry_point": entry, "path_a": path_a, "path_b": path_b}))
+                      "entry_point": entry, "path_a": path_a, "path_b": path_b,
+                      "path_c": path_c, "path_d": path_d}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,9 +1,11 @@
 """Command-line entry points of the port: the reference's train.py / test.py
 surface (counterpart of the JAX package's ``cli.py``, with the same flags).
-``train`` takes the ``sbl`` workloads; ``test`` also evaluates ``lrw`` and
-``lrw1000``, greedily or with ``--beam-size K`` (``--bigram-lm`` biases the
+``train`` and ``test`` take every workload: ``sbl`` / ``sbl_stage2``,
+``lrw``, ``lrw1000`` and ``classify``.  ``test`` decodes the seq2seq
+workloads greedily or with ``--beam-size K`` (``--bigram-lm`` biases the
 unidirectional beam with a bigram table built from the TRAIN split, the
-LRW-1000 protocol; ``sbl`` uses the paired bidirectional beam).
+LRW-1000 protocol; ``sbl`` uses the paired bidirectional beam), and scores
+``classify`` by word and language accuracy.
 
     python -m sbl_for_multilingual_lip_reading_tpu_torch.cli train [flags]
     python -m sbl_for_multilingual_lip_reading_tpu_torch.cli test --checkpoint DIR [flags]
@@ -26,13 +28,7 @@ from typing import Dict, Optional
 from . import config as C
 
 WORKLOADS = ("sbl", "sbl_stage2", "lrw", "lrw1000", "classify")
-# workloads that `test` evaluates and `train` does not take yet
-EVAL_ONLY = {
-    "lrw": "ROADMAP.md queue A item 9b (unidirectional train step)",
-    "lrw1000": "ROADMAP.md queue A item 9b (unidirectional train step)",
-}
 NOT_PORTED = {
-    "classify": "ROADMAP.md queue A item 11 (classify head)",
     "mesh": "ROADMAP.md queue A item 12 (data parallel)",
     "no_sync_batchnorm": "ROADMAP.md queue A item 12 (data parallel)",
     "remat_frontend": "ROADMAP.md queue A item 8 (remat_frontend)",
@@ -120,16 +116,8 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(args, command: str = "test") -> None:
-    """Raise for a flag (or, under ``train``, a workload) whose path the
-    port does not have yet."""
-    unported = []
-    if args.workload in NOT_PORTED:
-        unported.append(("--workload " + args.workload, args.workload))
-    if command == "train" and args.workload in EVAL_ONLY:
-        raise NotImplementedError(
-            f"train --workload {args.workload} is not ported yet: "
-            f"{EVAL_ONLY[args.workload]}")
+def check_ported(args) -> None:
+    """Raise for the first flag whose path the port does not have yet."""
     for flag, key, on in (
             ("--mesh-data/--mesh-model", "mesh",
              args.mesh_data > 1 or args.mesh_model > 1),
@@ -137,17 +125,12 @@ def check_ported(args, command: str = "test") -> None:
             ("--remat-frontend", "remat_frontend", bool(args.remat_frontend)),
             ("--profile-dir", "profile_dir", args.profile_dir is not None)):
         if on:
-            unported.append((flag, key))
-    if unported:
-        flag, key = unported[0]
-        raise NotImplementedError(f"{flag} is not ported yet: {NOT_PORTED[key]}")
+            raise NotImplementedError(f"{flag} is not ported yet: {NOT_PORTED[key]}")
 
 
 def config_from_args(args) -> C.WorkloadConfig:
     """The preset of ``--workload`` with the flags' overrides (JAX
     ``config_from_args``, for the fields the port has)."""
-    if args.workload not in C.PRESETS:
-        check_ported(args)
     cfg = C.PRESETS[args.workload]()
     dims = cfg.dims
     dim_over = {}
@@ -206,7 +189,8 @@ def make_datasets(cfg, args, eval_split: str = "val"):
     from .data import SyntheticLipDataset
     vocab = cfg.name if cfg.name in ("lrw", "lrw1000") else "sbl"
     if args.synthetic or not (args.lrw_path or args.lrw1000_manifest):
-        kind = {"sbl": "all", "lrw": "lrw", "lrw1000": "lrw1000"}[cfg.name]
+        kind = {"sbl": "all", "classify": "all", "lrw": "lrw",
+                "lrw1000": "lrw1000"}[cfg.name]
         train = SyntheticLipDataset(size=args.synthetic_size,
                                     frames=cfg.data.frames,
                                     raw_size=cfg.data.raw_size, kind=kind,
@@ -242,9 +226,9 @@ def make_datasets(cfg, args, eval_split: str = "val"):
     return train, valid
 
 
-def _setup(argv, command: str):
+def _setup(argv):
     args = build_argparser().parse_args(argv)
-    check_ported(args, command)
+    check_ported(args)
     from .utils.device import resolve_device
     device = resolve_device("cpu" if args.cpu else None)
     return args, config_from_args(args), device
@@ -257,7 +241,7 @@ def run_train(argv=None):
     ``--checkpoint`` resumes (model, optimizer, update count, random
     number states) at the epoch after the saved one.  Returns the
     ``Trainer`` and the last epoch's results (``Trainer.fit``)."""
-    args, cfg, device = _setup(argv, "train")
+    args, cfg, device = _setup(argv)
     from .training import checkpoint as ckpt
     from .training.trainer import Trainer
     train_ds, valid_ds = make_datasets(cfg, args)
@@ -279,8 +263,9 @@ def run_train(argv=None):
 def run_test(argv=None) -> Dict[str, Dict[str, float]]:
     """``test``: load ``--checkpoint``, evaluate the test split of every
     eval set (greedy, or beam search with ``--beam-size``), print and return
-    {name: WER/PER, per direction for ``sbl``}."""
-    args, cfg, device = _setup(argv, "test")
+    {name: WER/PER, per direction for ``sbl``}; for ``classify`` {name:
+    word_acc, lang_acc}."""
+    args, cfg, device = _setup(argv)
     import numpy as np
     from .models import build_model
     from .training import checkpoint as ckpt
@@ -291,7 +276,7 @@ def run_test(argv=None) -> Dict[str, Dict[str, float]]:
         model.load_state_dict(ckpt.load(args.checkpoint)["model"])
     tr = Trainer(cfg, [], valid_ds, model=model)
     bigram_logp = None
-    if args.bigram_lm and not cfg.decoder.bidirectional:
+    if args.bigram_lm and C.model_kind(cfg) == "uni":
         from .decode import bigram_from_dataset
         # the reference's table is a TRAIN-corpus one; make_datasets always
         # builds train_ds from the train split, so no test label leaks into
@@ -300,9 +285,9 @@ def run_test(argv=None) -> Dict[str, Dict[str, float]]:
         bigram_logp = np.log(big + np.float32(1e-10))
     out = {}
     for name, ds in valid_ds.items():
-        out[name] = tr.validate_seq2seq(ds, args.max_eval_batches,
-                                        beam_size=args.beam_size,
-                                        bigram_logp=bigram_logp)
+        out[name] = tr.validate(ds, args.max_eval_batches,
+                                beam_size=args.beam_size,
+                                bigram_logp=bigram_logp)
         print(name, out[name])
     return out
 

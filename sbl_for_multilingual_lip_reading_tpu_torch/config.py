@@ -7,11 +7,10 @@ port keeps its own copy because the machine it runs on has no JAX; the JAX
 package remains the source of truth, and ``tests/test_torch_port_package.py``
 checks that every field here equals its JAX counterpart in every preset.
 
-The ``sbl`` workload is ported whole: recognize, the train step and the
-training entry point (trainer, checkpoints, CLI); ``sbl_stage2`` is the same
-model with teacher forcing annealed to 0.1.  The unidirectional ``lrw`` and
-``lrw1000`` workloads are ported for evaluation (greedy and beam search);
-their train step is not.
+Every workload is ported, for training and evaluation: ``sbl`` (and
+``sbl_stage2``, the same model with teacher forcing annealed to 0.1), the
+unidirectional ``lrw`` and ``lrw1000``, and ``classify``, the stage-1
+pretraining of frontend and encoder (no decoder: ``decoder`` is None).
 """
 from __future__ import annotations
 
@@ -92,14 +91,19 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class WorkloadConfig:
-    name: str = "sbl"
+    name: str = "sbl"   # sbl | lrw | lrw1000 | classify
     dims: TransformerDims = TransformerDims()
     frontend: FrontendConfig = FrontendConfig()
-    decoder: DecoderConfig = DecoderConfig()
+    decoder: Optional[DecoderConfig] = DecoderConfig()
     data: DataConfig = DataConfig()
     optim: OptimConfig = OptimConfig()
     batch_size: int = 240
     seed: int = 7
+    # the classify workload's heads and loss (reference classify
+    # train.py:127-130)
+    num_word_classes: int = 1500
+    num_languages: int = 2
+    language_loss_weight: float = 0.1
     # fixed LRW-1000 samples per batch (TwoStreamBatchSampler); 0 = plain
     # shuffling
     secondary_batch_size: int = 0
@@ -155,17 +159,29 @@ def lrw1000_seq2seq() -> WorkloadConfig:
     )
 
 
+def classify() -> WorkloadConfig:
+    """Stage-1 frontend pretraining: 1500-way word + 2-way language heads;
+    clips padded to 31 frames (reference classify/data_gen.py:237)."""
+    return WorkloadConfig(name="classify", decoder=None,
+                          data=dataclasses.replace(DataConfig(), frames=31),
+                          batch_size=120)
+
+
 def tiny_test(name: str = "sbl") -> WorkloadConfig:
     """CPU-runnable miniature for tests: 2 layers, d_model 64."""
-    base = {"sbl": sbl, "lrw": lrw_seq2seq, "lrw1000": lrw1000_seq2seq}[name]()
+    base = {"sbl": sbl, "lrw": lrw_seq2seq, "lrw1000": lrw1000_seq2seq,
+            "classify": classify}[name]()
     dims = TransformerDims(d_model=64, n_head=4, d_k=16, d_v=16, d_inner=128,
                            n_enc_layers=2, n_dec_layers=2)
+    decoder = base.decoder
+    if decoder is not None:
+        decoder = dataclasses.replace(decoder, maxlen=8, decode_segments=1)
     return dataclasses.replace(
         base,
         dims=dims,
         frontend=FrontendConfig(conv3d_channels=8, resnet_channels=(8, 16, 32, 64),
                                 resnet_blocks=(1, 1, 1, 1), feature_dim=64),
-        decoder=dataclasses.replace(base.decoder, maxlen=8, decode_segments=1),
+        decoder=decoder,
         data=dataclasses.replace(base.data, raw_size=40, crop_size=32),
         batch_size=2,
         compute_dtype="float32",
@@ -176,4 +192,17 @@ def tiny_test(name: str = "sbl") -> WorkloadConfig:
 
 
 PRESETS = {"sbl": sbl, "sbl_stage2": sbl_stage2, "lrw": lrw_seq2seq,
-           "lrw1000": lrw1000_seq2seq}
+           "lrw1000": lrw1000_seq2seq, "classify": classify}
+
+
+def model_kind(cfg: WorkloadConfig) -> str:
+    """The model, steps, validation and best-model metric ``cfg`` takes:
+    ``"classify"`` (no decoder), ``"sbl"`` (a bidirectional decoder) or
+    ``"uni"`` (``lrw`` / ``lrw1000``).  The one place the port decides it;
+    a decoder-less config of another workload is refused."""
+    if cfg.decoder is None:
+        if cfg.name != "classify":
+            raise ValueError(f"workload {cfg.name!r} has no decoder; only "
+                             f"'classify' builds without one")
+        return "classify"
+    return "sbl" if cfg.decoder.bidirectional else "uni"

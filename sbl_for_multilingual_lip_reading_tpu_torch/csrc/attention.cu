@@ -1,9 +1,20 @@
 // K1: fused small-sequence multi-head attention on the projections' flat
-// (B, T, H*d) layout, for Hopper (sm_90a).
+// (B, T, H*d) layout, and K12: the same kernel on the head-major (B, H, T, d)
+// layout, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel ops/attention.py::fused_small_mha_flat of the JAX
-// package: out = softmax(Q K^T * scale + bias) V per (batch row, head), with
-// the head split and merge done inside the kernel and an f32 softmax.
+// Replaces two TPU kernels of the JAX package's ops/attention.py:
+//   K1  fused_small_mha_flat: out = softmax(Q K^T * scale + bias) V per
+//       (batch row, head), with the head split and merge done inside the
+//       kernel and an f32 softmax; bias (1|B, Tq, Tk), shared by the heads;
+//   K12 fused_mha, the legacy head-major kernel with grid (B, H): the same
+//       math on q/k/v (B, H, T, d) and a bias (B, 1|H, Tq, Tk) that may
+//       differ per head.
+// One kernel body serves both: a block reads its (batch row, head) through
+// the strides of a Layout (batch, head and sequence-position strides of
+// q/out and of k/v, and the bias's batch and head strides, 0 where it
+// broadcasts), so the two layouts cost no copy.  The JAX package's
+// (B, T, H, d) twins (fused_small_mha and its train-side relatives) have
+// the bytes of the flat layout and launch K1 (and K3/K4) on its view.
 //
 // What bounds it: at this model's shapes (T <= 30, d = 64) one head's scores
 // are at most 30 x 30, so the kernel does ~0.25 MFLOP per (batch, head) and
@@ -48,14 +59,37 @@ constexpr int smem_floats(int nk) {
   return nk * (kHeadDim + 1) + nk * kHeadDim + kWarps * kHeadDim;
 }
 
-// q: (B, Tq, H*d); k, v: (B, Tk, H*d); bias: null or (1|B, Tq, Tk) f32;
-// out: (B, Tq, H*d).  Grid: B*H blocks of kWarps warps.
+// Element strides of one launch: q and out share a layout, k and v share
+// one; every sequence position is `row` elements after the one before.
+struct Layout {
+  long long q_batch, q_head;   // q / out
+  long long k_batch, k_head;   // k / v
+  long long row;
+  long long bias_batch, bias_head;  // 0 where the bias broadcasts
+};
+
+// (B, T, H*d): a row holds every head; bias (1|B, Tq, Tk)
+Layout flat_layout(int Tq, int Tk, int H, int bias_per_batch) {
+  const long long rs = (long long)H * kHeadDim;
+  return Layout{Tq * rs, kHeadDim, Tk * rs, kHeadDim, rs,
+                bias_per_batch ? (long long)Tq * Tk : 0LL, 0LL};
+}
+
+// (B, H, T, d): a head holds T rows; bias (B, 1|H, Tq, Tk)
+Layout head_major_layout(int Tq, int Tk, int H, long long bias_batch, long long bias_head) {
+  return Layout{(long long)H * Tq * kHeadDim, (long long)Tq * kHeadDim,
+                (long long)H * Tk * kHeadDim, (long long)Tk * kHeadDim, kHeadDim,
+                bias_batch, bias_head};
+}
+
+// q, out: Tq rows of d per (batch row, head); k, v: Tk rows; bias: null or
+// a (Tq, Tk) f32 block per (batch row, head) at the layout's strides.
+// Grid: B*H blocks of kWarps warps.
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocksPerSM)
-small_mha_flat_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const float* __restrict__ bias,
-                      T* __restrict__ out, int Tq, int Tk, int H,
-                      int bias_per_batch, float scale) {
+small_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ bias,
+                 T* __restrict__ out, int Tq, int Tk, int H, Layout lay, float scale) {
   constexpr int D = kHeadDim;
   extern __shared__ float smem[];
   const int nk = min(Tk, kChunk);   // rows of the staged chunk
@@ -67,13 +101,15 @@ small_mha_flat_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.x % H;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long row_stride = (long long)H * D;
-  const T* qb = q + (long long)b * Tq * row_stride + (long long)h * D;
-  const T* kb = k + (long long)b * Tk * row_stride + (long long)h * D;
-  const T* vb = v + (long long)b * Tk * row_stride + (long long)h * D;
-  T* ob = out + (long long)b * Tq * row_stride + (long long)h * D;
+  const long long row_stride = lay.row;
+  const long long qoff = b * lay.q_batch + h * lay.q_head;
+  const long long koff = b * lay.k_batch + h * lay.k_head;
+  const T* qb = q + qoff;
+  const T* kb = k + koff;
+  const T* vb = v + koff;
+  T* ob = out + qoff;
   const float* bb = nullptr;
-  if (bias != nullptr) bb = bias + (bias_per_batch ? (long long)b * Tq * Tk : 0LL);
+  if (bias != nullptr) bb = bias + b * lay.bias_batch + h * lay.bias_head;
 
   const int n_chunks = (Tk + kChunk - 1) / kChunk;
   auto load_chunk = [&](int c0) {
@@ -152,31 +188,51 @@ small_mha_flat_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias, void* out,
-                   int B, int Tq, int Tk, int H, int bias_per_batch, float scale,
-                   cudaStream_t stream) {
+                   int B, int Tq, int Tk, int H, Layout lay, float scale, cudaStream_t stream) {
   const int nk = Tk < kChunk ? Tk : kChunk;
   const size_t smem = sizeof(float) * (size_t)smem_floats(nk);  // <= 34 KB: no opt-in needed
-  small_mha_flat_kernel<T><<<(unsigned)B * (unsigned)H, kWarps * 32, smem, stream>>>(
+  small_mha_kernel<T><<<(unsigned)B * (unsigned)H, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(bias), static_cast<T*>(out), Tq, Tk, H, bias_per_batch, scale);
+      static_cast<const float*>(bias), static_cast<T*>(out), Tq, Tk, H, lay, scale);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// dtype: 0 = float32, 1 = bfloat16; D must be 64.  Returns the cudaError_t
-// of the launch (0 on success).
-extern "C" int sbl_small_mha_flat(const void* q, const void* k, const void* v, const void* bias,
-                                  void* out, int B, int Tq, int Tk, int H, int D,
-                                  int bias_per_batch, float scale, int dtype, int device,
-                                  void* stream) {
+int launch_dtype(const void* q, const void* k, const void* v, const void* bias, void* out,
+                 int B, int Tq, int Tk, int H, int D, Layout lay, float scale, int dtype,
+                 int device, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || D != kHeadDim) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch<float>(q, k, v, bias, out, B, Tq, Tk, H, bias_per_batch, scale, s);
-    case 1: return (int)launch<__nv_bfloat16>(q, k, v, bias, out, B, Tq, Tk, H, bias_per_batch, scale, s);
+    case 0: return (int)launch<float>(q, k, v, bias, out, B, Tq, Tk, H, lay, scale, s);
+    case 1: return (int)launch<__nv_bfloat16>(q, k, v, bias, out, B, Tq, Tk, H, lay, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16; D must be 64.  Each returns the
+// cudaError_t of its launch (0 on success).
+
+// K1: q (B, Tq, H*D), k, v (B, Tk, H*D), bias null or (1|B, Tq, Tk).
+extern "C" int sbl_small_mha_flat(const void* q, const void* k, const void* v, const void* bias,
+                                  void* out, int B, int Tq, int Tk, int H, int D,
+                                  int bias_per_batch, float scale, int dtype, int device,
+                                  void* stream) {
+  return launch_dtype(q, k, v, bias, out, B, Tq, Tk, H, D,
+                      flat_layout(Tq, Tk, H, bias_per_batch), scale, dtype, device, stream);
+}
+
+// K12: q (B, H, Tq, D), k, v (B, H, Tk, D), bias null or (B, 1|H, Tq, Tk)
+// with element strides bias_batch, bias_head (0 where it broadcasts over
+// the heads).
+extern "C" int sbl_fused_mha(const void* q, const void* k, const void* v, const void* bias,
+                             void* out, int B, int H, int Tq, int Tk, int D,
+                             long long bias_batch, long long bias_head, float scale, int dtype,
+                             int device, void* stream) {
+  return launch_dtype(q, k, v, bias, out, B, Tq, Tk, H, D,
+                      head_major_layout(Tq, Tk, H, bias_batch, bias_head), scale, dtype,
+                      device, stream);
 }

@@ -1,12 +1,14 @@
-"""Real-data datasets of the ``sbl`` workloads: LRW npy clips, LRW-1000 jpg
-frame directories, and their bilingual mix (counterpart of the JAX
-package's ``data/datasets.py``; the same files give the same samples).
+"""Real-data datasets of every workload: LRW npy clips, LRW-1000 jpg frame
+directories, and their bilingual mix (counterpart of the JAX package's
+``data/datasets.py``; the same files give the same samples).
 
-Samples are dicts of numpy arrays in the form of ``SyntheticLipDataset``'s:
-clips stay uint8 on the host, and crop, flip and normalization run on the
-device.  ``vocab`` names the labels' token table ('sbl', 'lrw' or
-'lrw1000', as in JAX); LRW-1000's audio stream waits for its workload
-(ROADMAP.md queue A item 11).
+Samples are dicts of numpy arrays in the form of ``SyntheticLipDataset``'s
+(``word_id`` and ``lang_id`` are the ``classify`` labels): clips stay uint8
+on the host, and crop, flip and normalization run on the device.  ``vocab``
+names the labels' token table ('sbl', 'lrw' or 'lrw1000', as in JAX).
+LRW-1000's optional audio stream (JAX ``wav_root``: log-mel fbank features
+for the reference's audio-visual variants) is not ported: no workload of
+either package reads it.
 OpenCV decodes the LRW-1000 jpgs and is imported only when such a dataset
 is built, so the rest of the port runs without it.
 """

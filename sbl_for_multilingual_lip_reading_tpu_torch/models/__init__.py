@@ -1,5 +1,5 @@
 """Models of the PyTorch port: the bidirectional ``sbl`` / ``sbl_stage2``
-workloads and the unidirectional ``lrw`` / ``lrw1000`` ones."""
+workloads, the unidirectional ``lrw`` / ``lrw1000`` ones, and ``classify``."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -7,17 +7,14 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from ..config import model_kind
 from ..utils.device import resolve_device
+from .classify import ClassifyTransformer
 from .decoder_sbl import SBLDecoder
 from .decoder_uni import UniDecoder
 from .encoder import encoder_from_config
 from .frontend import frontend_from_config
 from .sbl import SBLTransformer, UniTransformer
-
-_NOT_PORTED = {
-    "classify": "ROADMAP.md queue A item 11 (classify head)",
-}
-
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded init of every parameter, mirroring the JAX initializers (He
@@ -31,7 +28,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_model(cfg, device=None, seed: Optional[int] = None,
                 use_pallas_resblock: bool = False
-                ) -> Union[SBLTransformer, UniTransformer]:
+                ) -> Union[SBLTransformer, UniTransformer, ClassifyTransformer]:
     """Construct the eval-mode model for a WorkloadConfig (the port's, or the
     JAX package's: the fields read are the same) with f32 weights drawn
     from ``seed`` (default ``cfg.seed``) on the CPU, then moved to
@@ -45,11 +42,10 @@ def build_model(cfg, device=None, seed: Optional[int] = None,
     the deterministic SBL decode) and ``use_pallas_resblock`` (K10 on the
     eligible ResNet blocks in eval mode; a field of the frontend modules in
     JAX, which no config carries).  A bidirectional decoder config gives an
-    ``SBLTransformer``, a unidirectional one a ``UniTransformer``."""
-    if cfg.decoder is None or cfg.name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"workload {cfg.name!r} is not ported yet: "
-            f"{_NOT_PORTED.get(cfg.name, 'ROADMAP.md queue A')}")
+    ``SBLTransformer``, a unidirectional one a ``UniTransformer``, and the
+    ``classify`` workload (no decoder) a ``ClassifyTransformer`` whose
+    language slot is the last frame."""
+    kind = model_kind(cfg)
     device = resolve_device(device)
     dtype = getattr(torch, cfg.compute_dtype)
     kernels = cfg.use_pallas_attention
@@ -59,22 +55,28 @@ def build_model(cfg, device=None, seed: Optional[int] = None,
                                     use_pallas_resblock=use_pallas_resblock)
     encoder = encoder_from_config(dims, d_input=cfg.frontend.feature_dim,
                                   dtype=dtype, use_kernels=kernels)
-    common = dict(vocab_size=d.vocab_size, d_model=dims.d_model,
-                  n_layers=dims.n_dec_layers, n_head=dims.n_head, d_k=dims.d_k,
-                  d_v=dims.d_v, d_inner=dims.d_inner, pe_maxlen=dims.pe_maxlen,
-                  maxlen=d.maxlen, dtype=dtype, use_kernels=kernels,
-                  dropout=dims.dropout)
-    if d.bidirectional:
-        decoder = SBLDecoder(
-            fusion_mode=d.fusion_mode, decode_segments=d.decode_segments,
-            teacher_forcing_rate=d.teacher_forcing_rate,
-            remat=cfg.remat_decoder,
-            use_fused_layer=getattr(cfg, "use_fused_decoder_layer", False),
-            **common)
-        model = SBLTransformer(frontend, encoder, decoder)
+    if kind == "classify":
+        model = ClassifyTransformer(frontend, encoder, dims.d_model,
+                                    num_word_classes=cfg.num_word_classes,
+                                    num_languages=cfg.num_languages,
+                                    language_slot=cfg.data.frames - 1)
     else:
-        decoder = UniDecoder(tie_embedding=d.tie_embedding, **common)
-        model = UniTransformer(frontend, encoder, decoder)
+        common = dict(vocab_size=d.vocab_size, d_model=dims.d_model,
+                      n_layers=dims.n_dec_layers, n_head=dims.n_head,
+                      d_k=dims.d_k, d_v=dims.d_v, d_inner=dims.d_inner,
+                      pe_maxlen=dims.pe_maxlen, maxlen=d.maxlen, dtype=dtype,
+                      use_kernels=kernels, dropout=dims.dropout)
+        if kind == "sbl":
+            decoder = SBLDecoder(
+                fusion_mode=d.fusion_mode, decode_segments=d.decode_segments,
+                teacher_forcing_rate=d.teacher_forcing_rate,
+                remat=cfg.remat_decoder,
+                use_fused_layer=getattr(cfg, "use_fused_decoder_layer", False),
+                **common)
+            model = SBLTransformer(frontend, encoder, decoder)
+        else:
+            decoder = UniDecoder(tie_embedding=d.tie_embedding, **common)
+            model = UniTransformer(frontend, encoder, decoder)
     init_weights(model, torch.Generator().manual_seed(
         cfg.seed if seed is None else seed))
     return model.to(device).eval()

@@ -1,7 +1,8 @@
 """Unidirectional transformer decoder of the ``lrw`` / ``lrw1000`` workloads
 (counterpart of the JAX package's ``models/decoder_uni.py``): the
-deterministic teacher-forced forward, greedy decode with and without a K/V
-cache, and the step functions beam search drives.
+teacher-forced forward (the training forward when given the step's random
+numbers), greedy decode with and without a K/V cache, and the step
+functions beam search drives.
 
 The JAX ``lax.scan`` loops become Python loops; everything else follows the
 JAX module:
@@ -16,10 +17,12 @@ JAX module:
   (``CrossKV``), not at every decode step;
 * the cached path projects and attends one new token per step against flat
   (B, L, h*d) caches (``MultiHeadAttention.decode_step``), token-identical
-  to the full-prefix re-run.
-
-Dropout in ``forward`` (the training forward) is not ported yet: it runs
-deterministically.
+  to the full-prefix re-run;
+* with a ``DropoutRNG`` the teacher-forced forward drops as JAX's does with
+  ``deterministic=False``: the embedding, the attention probabilities and
+  the output of every self- and cross-attention (K3 forward, K4 backward,
+  one seed per call from the rng), and the FFN output.  The decode paths
+  stay deterministic.
 """
 from __future__ import annotations
 
@@ -32,8 +35,9 @@ from torch import nn
 from ..ops import masks as M
 from ..ops.attention import mask_to_bias
 from ..vocab import EOS_ID, IGNORE_ID, SOS_ID
-from .layers import (CachedCrossAttention, CrossKV, Dense, MultiHeadAttention,
-                     PositionwiseFeedForward, sinusoid_position_encoding)
+from .layers import (CachedCrossAttention, CrossKV, Dense, DropoutRNG,
+                     MultiHeadAttention, PositionwiseFeedForward, dropout,
+                     sinusoid_position_encoding)
 
 
 def make_uni_cache(batch: int, length: int, n_layers: int, kd: int, vd: int,
@@ -88,6 +92,7 @@ class UniDecoder(nn.Module):
         self.vocab_size, self.d_model, self.n_layers = vocab_size, d_model, n_layers
         self.n_head, self.d_k, self.d_v = n_head, d_k, d_v
         self.maxlen, self.tie_embedding, self.dtype = maxlen, tie_embedding, dtype
+        self.dropout = dropout
         self.tgt_word_emb = nn.Embedding(vocab_size, d_model)
         self.register_buffer("pe", sinusoid_position_encoding(pe_maxlen, d_model),
                              persistent=False)
@@ -116,10 +121,12 @@ class UniDecoder(nn.Module):
             yield (getattr(self, f"slf_attn_{i}"), getattr(self, f"enc_attn_{i}"),
                    getattr(self, f"pos_ffn_{i}"))
 
-    def _embed(self, ys: torch.Tensor) -> torch.Tensor:
+    def _embed(self, ys: torch.Tensor,
+               rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         T = ys.shape[1]
         emb = F.embedding(ys, self.tgt_word_emb.weight.to(self.dtype))
-        return emb * self.x_logit_scale + self.pe[:T].to(self.dtype)
+        h = emb * self.x_logit_scale + self.pe[:T].to(self.dtype)
+        return dropout(h, self.dropout, rng)
 
     def _project(self, h: torch.Tensor) -> torch.Tensor:
         if self.tie_embedding:
@@ -135,23 +142,26 @@ class UniDecoder(nn.Module):
         return tuple(getattr(self, f"cross_kv_{i}")(enc)
                      for i in range(self.n_layers))
 
-    def _stack(self, h, enc_kv, non_pad, slf_bias, dec_enc_bias):
+    def _stack(self, h, enc_kv, non_pad, slf_bias, dec_enc_bias, rng=None):
         for (slf, cross, ffn), (k2, v2) in zip(self._layers(), enc_kv):
-            h = slf(h, h, h, bias=slf_bias)
+            h = slf(h, h, h, bias=slf_bias, rng=rng)
             if non_pad is not None:
                 h = h * non_pad.to(h.dtype)
-            h = cross(h, k2, v2, bias=dec_enc_bias)
+            h = cross(h, k2, v2, bias=dec_enc_bias, rng=rng)
             if non_pad is not None:
                 h = h * non_pad.to(h.dtype)
-            h = ffn(h)
+            h = ffn(h, rng)
             if non_pad is not None:
                 h = h * non_pad.to(h.dtype)
         return h
 
     def forward(self, labels: torch.Tensor, enc_output: torch.Tensor,
-                enc_lengths: Optional[torch.Tensor] = None):
-        """Parallel teacher-forced forward, deterministic.  Returns (pred,
-        gold): f32 logits (B, maxlen, V) and IGNORE-padded gold (B, maxlen)."""
+                enc_lengths: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRNG] = None):
+        """Parallel teacher-forced forward: deterministic without ``rng``
+        (JAX ``deterministic=True``), the training forward with dropout
+        with one.  Returns (pred, gold): f32 logits (B, maxlen, V) and
+        IGNORE-padded gold (B, maxlen)."""
         ys_in, ys_out = preprocess_targets_uni(labels, self.maxlen)
         T = ys_in.shape[1]
         Tk = enc_output.shape[1]
@@ -162,8 +172,8 @@ class UniDecoder(nn.Module):
         if enc_lengths is not None:
             dec_enc_bias = mask_to_bias(
                 M.key_pad_mask_from_lengths(enc_lengths, Tk), T, Tk)
-        h = self._stack(self._embed(ys_in), self.compute_cross_kv(enc_output),
-                        non_pad, slf_bias, dec_enc_bias)
+        h = self._stack(self._embed(ys_in, rng), self.compute_cross_kv(enc_output),
+                        non_pad, slf_bias, dec_enc_bias, rng)
         return self._project(h).to(torch.float32), ys_out
 
     def _prefix_bias(self, L: int, step: int, device) -> torch.Tensor:

@@ -59,10 +59,14 @@ class UniTransformer(nn.Module):
         super().__init__()
         self.frontend, self.encoder, self.decoder = frontend, encoder, decoder
 
-    def forward(self, video: torch.Tensor, labels: torch.Tensor):
-        """Deterministic teacher-forced forward (JAX ``__call__`` with
-        train=False): (f32 logits (B, maxlen, V), IGNORE-padded gold)."""
-        return self.decoder(labels, self.encode(video))
+    def forward(self, video: torch.Tensor, labels: torch.Tensor,
+                rng: Optional[DropoutRNG] = None):
+        """Teacher-forced forward (JAX ``__call__``; train=True when ``rng``
+        is given: dropout in frontend, encoder and decoder).  BatchNorm
+        follows the module's train/eval mode.  Returns (f32 logits
+        (B, maxlen, V), IGNORE-padded gold)."""
+        enc = self.encoder(self.frontend(video, rng), rng=rng)
+        return self.decoder(labels, enc, rng=rng)
 
     def encode(self, video: torch.Tensor) -> torch.Tensor:
         """video: (B, T, H, W) normalized grayscale -> encoder output

@@ -43,6 +43,10 @@ _SIGNATURES = {
     # device, stream
     "sbl_small_mha_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _F, _I, _I, _P],
+    # q, k, v, bias, out, B, H, Tq, Tk, D, bias_batch, bias_head, scale,
+    # dtype, device, stream
+    "sbl_fused_mha": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _LL, _LL, _F, _I,
+                      _I, _P],
     # in, out, B, T, plane_bytes, kt, device, stream
     "sbl_stack_frames": [_P, _P, _LL, _I, _LL, _I, _I, _P],
     # q, k, v, bias, out, B, Tq, Tk, H, D, bias_per_batch, scale, seed,

@@ -1,8 +1,8 @@
 """Small-sequence attention kernels and their plain PyTorch versions.
 
-Counterparts of the JAX package's ``ops/attention.py`` Pallas TPU kernels,
-all on the projections' FLAT (B, T, H·d) layout with the head split and
-merge done inside the kernel and the softmax in f32:
+Counterparts of the JAX package's ``ops/attention.py`` Pallas TPU kernels.
+The main paths use the projections' FLAT (B, T, H·d) layout, with the head
+split and merge done inside the kernel and the softmax in f32:
 
 * K1 ``small_mha_flat`` (``fused_small_mha_flat``): softmax(Q Kᵀ · scale +
   bias) V, the deterministic attention of recognize.  CUDA source
@@ -18,9 +18,27 @@ merge done inside the kernel and the softmax in f32:
   path calls (JAX ``small_mha_dropout_grad_flat``, a custom VJP): K3 forward,
   K4 backward, saving only q, k, v and the bias.
 
+The JAX package also kept two layouts that no model path of either package
+calls (its tests and probes do); each has its counterpart here:
+
+* the (B, T, H, d) twins.  A contiguous (B, T, H, d) tensor has the bytes
+  of (B, T, H·d), so each twin launches the flat kernel on a VIEW, no copy:
+  ``fused_small_mha`` (JAX ``fused_small_mha``, K1), ``small_mha_bwd``
+  (JAX ``_small_mha_bwd``: K4 at rate 0, where no mask is drawn),
+  ``small_mha_dropout_fwd`` / ``small_mha_dropout_bwd`` (JAX
+  ``fused_small_mha_dropout_fwd`` / ``_bwd``: K3, K4) and
+  ``dropout_keep_mask`` (K5); ``small_mha`` and ``small_mha_dropout`` are
+  their autograd Functions (JAX ``small_mha_grad``,
+  ``small_mha_dropout_grad``).  The JAX package kept them as kernels of
+  their own because a Mosaic block spec binds the layout;
+* K12 ``fused_mha`` (JAX ``fused_mha``), the legacy head-major (B, H, T, d)
+  attention with a bias that may differ per head: K1's kernel body with the
+  head-major strides (``csrc/attention.cu``, entry ``sbl_fused_mha``).
+
 Each kernel wrapper takes its plain version on a CPU tensor; on a CUDA
-tensor it launches the kernel or raises.  ``<wrapper>.launches`` counts the
-kernel's launches.
+tensor it launches the kernel or raises, and it refuses (never copies) a
+non-contiguous input.  ``<wrapper>.launches`` counts the launches each
+wrapper makes; a twin counts its own, not the flat kernel's.
 """
 from __future__ import annotations
 
@@ -136,10 +154,20 @@ def small_mha_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (1|B, Tq, Tk) f32 (broadcast over heads).  Returns (B, Tq, H*d) in q's
     dtype.  CUDA tensors launch kernel K1 (d = 64; f32 or bf16; all
     contiguous); CPU tensors take the plain version."""
-    B, Tq, Tk, D = _check(q, k, v, n_head, bias)
     if q.device.type == "cpu":
         return small_mha_flat_plain(q, k, v, n_head, bias, scale)
-    _check_cuda("small_mha_flat", (q, k, v), bias, D // n_head)
+    out = _k1("small_mha_flat", q, k, v, n_head, bias, scale)
+    small_mha_flat.launches += 1
+    return out
+
+
+small_mha_flat.launches = 0
+
+
+def _k1(name, q, k, v, n_head, bias, scale):
+    """Launch K1 on flat CUDA operands (checked here) into a new tensor."""
+    B, Tq, Tk, D = _check(q, k, v, n_head, bias)
+    _check_cuda(name, (q, k, v), bias, D // n_head)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -149,12 +177,8 @@ def small_mha_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, Tq, Tk, n_head, D // n_head, int(bias is not None and bias.shape[0] > 1),
         float(_scale(scale, D, n_head)), _DTYPE_CODES[q.dtype], q.device.index,
         _stream(q.device))
-    _build.check(err, "small_mha_flat")
-    small_mha_flat.launches += 1
+    _build.check(err, name)
     return out
-
-
-small_mha_flat.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -226,25 +250,31 @@ def dropout_keep_mask_flat(B: int, Tq: int, Tk: int, H: int, seed: int,
     ``seed`` on a (B, Tq, H*d) x (B, Tk, H*d) launch.  On a CUDA device (the
     default) it launches the kernel, and raises without a card; on the CPU
     (``device="cpu"``) it takes the plain version."""
-    seed = _check_seed(seed)
-    thresh = dropout_threshold(rate)
     device = resolve_device(device)
     if device.type == "cpu":
         return dropout_keep_mask_flat_plain(B, Tq, Tk, H, seed, rate, device)
+    out = _k5("dropout_keep_mask_flat", B, Tq, Tk, H, seed, rate, device)
+    dropout_keep_mask_flat.launches += 1
+    return out
+
+
+dropout_keep_mask_flat.launches = 0
+
+
+def _k5(name, B, Tq, Tk, H, seed, rate, device):
+    """Launch K5 on a CUDA device into a new (B, H, Tq, Tk) bool mask."""
+    seed = _check_seed(seed)
+    thresh = dropout_threshold(rate)
     if device.type != "cuda":
-        raise ValueError(f"dropout_keep_mask_flat: unsupported device {device}")
+        raise ValueError(f"{name}: unsupported device {device}")
     out = torch.empty((B, H, Tq, Tk), dtype=torch.bool, device=device)
     if out.numel() == 0:
         return out
     err = _build.library().sbl_dropout_keep_mask_flat(
         out.data_ptr(), B, H, Tq, Tk, seed, thresh, device.index,
         _stream(device))
-    _build.check(err, "dropout_keep_mask_flat")
-    dropout_keep_mask_flat.launches += 1
+    _build.check(err, name)
     return out
-
-
-dropout_keep_mask_flat.launches = 0
 
 
 def _train_probs(q, k, v, n_head, bias, seed, rate, scale, keep):
@@ -320,14 +350,27 @@ def small_mha_dropout_fwd_flat(q: torch.Tensor, k: torch.Tensor,
     mask drawn from ``seed``.  CUDA tensors (d = 64, Tq and Tk at most 32,
     f32 or bf16, contiguous) launch the kernel; CPU tensors take the plain
     version."""
-    B, Tq, Tk, D = _check(q, k, v, n_head, bias)
-    seed = _check_seed(seed)
-    thresh, inv_keep, on = _dropout_launch_args(rate)
+    _check(q, k, v, n_head, bias)
+    _check_seed(seed)
+    dropout_threshold(rate)
     if q.device.type == "cpu":
         return small_mha_dropout_flat_plain(q, k, v, n_head, bias, seed, rate,
                                             scale)
-    _check_cuda("small_mha_dropout_fwd_flat", (q, k, v), bias, D // n_head,
-                TRAIN_MAX_T)
+    out = _k3("small_mha_dropout_fwd_flat", q, k, v, n_head, bias, seed, rate,
+              scale)
+    small_mha_dropout_fwd_flat.launches += 1
+    return out
+
+
+small_mha_dropout_fwd_flat.launches = 0
+
+
+def _k3(name, q, k, v, n_head, bias, seed, rate, scale):
+    """Launch K3 on flat CUDA operands (checked here) into a new tensor."""
+    B, Tq, Tk, D = _check(q, k, v, n_head, bias)
+    seed = _check_seed(seed)
+    thresh, inv_keep, on = _dropout_launch_args(rate)
+    _check_cuda(name, (q, k, v), bias, D // n_head, TRAIN_MAX_T)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -337,12 +380,8 @@ def small_mha_dropout_fwd_flat(q: torch.Tensor, k: torch.Tensor,
         B, Tq, Tk, n_head, D // n_head, int(bias is not None and bias.shape[0] > 1),
         float(_scale(scale, D, n_head)), seed, thresh, inv_keep, on,
         _DTYPE_CODES[q.dtype], q.device.index, _stream(q.device))
-    _build.check(err, "small_mha_dropout_fwd_flat")
-    small_mha_dropout_fwd_flat.launches += 1
+    _build.check(err, name)
     return out
-
-
-small_mha_dropout_fwd_flat.launches = 0
 
 
 def small_mha_dropout_bwd_flat(q: torch.Tensor, k: torch.Tensor,
@@ -353,16 +392,33 @@ def small_mha_dropout_bwd_flat(q: torch.Tensor, k: torch.Tensor,
     """K4: (dq, dk, dv) of K3, regenerating its mask from ``seed``.  CUDA
     tensors launch the kernel (K3's conditions, dout like q); CPU tensors
     take the plain version."""
+    _check(q, k, v, n_head, bias)
+    if dout.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} does not match q")
+    _check_seed(seed)
+    dropout_threshold(rate)
+    if q.device.type == "cpu":
+        return small_mha_dropout_bwd_flat_plain(q, k, v, n_head, bias, seed,
+                                                rate, scale, dout)
+    grads = _k4("small_mha_dropout_bwd_flat", q, k, v, n_head, bias, seed,
+                rate, scale, dout)
+    small_mha_dropout_bwd_flat.launches += 1
+    return grads
+
+
+small_mha_dropout_bwd_flat.launches = 0
+
+
+def _k4(name, q, k, v, n_head, bias, seed, rate, scale, dout):
+    """Launch K4 on flat CUDA operands (checked here) into new tensors.  At
+    rate 0 the kernel draws no mask and never reads ``inv_keep``, so its
+    gradients are those of the plain backward without dropout."""
     B, Tq, Tk, D = _check(q, k, v, n_head, bias)
     if dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} does not match q")
     seed = _check_seed(seed)
     thresh, inv_keep, on = _dropout_launch_args(rate)
-    if q.device.type == "cpu":
-        return small_mha_dropout_bwd_flat_plain(q, k, v, n_head, bias, seed,
-                                                rate, scale, dout)
-    _check_cuda("small_mha_dropout_bwd_flat", (q, k, v, dout), bias,
-                D // n_head, TRAIN_MAX_T)
+    _check_cuda(name, (q, k, v, dout), bias, D // n_head, TRAIN_MAX_T)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
@@ -373,36 +429,27 @@ def small_mha_dropout_bwd_flat(q: torch.Tensor, k: torch.Tensor,
         B, Tq, Tk, n_head, D // n_head, int(bias is not None and bias.shape[0] > 1),
         float(_scale(scale, D, n_head)), seed, thresh, inv_keep, on,
         _DTYPE_CODES[q.dtype], q.device.index, _stream(q.device))
-    _build.check(err, "small_mha_dropout_bwd_flat")
-    small_mha_dropout_bwd_flat.launches += 1
+    _build.check(err, name)
     return dq, dk, dv
 
 
-small_mha_dropout_bwd_flat.launches = 0
-
-
-class _DropoutAttention(torch.autograd.Function):
-    """Forward K3 (or its plain version), backward K4 (or its plain
-    version); saves only q, k, v and the bias, as the JAX custom VJP saves
-    (q2, k2, v2, bias, seed).  The bias gets no gradient."""
+class _Attention(torch.autograd.Function):
+    """Forward ``fwd(q, k, v, bias)``, backward ``bwd(q, k, v, bias, dout) ->
+    (dq, dk, dv)``; saves only q, k, v and the bias, as the JAX custom VJPs
+    save them (with the seed, which ``fwd`` and ``bwd`` close over).  The
+    bias gets no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, n_head, seed, rate, scale, use_kernels):
+    def forward(ctx, q, k, v, bias, fwd, bwd):
         ctx.save_for_backward(q, k, v, bias)
-        ctx.args = (n_head, seed, rate, scale, use_kernels)
-        fwd = (small_mha_dropout_fwd_flat if use_kernels
-               else small_mha_dropout_flat_plain)
-        return fwd(q, k, v, n_head, bias, seed, rate, scale)
+        ctx.bwd = bwd
+        return fwd(q, k, v, bias)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, bias = ctx.saved_tensors
-        n_head, seed, rate, scale, use_kernels = ctx.args
-        bwd = (small_mha_dropout_bwd_flat if use_kernels
-               else small_mha_dropout_bwd_flat_plain)
-        dq, dk, dv = bwd(q, k, v, n_head, bias, seed, rate, scale,
-                         dout.contiguous())
-        return dq, dk, dv, None, None, None, None, None, None
+        dq, dk, dv = ctx.bwd(q, k, v, bias, dout.contiguous())
+        return dq, dk, dv, None, None, None
 
 
 def small_mha_dropout_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -414,5 +461,288 @@ def small_mha_dropout_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K3 forward and K4 backward through their wrappers (plain versions on CPU
     tensors), or with ``use_kernels=False`` the plain versions on any
     device.  At rate 0 nothing is drawn and the forward is K1's math."""
-    return _DropoutAttention.apply(q, k, v, bias, n_head, seed, rate, scale,
-                                   use_kernels)
+    fwd = small_mha_dropout_fwd_flat if use_kernels else small_mha_dropout_flat_plain
+    bwd = (small_mha_dropout_bwd_flat if use_kernels
+           else small_mha_dropout_bwd_flat_plain)
+    return _Attention.apply(
+        q, k, v, bias,
+        lambda q, k, v, b: fwd(q, k, v, n_head, b, seed, rate, scale),
+        lambda q, k, v, b, g: bwd(q, k, v, n_head, b, seed, rate, scale, g))
+
+
+# ---------------------------------------------------------------------------
+# The (B, T, H, d) twins: the flat kernels on views.
+# ---------------------------------------------------------------------------
+
+def _check_headed(qh, kh, vh, bias):
+    """(B, Tq, H, d) q and (B, Tk, H, d) k, v; bias (1|B, Tq, Tk) or None.
+    Returns H."""
+    if qh.dim() != 4 or kh.dim() != 4 or vh.dim() != 4:
+        raise ValueError(f"q/k/v must be (B, T, H, d); got {tuple(qh.shape)}, "
+                         f"{tuple(kh.shape)}, {tuple(vh.shape)}")
+    B, _, H, d = qh.shape
+    Tk = kh.shape[1]
+    if kh.shape != (B, Tk, H, d) or vh.shape != (B, Tk, H, d):
+        raise ValueError(f"k/v {tuple(kh.shape)}/{tuple(vh.shape)} do not match "
+                         f"q {tuple(qh.shape)}")
+    return H
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, d) -> (B, T, H*d).  A view of a contiguous tensor; the
+    plain versions also take others (a copy), the kernel wrappers refuse
+    them first."""
+    B, T, H, d = x.shape
+    return x.reshape(B, T, H * d)
+
+
+def _unflat(x: torch.Tensor, H: int) -> torch.Tensor:
+    B, T, D = x.shape
+    return x.view(B, T, H, D // H)
+
+
+def _headed_cuda(name, tensors, bias, max_t=None):
+    """Refuse what the flat kernel does not take, on the (B, T, H, d)
+    tensors themselves (no copy is made), then return their flat views."""
+    _check_cuda(name, tensors, bias, tensors[0].shape[-1], max_t)
+    return [_flat(t) for t in tensors]
+
+
+def fused_small_mha_plain(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of ``fused_small_mha``: K1's plain version on views."""
+    H = _check_headed(qh, kh, vh, bias)
+    return _unflat(small_mha_flat_plain(_flat(qh), _flat(kh), _flat(vh), H,
+                                        bias, scale), H)
+
+
+def fused_small_mha(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """JAX ``fused_small_mha``: q (B, Tq, H, d), k/v (B, Tk, H, d), bias
+    (1|B, Tq, Tk) f32 or None -> (B, Tq, H, d).  CUDA tensors launch K1 on
+    the flat views (K1's conditions); CPU tensors take the plain version."""
+    H = _check_headed(qh, kh, vh, bias)
+    if qh.device.type == "cpu":
+        return fused_small_mha_plain(qh, kh, vh, bias, scale)
+    q, k, v = _headed_cuda("fused_small_mha", (qh, kh, vh), bias)
+    out = _k1("fused_small_mha", q, k, v, H, bias, scale)
+    fused_small_mha.launches += 1
+    return _unflat(out, H)
+
+
+fused_small_mha.launches = 0
+
+
+def small_mha_bwd_plain(qh, kh, vh, bias, scale, dout):
+    """Plain version of ``small_mha_bwd``: K4's plain version at rate 0 (no
+    mask) on views."""
+    H = _check_headed(qh, kh, vh, bias)
+    grads = small_mha_dropout_bwd_flat_plain(
+        _flat(qh), _flat(kh), _flat(vh), H, bias, 0, 0.0, scale, _flat(dout))
+    return tuple(_unflat(g, H) for g in grads)
+
+
+def small_mha_bwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                  bias: Optional[torch.Tensor], scale: Optional[float],
+                  dout: torch.Tensor):
+    """JAX ``_small_mha_bwd``: (dq, dk, dv) of ``fused_small_mha`` for the
+    output gradient ``dout`` (B, Tq, H, d).  CUDA tensors launch K4 at rate 0
+    on the flat views (T at most TRAIN_MAX_T); CPU tensors take the plain
+    version."""
+    H = _check_headed(qh, kh, vh, bias)
+    if dout.shape != qh.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} does not match q")
+    if qh.device.type == "cpu":
+        return small_mha_bwd_plain(qh, kh, vh, bias, scale, dout)
+    q, k, v, g = _headed_cuda("small_mha_bwd", (qh, kh, vh, dout), bias,
+                              TRAIN_MAX_T)
+    grads = _k4("small_mha_bwd", q, k, v, H, bias, 0, 0.0, scale, g)
+    small_mha_bwd.launches += 1
+    return tuple(_unflat(x, H) for x in grads)
+
+
+small_mha_bwd.launches = 0
+
+
+def small_mha(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+              bias: Optional[torch.Tensor] = None,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable (B, T, H, d) attention without dropout (JAX
+    ``small_mha_grad``): ``fused_small_mha`` forward (K1), ``small_mha_bwd``
+    backward (K4 at rate 0); plain versions on CPU tensors."""
+    return _Attention.apply(
+        qh, kh, vh, bias, lambda q, k, v, b: fused_small_mha(q, k, v, b, scale),
+        lambda q, k, v, b, g: small_mha_bwd(q, k, v, b, scale, g))
+
+
+def small_mha_dropout_fwd_plain(qh, kh, vh, bias, seed, scale, rate, keep=None):
+    """Plain version of ``small_mha_dropout_fwd``: K3's on views; ``keep``
+    injects a (B, H, Tq, Tk) mask."""
+    H = _check_headed(qh, kh, vh, bias)
+    return _unflat(small_mha_dropout_flat_plain(
+        _flat(qh), _flat(kh), _flat(vh), H, bias, seed, rate, scale, keep), H)
+
+
+def small_mha_dropout_fwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                          bias: Optional[torch.Tensor], seed: int,
+                          scale: Optional[float], rate: float) -> torch.Tensor:
+    """JAX ``fused_small_mha_dropout_fwd`` (argument order as there): K3 on
+    the flat views for CUDA tensors (T at most TRAIN_MAX_T), the plain
+    version for CPU tensors.  The mask is the flat kernel's, which does not
+    depend on the layout (see ``dropout_keep_mask``)."""
+    H = _check_headed(qh, kh, vh, bias)
+    _check_seed(seed)
+    dropout_threshold(rate)
+    if qh.device.type == "cpu":
+        return small_mha_dropout_fwd_plain(qh, kh, vh, bias, seed, scale, rate)
+    q, k, v = _headed_cuda("small_mha_dropout_fwd", (qh, kh, vh), bias,
+                           TRAIN_MAX_T)
+    out = _k3("small_mha_dropout_fwd", q, k, v, H, bias, seed, rate, scale)
+    small_mha_dropout_fwd.launches += 1
+    return _unflat(out, H)
+
+
+small_mha_dropout_fwd.launches = 0
+
+
+def small_mha_dropout_bwd_plain(qh, kh, vh, bias, seed, scale, rate, dout,
+                                keep=None):
+    """Plain version of ``small_mha_dropout_bwd``: K4's on views."""
+    H = _check_headed(qh, kh, vh, bias)
+    grads = small_mha_dropout_bwd_flat_plain(
+        _flat(qh), _flat(kh), _flat(vh), H, bias, seed, rate, scale,
+        _flat(dout), keep)
+    return tuple(_unflat(g, H) for g in grads)
+
+
+def small_mha_dropout_bwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                          bias: Optional[torch.Tensor], seed: int,
+                          scale: Optional[float], rate: float,
+                          dout: torch.Tensor):
+    """JAX ``fused_small_mha_dropout_bwd``: (dq, dk, dv) of
+    ``small_mha_dropout_fwd``, K4 on the flat views for CUDA tensors, the
+    plain version for CPU tensors."""
+    H = _check_headed(qh, kh, vh, bias)
+    if dout.shape != qh.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} does not match q")
+    _check_seed(seed)
+    dropout_threshold(rate)
+    if qh.device.type == "cpu":
+        return small_mha_dropout_bwd_plain(qh, kh, vh, bias, seed, scale, rate,
+                                           dout)
+    q, k, v, g = _headed_cuda("small_mha_dropout_bwd", (qh, kh, vh, dout),
+                              bias, TRAIN_MAX_T)
+    grads = _k4("small_mha_dropout_bwd", q, k, v, H, bias, seed, rate, scale, g)
+    small_mha_dropout_bwd.launches += 1
+    return tuple(_unflat(x, H) for x in grads)
+
+
+small_mha_dropout_bwd.launches = 0
+
+
+def small_mha_dropout(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+                      bias: Optional[torch.Tensor], seed: int,
+                      scale: Optional[float], rate: float) -> torch.Tensor:
+    """Differentiable (B, T, H, d) training attention (JAX
+    ``small_mha_dropout_grad``): ``small_mha_dropout_fwd`` forward (K3) and
+    ``small_mha_dropout_bwd`` backward (K4, the mask regenerated from
+    ``seed``); plain versions on CPU tensors."""
+    return _Attention.apply(
+        qh, kh, vh, bias,
+        lambda q, k, v, b: small_mha_dropout_fwd(q, k, v, b, seed, scale, rate),
+        lambda q, k, v, b, g: small_mha_dropout_bwd(q, k, v, b, seed, scale,
+                                                    rate, g))
+
+
+def dropout_keep_mask(B: int, Tq: int, Tk: int, H: int, seed: int,
+                      rate: float, device=None) -> torch.Tensor:
+    """JAX ``dropout_keep_mask``: the (B, H, Tq, Tk) bool keep mask the
+    (B, T, H, d) dropout twins draw for ``seed``.  K5 on a CUDA device (the
+    default; raises without a card); on the CPU its plain version,
+    ``dropout_keep_mask_flat_plain``.
+
+    It is the flat kernels' mask: an element's bits come from Philox at
+    counter (key, query, head, batch row), which does not depend on how q,
+    k and v are laid out, so the (B, T, H, d) views draw what the flat
+    tensors draw.  JAX's two helpers differ because its draw order was a
+    property of the per-program TPU PRNG (seeded by seed + program id, with
+    a batch tile per program); Philox has no such order."""
+    device = resolve_device(device)
+    if device.type == "cpu":
+        return dropout_keep_mask_flat_plain(B, Tq, Tk, H, seed, rate, device)
+    out = _k5("dropout_keep_mask", B, Tq, Tk, H, seed, rate, device)
+    dropout_keep_mask.launches += 1
+    return out
+
+
+dropout_keep_mask.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K12: the legacy head-major (B, H, T, d) attention.
+# ---------------------------------------------------------------------------
+
+def _check_head_major(q, k, v, bias):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q/k/v must be (B, H, T, d); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, Tq, d = q.shape
+    Tk = k.shape[2]
+    if k.shape != (B, H, Tk, d) or v.shape != (B, H, Tk, d):
+        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match "
+                         f"q {tuple(q.shape)}")
+    if Tk == 0:
+        raise ValueError("attention over zero keys")
+    if bias is not None and (bias.dim() != 4 or bias.shape[0] != B
+                             or bias.shape[1] not in (1, H)
+                             or tuple(bias.shape[2:]) != (Tq, Tk)):
+        raise ValueError(f"bias must be ({B}, 1|{H}, {Tq}, {Tk}); got "
+                         f"{tuple(bias.shape)}")
+    return B, H, Tq, Tk, d
+
+
+def fused_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of K12: operands upcast to f32, output in q's dtype."""
+    B, H, Tq, Tk, d = _check_head_major(q, k, v, bias)
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    f = torch.promote_types(q.dtype, torch.float32)
+    s = torch.matmul(q.to(f), k.to(f).transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.to(f)
+    return torch.matmul(torch.softmax(s, dim=-1), v.to(f)).to(q.dtype)
+
+
+def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: Optional[torch.Tensor] = None,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """K12 (JAX ``fused_mha``): q (B, H, Tq, d), k/v (B, H, Tk, d), bias an
+    optional additive (B, H|1, Tq, Tk) f32, per head or broadcast over the
+    heads -> (B, H, Tq, d).  CUDA tensors (d = 64; f32 or bf16; all contiguous)
+    launch the kernel, any Tk; CPU tensors take the plain version."""
+    B, H, Tq, Tk, d = _check_head_major(q, k, v, bias)
+    if q.device.type == "cpu":
+        return fused_mha_plain(q, k, v, bias, scale)
+    _check_cuda("fused_mha", (q, k, v), bias, d)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    bias_batch = bias_head = 0
+    if bias is not None:
+        bias_head = Tq * Tk if bias.shape[1] > 1 else 0
+        bias_batch = bias.shape[1] * Tq * Tk
+    err = _build.library().sbl_fused_mha(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        B, H, Tq, Tk, d, bias_batch, bias_head,
+        float(1.0 / math.sqrt(d) if scale is None else scale),
+        _DTYPE_CODES[q.dtype], q.device.index, _stream(q.device))
+    _build.check(err, "fused_mha")
+    fused_mha.launches += 1
+    return out
+
+
+fused_mha.launches = 0

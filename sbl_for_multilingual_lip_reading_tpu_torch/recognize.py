@@ -19,6 +19,7 @@ from typing import Dict, NamedTuple, Optional, Union
 
 import torch
 
+from . import ops
 from .data.ingest import device_ingest
 from .models.layers import cast_dense_weights
 from .models.sbl import SBLTransformer, UniTransformer
@@ -80,11 +81,9 @@ def expected_launches(cfg, use_pallas_resblock: bool = False) -> Dict[str, int]:
     layer_steps = d.maxlen * dims.n_dec_layers
     fused = d.bidirectional and cfg.use_fused_decoder_layer
     per_layer = 0 if fused else (2 if d.bidirectional else 1)
-    return {"small_mha_flat": dims.n_enc_layers + per_layer * layer_steps,
-            "stack_frames": 1, "small_mha_dropout_fwd_flat": 0,
-            "small_mha_dropout_bwd_flat": 0, "dropout_keep_mask_flat": 0,
-            "ingest_train": 0, "channel_sums": 0, "channel_sums_pair": 0,
-            "stack_frames_u8": 0,
-            "fused_resblock": (fused_resblock_count(cfg.frontend)
-                               if use_pallas_resblock else 0),
-            "fused_decoder_layer": layer_steps if fused else 0}
+    return dict(dict.fromkeys(ops.launch_counts(), 0),
+                small_mha_flat=dims.n_enc_layers + per_layer * layer_steps,
+                stack_frames=1,
+                fused_resblock=(fused_resblock_count(cfg.frontend)
+                                if use_pallas_resblock else 0),
+                fused_decoder_layer=layer_steps if fused else 0)

@@ -1,6 +1,7 @@
-"""Loss of the SBL train step (counterpart of the JAX package's
+"""Losses of the train steps (counterpart of the JAX package's
 ``training/loss.py``): label-smoothed cross-entropy with IGNORE_ID masking,
-mean over non-pad tokens, and the count of correct tokens.
+mean over non-pad tokens, and the count of correct tokens (the seq2seq
+workloads); the joint word + language cross-entropy of ``classify``.
 
 The reference's target distribution puts ``eps/C`` of smoothing mass on
 EVERY off-target class (loss.py:43), not the textbook eps/(C-1); kept as
@@ -39,3 +40,24 @@ def cal_performance(pred: torch.Tensor, gold: torch.Tensor,
     loss = label_smoothed_ce(pred, gold, smoothing)
     correct = (pred.argmax(dim=-1) == gold) & (gold != IGNORE_ID)
     return loss, correct.sum()
+
+
+def classify_loss(word_logits: torch.Tensor, word_labels: torch.Tensor,
+                  lang_logits: torch.Tensor, lang_labels: torch.Tensor,
+                  language_weight: float = 0.1
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Word CE + ``language_weight`` * language CE, each a mean over its
+    valid samples (the reference's classify train.py:127-130).  Returns
+    (loss, word_correct, lang_correct).  Samples with a label below 0 (the
+    unknown-word sentinel) are left out of loss and accuracy, as in JAX."""
+    def ce(logits, labels):
+        valid = labels >= 0
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -torch.gather(logp, -1, torch.where(valid, labels, 0).long()[:, None])[:, 0]
+        return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
+
+    loss = ce(word_logits, word_labels) + language_weight * ce(lang_logits,
+                                                               lang_labels)
+    w_ok = ((word_logits.argmax(dim=-1) == word_labels) & (word_labels >= 0)).sum()
+    l_ok = ((lang_logits.argmax(dim=-1) == lang_labels) & (lang_labels >= 0)).sum()
+    return loss, w_ok, l_ok

@@ -1,11 +1,18 @@
-"""The SBL train step (counterpart of the JAX package's
-``training/steps.py::make_sbl_train_body``):
+"""The train steps of every workload (counterpart of the JAX package's
+``training/steps.py``: ``make_sbl_train_body``, ``make_uni_train_body``,
+``make_classify_train_body``), one shape for all three:
 
     uint8 clips + plans -> train ingest (K6 under PALLAS_INGEST)
     -> frontend (batch-statistics BN; K7/K8 under PALLAS_BN)
-    -> encoder -> teacher-forced bidirectional decode, with dropout
-    -> loss 0.5 * (l2r + r2l), label smoothing -> backward
+    -> encoder -> the workload's head, with dropout (K3 forward, K4
+       backward in every attention)
+    -> the workload's loss -> backward
     -> frozen subtrees' gradients zeroed -> Adam with the Noam lr
+
+The heads and losses: ``sbl`` the teacher-forced bidirectional decode and
+0.5 * (l2r + r2l), label-smoothed; ``lrw`` / ``lrw1000`` the parallel
+teacher-forced unidirectional decode and one label-smoothed loss;
+``classify`` the word and language heads and ``classify_loss``.
 
 The BN running statistics update inside the forward.  Frozen subtrees
 (``cfg.freeze_prefixes``) get ZERO gradients, not None, as JAX's
@@ -23,11 +30,14 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from .. import ops
+from ..config import model_kind
 from ..data.ingest import device_ingest
 from ..models.frontend import pallas_bn_on
+from ..models.layers import DropoutRNG, cast_dense_weights
 from ..ops.ingest import MAX_OFFSET, ingest_train, ingest_train_plain
-from ..models.layers import DropoutRNG
-from .loss import cal_performance
+from ..recognize import recognize_batch
+from .loss import cal_performance, classify_loss
 from .state import TrainState
 
 PLAN_KEYS = ("offsets", "flip", "frame_map")
@@ -78,24 +88,32 @@ def frontend_bn_count(fcfg) -> int:
 
 
 def expected_launches(cfg) -> Dict[str, int]:
-    """Kernel launches one train step makes on the kernel path: K2 once;
-    K3 once per encoder layer and per decoder layer, attention and decode
-    step, and once more for each decoder call in the checkpoint's
-    recompute; K4 once per K3 of the forward; no K1 or K5; K6 once under
-    ``PALLAS_INGEST``; K7 once per frontend BatchNorm in the forward and K8
-    once per BatchNorm in the backward under ``PALLAS_BN`` (as the
-    environment stands when this is called)."""
+    """Kernel launches one train step of ``cfg``'s workload makes on the
+    kernel path: K2 once; K3 once per encoder layer and per decoder
+    attention (``sbl``: self and cross per layer and decode step, both
+    directions in one launch, and once more for each decode step in the
+    checkpoint's recompute; ``lrw`` / ``lrw1000``: self and cross per layer,
+    one parallel pass; ``classify``: none); K4 once per K3 of the forward;
+    no K1, K5 or layout twin; K6 once under ``PALLAS_INGEST``; K7 once per
+    frontend BatchNorm in the forward and K8 once per BatchNorm in the
+    backward under ``PALLAS_BN`` (as the environment stands when this is
+    called)."""
     enc = cfg.dims.n_enc_layers
-    dec = 2 * cfg.decoder.maxlen * cfg.dims.n_dec_layers
+    d = cfg.decoder
+    if d is None:
+        dec_fwd = dec_bwd = 0
+    elif d.bidirectional:
+        dec_bwd = 2 * d.maxlen * cfg.dims.n_dec_layers
+        dec_fwd = dec_bwd * (2 if cfg.remat_decoder else 1)
+    else:
+        dec_fwd = dec_bwd = 2 * cfg.dims.n_dec_layers
     bns = frontend_bn_count(cfg.frontend) if pallas_bn_on(False) else 0
-    return {"stack_frames_u8": 0, "fused_resblock": 0, "fused_decoder_layer": 0,
-            "small_mha_flat": 0, "stack_frames": 1,
-            "small_mha_dropout_fwd_flat": enc + dec * (2 if cfg.remat_decoder else 1),
-            "small_mha_dropout_bwd_flat": enc + dec,
-            "dropout_keep_mask_flat": 0,
-            "ingest_train": int(kernel_ingest_on(cfg.data.raw_size,
-                                                 cfg.data.crop_size)),
-            "channel_sums": bns, "channel_sums_pair": bns}
+    return dict(dict.fromkeys(ops.launch_counts(), 0), stack_frames=1,
+                small_mha_dropout_fwd_flat=enc + dec_fwd,
+                small_mha_dropout_bwd_flat=enc + dec_bwd,
+                ingest_train=int(kernel_ingest_on(cfg.data.raw_size,
+                                                  cfg.data.crop_size)),
+                channel_sums=bns, channel_sums_pair=bns)
 
 
 def _mark(marks: Optional[List], name: str) -> None:
@@ -105,9 +123,42 @@ def _mark(marks: Optional[List], name: str) -> None:
         marks.append((name, event))
 
 
+def _make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                     cfg, forward_loss: Callable) -> Callable:
+    """The step shared by the workloads around ``forward_loss(video, batch,
+    rng, **kw) -> (loss, metrics)``, the workload's forward and loss."""
+    freeze = tuple(cfg.freeze_prefixes)
+    crop = cfg.data.crop_size
+    dtype = getattr(torch, cfg.compute_dtype)
+    kernels = cfg.use_pallas_attention
+    device = next(model.parameters()).device
+    state = TrainState(model, optimizer, cfg.optim)
+
+    def step(batch, generator: torch.Generator, marks: Optional[List] = None,
+             **kw) -> Dict[str, torch.Tensor]:
+        model.train()
+        _mark(marks, "start")
+        video = ingest_train_batch(batch, crop, dtype, kernels)
+        _mark(marks, "ingest")
+        rng = DropoutRNG(int(torch.randint(0, 2 ** 62, (1,), generator=generator)),
+                         device)
+        loss, metrics = forward_loss(video, batch, rng, **kw)
+        _mark(marks, "forward")
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        freeze_grads(model, freeze)
+        _mark(marks, "backward")
+        state.apply_gradients()
+        _mark(marks, "optimizer")
+        return {"loss": loss.detach(), **metrics}
+
+    step.state = state
+    return step
+
+
 def make_sbl_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                         cfg) -> Callable:
-    """``step(batch, generator, use_gold=None, marks=None) -> metrics``.
+    """``step(batch, generator, marks=None, use_gold=None) -> metrics``.
 
     batch: tensors on the model's device -- clip_u8 (B, T, H, W) uint8,
     labels and labels_reverse (B, P), the plans offsets/flip/frame_map,
@@ -117,48 +168,69 @@ def make_sbl_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer
     forward, backward and optimizer boundaries.  Returns f32 scalar tensors
     (loss, loss_l2r, loss_r2l) and counts (n_correct_l2r, n_correct_r2l),
     left on the device.  ``step.state`` is the TrainState."""
-    freeze = tuple(cfg.freeze_prefixes)
-    crop = cfg.data.crop_size
-    dtype = getattr(torch, cfg.compute_dtype)
     smoothing = cfg.optim.label_smoothing
-    kernels = cfg.use_pallas_attention
-    device = next(model.parameters()).device
-    state = TrainState(model, optimizer, cfg.optim)
 
-    def step(batch, generator: torch.Generator,
-             use_gold: Optional[Sequence[bool]] = None,
-             marks: Optional[List] = None) -> Dict[str, torch.Tensor]:
-        model.train()
-        _mark(marks, "start")
-        video = ingest_train_batch(batch, crop, dtype, kernels)
-        _mark(marks, "ingest")
-        rng = DropoutRNG(int(torch.randint(0, 2 ** 62, (1,), generator=generator)),
-                         device)
+    def forward_loss(video, batch, rng, use_gold: Optional[Sequence[bool]] = None):
         p_l2r, g_l2r, p_r2l, g_r2l = model(video, batch["labels"],
                                            batch["labels_reverse"], rng, use_gold)
         loss_l2r, nc_l2r = cal_performance(p_l2r, g_l2r, smoothing)
         loss_r2l, nc_r2l = cal_performance(p_r2l, g_r2l, smoothing)
-        loss = 0.5 * (loss_l2r + loss_r2l)
-        _mark(marks, "forward")
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        freeze_grads(model, freeze)
-        _mark(marks, "backward")
-        state.apply_gradients()
-        _mark(marks, "optimizer")
-        return {"loss": loss.detach(), "loss_l2r": loss_l2r.detach(),
-                "loss_r2l": loss_r2l.detach(), "n_correct_l2r": nc_l2r,
-                "n_correct_r2l": nc_r2l}
+        return 0.5 * (loss_l2r + loss_r2l), {
+            "loss_l2r": loss_l2r.detach(), "loss_r2l": loss_r2l.detach(),
+            "n_correct_l2r": nc_l2r, "n_correct_r2l": nc_r2l}
 
-    step.state = state
-    return step
+    return _make_train_step(model, optimizer, cfg, forward_loss)
+
+
+def make_uni_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                        cfg) -> Callable:
+    """``step(batch, generator, marks=None) -> metrics`` for a
+    ``UniTransformer`` (JAX ``make_uni_train_body``): the batch of
+    ``make_sbl_train_step`` without ``labels_reverse``; the teacher-forced
+    forward with dropout, one label-smoothed loss.  Returns the f32 loss and
+    n_correct, left on the device."""
+    smoothing = cfg.optim.label_smoothing
+
+    def forward_loss(video, batch, rng):
+        pred, gold = model(video, batch["labels"], rng)
+        loss, n_correct = cal_performance(pred, gold, smoothing)
+        return loss, {"n_correct": n_correct}
+
+    return _make_train_step(model, optimizer, cfg, forward_loss)
+
+
+def make_classify_train_step(model: torch.nn.Module,
+                             optimizer: torch.optim.Optimizer, cfg) -> Callable:
+    """``step(batch, generator, marks=None) -> metrics`` for a
+    ``ClassifyTransformer`` (JAX ``make_classify_train_body``): the batch
+    carries word_id and lang_id (B,) instead of labels; the loss is the word
+    CE plus ``cfg.language_loss_weight`` times the language CE, samples with
+    a label below 0 left out.  Returns the f32 loss and the counts
+    word_correct, lang_correct, left on the device."""
+    lw = cfg.language_loss_weight
+
+    def forward_loss(video, batch, rng):
+        word_logits, lang_logits = model(video, rng)
+        loss, w_ok, l_ok = classify_loss(word_logits, batch["word_id"],
+                                         lang_logits, batch["lang_id"],
+                                         language_weight=lw)
+        return loss, {"word_correct": w_ok, "lang_correct": l_ok}
+
+    return _make_train_step(model, optimizer, cfg, forward_loss)
+
+
+def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                    cfg) -> Callable:
+    """The train step of ``cfg``'s workload (JAX ``Trainer``'s choice)."""
+    make = {"classify": make_classify_train_step, "sbl": make_sbl_train_step,
+            "uni": make_uni_train_step}[model_kind(cfg)]
+    return make(model, optimizer, cfg)
 
 
 def make_uni_eval_step(model: torch.nn.Module, cfg) -> Callable:
     """``eval_step(batch) -> ys`` for a ``UniTransformer`` (JAX
     ``make_uni_eval_step``): eval ingest, then the KV-cached greedy decode;
     ys is (B, maxlen+1) ids with the leading sos."""
-    from ..recognize import recognize_batch
     crop = cfg.data.crop_size
 
     def eval_step(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -166,3 +238,29 @@ def make_uni_eval_step(model: torch.nn.Module, cfg) -> Callable:
                                n_frames=batch.get("n_frames"))
 
     return eval_step
+
+
+def make_classify_eval_step(model: torch.nn.Module, cfg) -> Callable:
+    """``eval_step(batch) -> (word_logits, lang_logits)`` for a
+    ``ClassifyTransformer`` (JAX ``make_classify_eval_step``): eval ingest
+    (center crop, no flip), the model in eval mode, f32 logits (B, 1500)
+    and (B, 2)."""
+    crop = cfg.data.crop_size
+
+    def eval_step(batch: Dict[str, torch.Tensor]):
+        model.eval()
+        with torch.inference_mode(), cast_dense_weights(model):
+            video = device_ingest(batch["clip_u8"], crop, model.frontend.dtype,
+                                  n_frames=batch.get("n_frames"))
+            return model(video)
+
+    return eval_step
+
+
+def make_eval_step(model: torch.nn.Module, cfg) -> Optional[Callable]:
+    """The eval step of ``cfg``'s workload: the classify logits, the
+    unidirectional greedy decode, or None for ``sbl``, whose validation
+    decodes through ``recognize_batch`` itself."""
+    make = {"classify": make_classify_eval_step,
+            "uni": make_uni_eval_step}.get(model_kind(cfg))
+    return None if make is None else make(model, cfg)

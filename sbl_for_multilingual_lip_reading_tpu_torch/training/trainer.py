@@ -1,13 +1,15 @@
-"""The training entry point of the ``sbl`` workloads (counterpart of the
-JAX package's ``training/trainer.py``): the epoch loop, validation with
-WER/PER (greedy or beam search), the best-model checkpoint, and
-``train_steps``.  For the unidirectional ``lrw`` / ``lrw1000`` workloads it
-evaluates (``validate_seq2seq``); their train step is not ported yet.
+"""The training entry point of every workload (counterpart of the JAX
+package's ``training/trainer.py``): the epoch loop, validation, the
+best-model checkpoint, and ``train_steps``.
 
-Reproduces the reference's protocol (SBL train.py): epoch loop -> train
-(dual 0.5 * (l2r + r2l) loss) -> validation on each eval set (greedy
+Reproduces the reference's protocols.  ``sbl`` (SBL train.py): epoch loop ->
+train (dual 0.5 * (l2r + r2l) loss) -> validation on each eval set (greedy
 bidirectional decode, WER and PER per direction) -> best model = the least
-sum of l2r WER over the eval sets (train.py:161-175) -> checkpoint.
+sum of l2r WER over the eval sets (train.py:161-175) -> checkpoint.  The
+unidirectional ``lrw`` / ``lrw1000`` the same with one direction (and the
+LRW project's augmentation: per-clip crops, RandomDrop, no FrameRemoval,
+from ``cfg.data``).  ``classify``: word + language loss, validation by word
+and language accuracy, best model = the highest sum of word accuracies.
 
 Eval-protocol parity (test.py:185-218): predictions are truncated to
 ``gold_length + 1`` tokens before sos/eos/IGNORE are filtered, and WER is
@@ -31,6 +33,7 @@ from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..config import model_kind
 from ..data.ingest import device_ingest
 from ..data.pipeline import Batcher, background_iter, prefetch_to_device
 from ..data.sampler import TwoStreamBatchSampler
@@ -45,7 +48,7 @@ from ..vocab import EOS_ID, IGNORE_ID, SOS_ID, TOTAL_PHONEMES
 from . import checkpoint as ckpt
 from .schedule import make_optimizer
 from .state import TrainState
-from .steps import make_sbl_train_step, make_uni_eval_step
+from .steps import make_eval_step, make_train_step
 
 
 def attach_plans(batch: Dict, rng: np.random.Generator, cfg) -> Dict:
@@ -97,17 +100,11 @@ class _Scores:
                 per_compute(self.pred_ph, self.gold_ph))
 
 
-UNI_TRAIN_NOT_PORTED = ("the unidirectional train step is not ported yet: "
-                        "ROADMAP.md queue A item 9b (make_uni_train_step)")
-
-
 class Trainer:
     """Config-driven trainer on one device: the card unless ``device`` (or
     a given ``model``'s device) says otherwise.  It trains and evaluates
-    the ``sbl`` / ``sbl_stage2`` workloads and evaluates ``lrw`` /
-    ``lrw1000`` (``train_epoch`` and ``fit`` raise for those, naming the
-    ROADMAP item); ``classify`` raises ``NotImplementedError`` from
-    ``build_model``."""
+    every workload: ``sbl`` / ``sbl_stage2``, ``lrw`` / ``lrw1000``
+    (``validate_seq2seq``) and ``classify`` (``validate_classify``)."""
 
     def __init__(self, cfg, train_dataset, valid_datasets: Optional[Dict] = None,
                  checkpoint_dir: Optional[str] = None, device=None,
@@ -138,14 +135,9 @@ class Trainer:
         """A fresh Adam and train step at update 0 (after a transfer load,
         as the reference rebuilds its optimizer, train.py:106-109)."""
         self.optimizer = make_optimizer(self.model, self.cfg.optim)
-        if self.cfg.decoder.bidirectional:
-            self.train_step = make_sbl_train_step(self.model, self.optimizer,
-                                                  self.cfg)
-            self.state = self.train_step.state
-        else:
-            self.train_step = None
-            self.eval_step = make_uni_eval_step(self.model, self.cfg)
-            self.state = TrainState(self.model, self.optimizer, self.cfg.optim)
+        self.train_step = make_train_step(self.model, self.optimizer, self.cfg)
+        self.state: TrainState = self.train_step.state
+        self.eval_step = make_eval_step(self.model, self.cfg)
 
     # ---------------------------------------------------------- checkpoints
     def rng_state(self) -> Dict:
@@ -221,8 +213,6 @@ class Trainer:
         appends each step's metrics to ``history`` when one is given.  A
         step's loss is read while the next step runs, so the read does not
         hold the card idle."""
-        if self.train_step is None:
-            raise NotImplementedError(UNI_TRAIN_NOT_PORTED)
         losses = AverageMeter()
         if self.cache_on_device:
             if self.cfg.secondary_batch_size:
@@ -327,15 +317,51 @@ class Trainer:
             res["r2l_wer"], res["r2l_per"] = r2l.finish()
         return res
 
+    def validate_classify(self, dataset, max_batches: Optional[int] = None
+                          ) -> Dict[str, float]:
+        """Word and language accuracy of the ``classify`` model over every
+        sample (the ragged tail batch kept), as JAX's ``validate_classify``
+        counts them: a sample whose label is below 0 counts in the total
+        and never as correct."""
+        n = w_ok = l_ok = 0
+        batcher = Batcher(dataset, self.cfg.batch_size, shuffle=False,
+                          drop_last=False)
+        for i, batch in enumerate(prefetch_to_device(iter(batcher), self.device)):
+            if max_batches is not None and i >= max_batches:
+                break
+            word_logits, lang_logits = self.eval_step(batch)
+            w_ok += int((word_logits.argmax(-1) == batch["word_id"]).sum())
+            l_ok += int((lang_logits.argmax(-1) == batch["lang_id"]).sum())
+            n += word_logits.shape[0]
+        return {"word_acc": w_ok / max(n, 1), "lang_acc": l_ok / max(n, 1)}
+
+    def validate(self, dataset, max_batches: Optional[int] = None,
+                 beam_size: Optional[int] = None,
+                 bigram_logp=None) -> Dict[str, float]:
+        """The workload's validation: ``validate_classify`` for
+        ``classify`` (the decode options do not apply), else
+        ``validate_seq2seq``."""
+        if model_kind(self.cfg) == "classify":
+            return self.validate_classify(dataset, max_batches)
+        return self.validate_seq2seq(dataset, max_batches, beam_size=beam_size,
+                                     bigram_logp=bigram_logp)
+
+    def score(self, metrics: Dict[str, float]) -> float:
+        """One eval set's share of the best-model metric, lower is better:
+        -word_acc for ``classify`` (JAX trainer.py:657-663), l2r WER
+        otherwise (train.py:161-175)."""
+        if model_kind(self.cfg) == "classify":
+            return -metrics["word_acc"]
+        return metrics["l2r_wer"]
+
     # ------------------------------------------------------------------ fit
     def fit(self, epochs: int, max_steps_per_epoch: Optional[int] = None,
             max_eval_batches: Optional[int] = None, start_epoch: int = 0
             ) -> Dict:
         """Epochs ``start_epoch .. epochs-1``: train, validate every eval
-        set, keep the best (least sum of l2r WER; the train loss without
-        eval sets) and checkpoint to ``checkpoint_dir`` after each."""
-        if self.train_step is None:
-            raise NotImplementedError(UNI_TRAIN_NOT_PORTED)
+        set, keep the best (the least sum of l2r WER, for ``classify`` the
+        least -sum of word accuracies; the train loss without eval sets) and
+        checkpoint to ``checkpoint_dir`` after each."""
         last: Dict = {}
         loss = float("nan")
         for epoch in range(start_epoch, epochs):
@@ -347,9 +373,9 @@ class Trainer:
             if self.valid_datasets:
                 metric = 0.0
                 for name, ds in self.valid_datasets.items():
-                    last[name] = self.validate_seq2seq(ds, max_eval_batches)
+                    last[name] = self.validate(ds, max_eval_batches)
+                    metric += self.score(last[name])
                     self.logger.info(f"{name}: {last[name]}")
-                    metric += last[name]["l2r_wer"]
             is_best = metric < self.best_metric
             self.best_metric = min(metric, self.best_metric)
             if self.checkpoint_dir:
@@ -367,7 +393,7 @@ class TrainResult(NamedTuple):
 def train_steps(cfg, dataset, n_steps: int, device=None,
                 seed: Optional[int] = None,
                 model: Optional[torch.nn.Module] = None) -> TrainResult:
-    """Run ``n_steps`` train steps of the ``sbl`` workload through a
+    """Run ``n_steps`` train steps of ``cfg``'s workload through a
     ``Trainer`` on ``device`` (the card by default), on the host batch
     path, without validation or checkpoints.
 

@@ -6,6 +6,8 @@ a port key by joining the path with dots and renaming the leaf:
 
 * Dense ``kernel`` (in, out) -> ``weight`` (out, in); a direction-stacked
   kernel (2, in, out) -> (2, out, in) (decoder, dir 0 = l2r, kept on axis 0);
+  the classify heads map so too (``fc_word/kernel`` -> ``fc_word.weight``,
+  ``fc_lang/kernel`` -> ``fc_lang.weight``);
 * Conv ``kernel`` HWIO -> ``weight`` OIHW;
 * ``conv3d_kernel`` (kt, 7, 7, 1, C) -> ``conv3d_weight`` (C, kt, 7, 7), the
   stem's conv2d weight over the kt stacked frames;

@@ -313,7 +313,8 @@ def test_config_from_args_matches_jax(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--workload", "lrw"], "item 9"), (["--workload", "classify"], "item 11"),
+    (["--workload", "lrw", "--mesh-model", "2"], "item 12"),
+    (["--workload", "classify", "--profile-dir", "/tmp/p"], "item 13"),
     (["--mesh-data", "2"], "item 12"), (["--no-sync-batchnorm"], "item 12"),
     (["--remat-frontend"], "item 8"), (["--profile-dir", "/tmp/p"], "item 13")])
 def test_unported_flags_raise_with_their_roadmap_item(argv, item):

@@ -206,8 +206,13 @@ def test_profile_recognize_refuses_without_a_card():
 
 @pytest.mark.parametrize("name", ["classify"])
 def test_build_model_refuses_unported_workloads(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(C.tiny_test(name), "cpu")
+    # every workload is ported: classify builds without a decoder, and a
+    # decoder-less config of any other workload is refused
+    from sbl_for_multilingual_lip_reading_tpu_torch.models import (
+        ClassifyTransformer)
+    assert isinstance(build_model(C.tiny_test(name), "cpu"), ClassifyTransformer)
+    with pytest.raises(ValueError, match="no decoder"):
+        build_model(dataclasses.replace(C.tiny_test(name), name="sbl"), "cpu")
 
 
 def test_state_dict_mapping_complete_full_dims():
@@ -272,7 +277,9 @@ def test_launch_counts_reset_and_read():
     names = ("small_mha_flat", "stack_frames", "small_mha_dropout_fwd_flat",
              "small_mha_dropout_bwd_flat", "dropout_keep_mask_flat",
              "ingest_train", "channel_sums", "channel_sums_pair",
-             "stack_frames_u8", "fused_resblock", "fused_decoder_layer")
+             "stack_frames_u8", "fused_resblock", "fused_decoder_layer",
+             "fused_small_mha", "small_mha_bwd", "small_mha_dropout_fwd",
+             "small_mha_dropout_bwd", "dropout_keep_mask", "fused_mha")
     for i, fn in enumerate(ops.KERNELS):
         fn.launches = i + 1
     assert ops.launch_counts() == {n: i + 1 for i, n in enumerate(names)}

@@ -12,11 +12,16 @@ and labels.  f32 on both sides, the JAX model on its XLA path: logits within
 1e-4 (readings <= 1.5e-6), tokens identical.  One bf16 case, the decoder
 alone from identical encoder output: the JAX decoder runs its Pallas
 attention in interpret mode with XLA held to the roundings the program
-states.  Reading: every bf16 hidden state identical, the f32 logits (an f32
-product with the tied table) 2.4e-7 apart, 5.5% of them differing.  The
-tolerance, 2^-4 with at most a quarter of the elements differing, is what
-a one-ulp flip of a hidden state (2^-8 relative) costs the logits (|x| < 4)
-on a CPU that sums in another order; tokens identical.
+states.  The f32 logits (an f32 product of 64-term rows with the tied
+table) also carry f32 summation-order noise, whose size follows the CPU:
+an element counts as differing only where it moves by more than
+F32_ROUNDING = 1e-5 (an f32 dot of 64 terms with |x| < 4 rounds at ~1e-6).
+Readings: on one AMD EPYC every bf16 hidden state identical, the logits
+2.4e-7 apart, 5.5% of them differing at all; on an Intel Xeon max 3.5e-3,
+26.7% differing at all, 4.2% by more than 1e-5.  The tolerance, 2^-4 with
+at most a quarter of the elements differing by more than f32 rounding, is
+what a one-ulp flip of a hidden state (2^-8 relative) costs the logits
+(|x| < 4) on a CPU that sums in another order; tokens identical.
 """
 import dataclasses
 import functools
@@ -60,6 +65,7 @@ from test_torch_port_recognize import _bf16, _f32, _jit_exact, _perturbed
 LOGIT_TOL = 1e-4
 BF16_LOGIT_TOL = 2.0 ** -4
 BF16_MAX_DIFFERING = 0.25
+F32_ROUNDING = 1e-5
 WORKLOADS = ("lrw", "lrw1000")
 
 
@@ -366,7 +372,8 @@ def test_bf16_decoder_matches_jax():
         ys = port.decoder.recognize_greedy(_bf16(enc), kv_cache=False)
     diff = np.abs(_f32(got) - _f32(want))
     assert diff.max() <= BF16_LOGIT_TOL, diff.max()
-    assert (diff > 0).mean() <= BF16_MAX_DIFFERING, (diff > 0).mean()
+    differing = (diff > F32_ROUNDING).mean()
+    assert differing <= BF16_MAX_DIFFERING, differing
     np.testing.assert_array_equal(ys.numpy(), np.asarray(want_ys))
 
 
@@ -421,15 +428,22 @@ def _variables(tr):
 
 
 def test_trainer_evaluates_and_refuses_to_train(jax_trainers):
+    """The Trainer evaluates as JAX's does; it trains a unidirectional
+    workload (the train step's parity is in test_torch_port_uni_train.py)
+    and refuses only the unported grad_clip."""
     cfg, _, ds, jtr = jax_trainers["lrw"]
     want = jtr.validate_seq2seq(ds)
-    tr = Trainer(cfg, [], {"lrw": ds}, device="cpu",
+    tr = Trainer(cfg, ds, {"lrw": ds}, device="cpu",
                  model=_port(cfg, _variables(jtr)))
     got = tr.validate_seq2seq(ds)
     assert set(got) == {"l2r_wer", "l2r_per"}
     assert got == pytest.approx(want)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        tr.fit(1)
+    out = tr.fit(1, max_steps_per_epoch=1)
+    assert np.isfinite(out["train_loss"]) and tr.state.step == 1
+    clipped = dataclasses.replace(cfg, optim=dataclasses.replace(
+        cfg.optim, grad_clip=1.0))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        Trainer(clipped, ds, device="cpu")
 
 
 @pytest.mark.parametrize("name,extra", [
@@ -469,8 +483,11 @@ def test_cli_test_matches_jax_validate(jax_trainers, monkeypatch, tmp_path,
 
 
 def test_cli_train_refuses_a_unidirectional_workload():
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        cli.run_train(["--cpu", "--workload", "lrw1000", "--synthetic"])
+    # `train --workload lrw1000` runs (test_torch_port_uni_train.py); what
+    # it still refuses are the unported flags, as for every workload
+    with pytest.raises(NotImplementedError, match="item 12"):
+        cli.run_train(["--cpu", "--workload", "lrw1000", "--synthetic",
+                       "--mesh-data", "2"])
 
 
 def test_synthetic_dataset_vocabs_match_jax():

@@ -3,6 +3,7 @@
 
     JAX_PLATFORMS=cpu python tests/torch_port_readings.py train [plain]
     JAX_PLATFORMS=cpu python tests/torch_port_readings.py eval
+    JAX_PLATFORMS=cpu python tests/torch_port_readings.py routing [FIRST LAST]
 
 ``train``: three train steps of the port against JAX, per step the loss,
 the BN statistics and the parameters, and the one-step gradients per
@@ -11,8 +12,13 @@ JAX with XLA's default options and the production epsilon instead, which on
 some CPUs shows the faulty frontend gradient.  ``ATEN_CPU_CAPABILITY=default``
 in the environment takes torch off its AVX2/AVX-512 paths.  ``eval``: the
 plain versions of K9, K10 and K11 against the Pallas kernels in interpret
-mode, and the unidirectional decoder in f32 and bf16.  Not a test: pytest
-does not collect it.
+mode, and the unidirectional decoder in f32 and bf16.  ``routing``: the
+step and gradient tests of ``test_torch_port_uni_train.py`` and
+``test_torch_port_classify.py`` at each perturbation seed FIRST..LAST
+(default 1..24), four processes at a time, each seed's outcome with the
+step-0 elements on which the port's ReLU sign disagrees with JAX's (count,
+largest |x|) and the largest such |x| of the later steps.  Not a test:
+pytest does not collect it.
 """
 import dataclasses
 import functools
@@ -139,9 +145,76 @@ def eval_readings() -> None:
         print(f"K11 f32 {mask}: max diff {np.abs(got[0].numpy() - want).max():.3g}")
 
 
+ROUTING_TESTS = {
+    "uni": ("test_torch_port_uni_train",
+            "match_jax and (steps or gradients)"),
+    "classify": ("test_torch_port_classify",
+                 "three_classify or gradients")}
+
+
+def routing_one(which: str, seed: int) -> None:
+    """One file's step and gradient tests at one perturbation seed; prints
+    one JSON line."""
+    import json
+    import test_torch_port_uni_train as U
+    name, select = ROUTING_TESTS[which]
+    mod = __import__(name)
+    mod.PERTURB_SEED = seed
+    lists, checked = [], []
+    route, check = U.jax_routing, U._assert_flips_within_margin
+
+    def routing(relu_inputs, flips):
+        lists.append(flips)
+        return route(relu_inputs, flips)
+
+    def record(flips):
+        checked.append(flips)
+        check(flips)
+    for m in (U, mod):
+        m.jax_routing, m._assert_flips_within_margin = routing, record
+    rc = pytest.main(["-q", "-p", "no:cacheprovider", mod.__file__, "-k", select])
+    step0 = [x for flips in checked for x in flips]
+    later = [x for flips in lists if not any(flips is c for c in checked)
+             for x in flips]
+    print(json.dumps(dict(which=which, seed=seed, passed=int(rc) == 0,
+                          step0_flips=len(step0),
+                          step0_max=max(step0, default=0.0),
+                          later_max=max(later, default=0.0))), flush=True)
+
+
+def routing_readings(first: int, last: int) -> None:
+    import json
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(job):
+        which, seed = job
+        res = subprocess.run([sys.executable, __file__, "routing-one", which,
+                              str(seed)], capture_output=True, text=True,
+                             check=False)
+        return json.loads(res.stdout.strip().splitlines()[-1])
+    jobs = [(w, s) for w in ROUTING_TESTS for s in range(first, last + 1)]
+    with ThreadPoolExecutor(4) as pool:
+        results = list(pool.map(run, jobs))
+    for which in ROUTING_TESTS:
+        mine = [r for r in results if r["which"] == which]
+        for r in mine:
+            print(json.dumps(r))
+        print(f"{which}: {sum(r['passed'] for r in mine)} of {len(mine)} seeds "
+              f"pass; step-0 sign disagreements {sum(r['step0_flips'] for r in mine)}"
+              f" over {sum(bool(r['step0_flips']) for r in mine)} seeds, largest "
+              f"|x| {max(r['step0_max'] for r in mine):.3g}; later steps' largest "
+              f"|x| {max(r['later_max'] for r in mine):.3g}")
+
+
 if __name__ == "__main__":
     which = sys.argv[1] if len(sys.argv) > 1 else "eval"
     if which == "train":
         train_readings(plain="plain" in sys.argv[2:])
+    elif which == "routing":
+        routing_readings(*(map(int, sys.argv[2:4]) if len(sys.argv) > 3
+                           else (1, 24)))
+    elif which == "routing-one":
+        routing_one(sys.argv[2], int(sys.argv[3]))
     else:
         eval_readings()
