@@ -10,19 +10,29 @@ line (phase 2 adds nvcc's per-kernel register report):
 
   1. card   -- nvidia-smi's name and power limit, torch's device name;
   2. build  -- build (or load) the hand-written kernels from csrc/;
+  2 also prints, per head width, ptxas's registers and spills of K1/K12's
+     tensor-core body and of K3/K4's bodies, and fails if one spills;
   3. kernels vs plain versions on the card, at the recognize path's shapes:
-     K2 stack_frames bit-exact; K1 small_mha_flat within K1_TOL; CUDA-event
-     times of both (median of TIMING_REPS after a warm-up);
+     K2 stack_frames bit-exact; K1 small_mha_flat within K1_TOL, f32 and
+     bf16, at d = 64 and at the other head widths it is built for (16, 32,
+     128); device times of both and of scaled_dot_product_attention;
   3b. the training kernels vs their plain versions at the B=240 train
      step's shapes, f32 and bf16: K5 dropout_keep_mask_flat bit-exact
      against the plain Philox, keep fraction KEEP_FRACTION; K3
      small_mha_dropout_fwd_flat and K4 small_mha_dropout_bwd_flat within
      TRAIN_TOL given K5's mask; K3 at rate 0 against K1; times of all
-     three and their plain versions; max-pool tie gradients, card vs CPU;
+     three and their plain versions; then K3/K4 at the other head widths
+     they are built for (16, 32, 128) and at lengths past one tile of 32
+     keys (70, 150, and 84 at d = 128, the edge of their shared memory);
+     max-pool tie gradients, card vs CPU;
   4. recognize slice at the full config.sbl() width with seeded random
      weights: kernel path vs plain path at B=32 in f32 (TF32 off) and bf16,
      then the bf16 recognize path at B=512: launch counts, output checks,
      stage split, clips/s;
+  4b. the tiny preset (d_k = 16) through recognize (f32, bf16, and f32 with
+     the fused decoder layer) and one f32 train step, each against the
+     plain path: recognize launches K1 (and K11), the train step K2, K3 and
+     K4, as counted;
   3c. the training entry point's kernels vs their plain versions at its
      shapes, f32 and bf16: K6 ingest_train at (240,30,96,96) -> 88 with
      attach_plans plans and n_frames padding, bit-exact; K7 channel_sums and
@@ -53,8 +63,8 @@ line (phase 2 adds nvcc's per-kernel register report):
      fused_decoder_layer at L in {3, 17}, with and without the (L, L) bias,
      both directions, B=512, f32 and bf16, within LAYER_TOL of its plain
      version (and, printed, against the module path); times of kernel, plain
-     version and the module (library) composition; K1 at Tq=1 runs in
-     phase 3;
+     version and the module (library) composition; K11 at d_k = 128 (4
+     heads) within LAYER_TOL; K1 at Tq=1 runs in phase 3;
   7. path A, `sbl` recognize at the full width with both eval-side switches
      on and K9 as the ingest: switches on vs off at B=SWITCH_CHECK_BATCH
      (first-step logits, token agreement), then B=512: launches per batch
@@ -95,7 +105,10 @@ line (phase 2 adds nvcc's per-kernel register report):
      and a library call's time where one PyTorch call computes the same
      function), then the result line {"ok": true, "device": {...}}.
 
-Every time comes from CUDA events around launches on this card; every
+Every kernel time comes from CUDA events around each of TIMING_REPS
+launches, each after a read of L2_FLUSH_BYTES (a cold L2, as the bounds'
+HBM rate assumes), all queued behind a spin kernel so that the card runs
+them back to back (the device time, not the wrappers' host time); every
 bound is the larger of the bytes the function must move over HBM_BYTES_S
 and its operations over the card's peak rate for their type (H100 SXM data
 sheet: HBM3 3.35 TB/s, bf16 dense 989 TFLOP/s, f32 67 TFLOP/s outside the
@@ -129,8 +142,15 @@ LOGIT_TOL = {"float32": 1e-4, "bfloat16": 0.125}
 MIN_TOKEN_AGREEMENT = {"float32": 0.99, "bfloat16": 0.95}
 TIMING_WARMUP = 3
 TIMING_REPS = 20
+# cycles the card's spin kernel runs per second: the H100 SXM's top SM clock
+# (1.98 GHz), so a spin asked for s seconds lasts at least s
+SPIN_CYCLES_PER_S = 1.98e9
+# read before every timed call: twice the H100's 50 MB L2
+L2_FLUSH_BYTES = 100 * 2 ** 20
 SLICE_BATCH = 512
 SLICE_CHECK_BATCH = 32
+# the tiny preset's check on the card (phase 4b)
+TINY_BATCH = 8
 RATE_BATCHES = 5
 # training kernels against their plain versions on the same inputs and
 # mask.  f32: summation order only (forward ~1e-6, gradients sum up to 30
@@ -197,21 +217,48 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+_L2_FLUSH = []
+
+
+def _l2_flush(torch):
+    """A device buffer of L2_FLUSH_BYTES, made once; reading it evicts what
+    the last call left in the card's L2 (reads leave clean lines, so the
+    next call writes nothing back)."""
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.ones(L2_FLUSH_BYTES // 4, device="cuda"))
+    return _L2_FLUSH[0]
+
+
 def cuda_ms(torch, fn) -> float:
-    """Median CUDA-event time of fn() in ms, after a warm-up."""
+    """Device time of fn() in ms from a cold L2: CUDA events around each of
+    TIMING_REPS calls, each after a read of L2_FLUSH_BYTES that evicts
+    what the last call left in L2, averaged over the calls, after a
+    warm-up.  Operands of some tens of MB would otherwise stay in the 50 MB
+    L2 between calls and read faster than the HBM rate the bounds assume.
+    The calls are queued behind a spin kernel (``torch.cuda._sleep``) that
+    outlasts the host's time to queue them, so the card runs them back to
+    back and the events see the card's time, not the wrappers' Python
+    (which, at some 0.03 ms a call, is longer than a small kernel)."""
+    flush = _l2_flush(torch)
     for _ in range(TIMING_WARMUP):
         fn()
     torch.cuda.synchronize()
-    events = []
+    t0 = time.perf_counter()
     for _ in range(TIMING_REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        flush.sum()
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(TIMING_REPS)]
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * (2 * host_s + 1e-3)))
+    for start, end in events:
+        flush.sum()
         start.record()
         fn()
         end.record()
-        events.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    return sum(a.elapsed_time(b) for a, b in events) / TIMING_REPS
 
 
 def bound(n_bytes: float, n_ops: float, ops_rate: float):
@@ -230,7 +277,7 @@ def library_time(torch, fn, call: str):
 
 
 def sdpa_args(torch, q, k, v, H, bias):
-    """q, k, v (B, T, H*64) as sdpa's (B, H, T, 64) views, and the additive
+    """q, k, v (B, T, H*d) as sdpa's (B, H, T, d) views, and the additive
     bias as its float mask."""
     def heads(t):
         return t.view(t.shape[0], t.shape[1], H, -1).transpose(1, 2)
@@ -273,12 +320,48 @@ def phase_build():
           f" {target.name} with {' '.join(_build.NVCC_FLAGS)})")
     log = target.with_suffix(".log")
     if log.exists():
-        for line in log.read_text().splitlines():
+        text = log.read_text()
+        for line in text.splitlines():
             if "Used" in line or ("spill" in line
                                   and "0 bytes spill stores, 0 bytes spill loads"
                                   not in line):
                 print(f"  ptxas: {line.strip()}")
+        # K1/K12's tensor-core body and K3/K4's bodies, one instantiation
+        # per head width (and dtype)
+        for kernel, pattern, n in (
+                ("small_mha_mma_kernel (K1/K12 bf16)",
+                 r"small_mha_mma_kernelILi(\d+)E()", 4),
+                ("dropout_attention_fwd_kernel (K3)",
+                 r"dropout_attention_fwd_kernelI(\w+?)Li(\d+)E", 8),
+                ("dropout_attention_bwd_kernel (K4)",
+                 r"dropout_attention_bwd_kernelI(\w+?)Li(\d+)E", 8)):
+            found = ptxas_report(text, pattern)
+            check(len(found) == n, f"ptxas report of {kernel}: {sorted(found)}")
+            for key, (used, spill) in sorted(found.items()):
+                print(f"phase 2 {kernel} <{', '.join(filter(None, key))}>: "
+                      f"{used}; {spill}")
+                check("0 bytes spill stores, 0 bytes spill loads" in spill,
+                      f"{kernel} <{key}> spills: {spill}")
     return seconds
+
+
+def ptxas_report(text: str, pattern: str) -> dict:
+    """{the groups of ``pattern`` in a kernel's mangled name: (its ptxas
+    "Used ..." line, its spill line)} from nvcc's -Xptxas -v output."""
+    import re
+    out, key, spill = {}, None, ""
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: |$)",
+                      line)
+        if m:
+            found = re.search(pattern, m.group(1))
+            key = found.groups() if found else None
+        elif key is not None and "spill" in line:
+            spill = line.strip()
+        elif key is not None and "Used" in line:
+            out[key] = (line.split(":", 1)[-1].strip(), spill)
+            key = None
+    return out
 
 
 def phase_kernels(torch, dev):
@@ -317,25 +400,38 @@ def phase_kernels(torch, dev):
     long_pad = ops.mask_to_bias(
         torch.arange(150, device=dev)[None, None, :]
         >= torch.randint(1, 151, (64, 1, 1), generator=g, device=dev), 17, 150)
-    cases = [  # (name, B, Tq, Tk, bias): the recognize path's shapes, H=8
-        ("encoder (512,30,512)", SLICE_BATCH, 30, 30, None),
-        ("decoder self (1024,17,512) causal", 2 * SLICE_BATCH, 17, 17, causal),
-        ("cross (1024,17)x(1024,30)", 2 * SLICE_BATCH, 17, 30, None),
+    cases = [  # (name, B, Tq, Tk, bias, d): the recognize path's shapes, H=8
+        ("encoder (512,30,512)", SLICE_BATCH, 30, 30, None, 64),
+        ("decoder self (1024,17,512) causal", 2 * SLICE_BATCH, 17, 17, causal, 64),
+        ("cross (1024,17)x(1024,30)", 2 * SLICE_BATCH, 17, 30, None, 64),
         # the unidirectional cached decode: one query token per step
-        ("cached cross (512,1)x(512,30)", SLICE_BATCH, 1, 30, None),
-        ("per-batch bias (1024,17,17)", 2 * SLICE_BATCH, 17, 17, key_pad),
-        ("masked row", 2 * SLICE_BATCH, 17, 17, masked_row),
-        # off the path: the multi-chunk key loop (any Tk)
-        ("extra: Tk=150", 64, 17, 150, None),
-        ("extra: Tk=150 per-batch bias", 64, 17, 150, long_pad),
+        ("cached cross (512,1)x(512,30)", SLICE_BATCH, 1, 30, None, 64),
+        ("per-batch bias (1024,17,17)", 2 * SLICE_BATCH, 17, 17, key_pad, 64),
+        ("masked row", 2 * SLICE_BATCH, 17, 17, masked_row, 64),
+        # off the path: the multi-tile key loop (any Tk)
+        ("extra: Tk=150", 64, 17, 150, None, 64),
+        ("extra: Tk=150 per-batch bias", 64, 17, 150, long_pad, 64),
+        # the other head widths the kernel is built for (cli --d_model /
+        # --n_head; the tiny presets' d_k = 16), at the encoder's and the
+        # decoder's shapes
+        ("d=16 encoder (512,30,8x16)", SLICE_BATCH, 30, 30, None, 16),
+        ("d=16 decoder self (1024,17,8x16) causal", 2 * SLICE_BATCH, 17, 17,
+         causal, 16),
+        ("d=32 encoder (512,30,8x32)", SLICE_BATCH, 30, 30, None, 32),
+        ("d=32 cached cross (512,1)x(512,30)", SLICE_BATCH, 1, 30, None, 32),
+        ("d=128 encoder (512,30,8x128)", SLICE_BATCH, 30, 30, None, 128),
+        ("d=128 decoder self (1024,17,8x128) causal", 2 * SLICE_BATCH, 17, 17,
+         causal, 128),
+        ("extra: d=128 Tk=150 per-batch bias", 64, 17, 150, long_pad, 128),
+        ("extra: d=16 Tq=Tk=70", 64, 70, 70, None, 16),
     ]
     H = 8
     for dt in (torch.float32, torch.bfloat16):
         name_dt = str(dt).split(".")[-1]
-        for name, B, Tq, Tk, bias in cases:
-            q = torch.randn((B, Tq, H * 64), generator=g, device=dev, dtype=dt)
-            k = torch.randn((B, Tk, H * 64), generator=g, device=dev, dtype=dt)
-            v = torch.randn((B, Tk, H * 64), generator=g, device=dev, dtype=dt)
+        for name, B, Tq, Tk, bias, d in cases:
+            q = torch.randn((B, Tq, H * d), generator=g, device=dev, dtype=dt)
+            k = torch.randn((B, Tk, H * d), generator=g, device=dev, dtype=dt)
+            v = torch.randn((B, Tk, H * d), generator=g, device=dev, dtype=dt)
             got = ops.small_mha_flat(q, k, v, H, bias=bias)
             want = ops.small_mha_flat_plain(q, k, v, H, bias=bias)
             err = (got.float() - want.float()).abs().max().item()
@@ -348,11 +444,11 @@ def phase_kernels(torch, dev):
             lib_ms, lib_call = library_time(
                 torch, lambda: F.scaled_dot_product_attention(
                     sq, sk, sv, attn_mask=mask),
-                "F.scaled_dot_product_attention on (B,H,T,64) views")
-            bound_ms, bound_by = attention_bound(B, Tq, Tk, H, 64,
+                "F.scaled_dot_product_attention on (B,H,T,d) views")
+            bound_ms, bound_by = attention_bound(B, Tq, Tk, H, d,
                                                  q.element_size(), bias, 2)
             results["small_mha_flat"].append(dict(
-                case=name, dtype=name_dt, max_abs_err=err, ms=ms,
+                case=name, dtype=name_dt, d=d, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=lib_ms, library_call=lib_call))
     for kernel, rows in results.items():
@@ -498,6 +594,63 @@ def phase_train_kernels(torch, dev):
               f"bit-exact, {r['mask_ms']:.4f} ms (plain {r['mask_plain_ms']:.4f}, "
               f"bound {r['mask_bound'][0]:.4f}); "
               f"K3 rate 0 vs K1 err {r['rate0_vs_k1_err']:.3g}")
+
+    # the other head widths K3/K4 are built for (the tiny presets' d_k = 16;
+    # cli --d_model / --n_head), at the train step's shapes, and lengths
+    # past one tile of 32 keys, up to the shared memory's edge at d = 128
+    long_causal = ops.mask_to_bias(
+        torch.ones(70, 70, dtype=torch.bool, device=dev).triu(1)[None], 70, 70)
+    long_pad = ops.mask_to_bias(
+        torch.arange(150, device=dev)[None, None, :]
+        >= torch.randint(1, 151, (64, 1, 1), generator=g, device=dev), 17, 150)
+    extras = [  # (name, rows, Tq, Tk, bias, d), H=8
+        ("d=16 encoder (240,30,8x16)", B, 30, 30, None, 16),
+        ("d=16 decoder self (480,17,8x16) causal", 2 * B, L, L, causal, 16),
+        ("d=32 cross (480,17)x(480,30)", 2 * B, L, 30, None, 32),
+        ("d=128 encoder (240,30,8x128)", B, 30, 30, None, 128),
+        ("d=128 decoder self (480,17,8x128) causal", 2 * B, L, L, causal, 128),
+        ("extra: d=64 Tq=Tk=70 causal", 64, 70, 70, long_causal, 64),
+        ("extra: d=16 Tq=17 Tk=150 per-batch bias", 64, L, 150, long_pad, 16),
+        ("extra: d=128 Tq=Tk=84 (shared memory's edge)", 32, 84, 84, None, 128),
+    ]
+    for dt in (torch.float32, torch.bfloat16):
+        name_dt = str(dt).split(".")[-1]
+        for case, N, Tq, Tk, bias, d in extras:
+            seed = 2000 + N * Tq + Tk + d
+            q = torch.randn((N, Tq, H * d), generator=g, device=dev, dtype=dt)
+            k = torch.randn((N, Tk, H * d), generator=g, device=dev, dtype=dt)
+            v = torch.randn((N, Tk, H * d), generator=g, device=dev, dtype=dt)
+            dout = torch.randn((N, Tq, H * d), generator=g, device=dev, dtype=dt)
+            keep = ops.dropout_keep_mask_flat_plain(N, Tq, Tk, H, seed,
+                                                    DROPOUT_RATE, dev)
+            args = (q, k, v, H, bias, seed, DROPOUT_RATE, None)
+            fwd_err, ok = _train_close(ops.small_mha_dropout_fwd_flat(*args),
+                                       ops.small_mha_dropout_flat_plain(*args, keep=keep),
+                                       "fwd")
+            check(ok, f"K3 {case} {name_dt}: max abs err {fwd_err}")
+            bwd_err = 0.0
+            for which, a, b in zip("qkv", ops.small_mha_dropout_bwd_flat(*args, dout),
+                                   ops.small_mha_dropout_bwd_flat_plain(
+                                       *args, dout, keep=keep)):
+                err, ok = _train_close(a, b, "grad")
+                check(ok and bool(torch.isfinite(a).all()),
+                      f"K4 {case} {name_dt} d{which}: max abs err {err}")
+                bwd_err = max(bwd_err, err)
+            itemsize = q.element_size()
+            fwd_bound = attention_bound(N, Tq, Tk, H, d, itemsize, bias, 2)[0]
+            bwd_bound = bound(
+                attention_bound(N, Tq, Tk, H, d, itemsize, bias, 0)[0]
+                * HBM_BYTES_S / 1e3 + (N * Tq + 2 * N * Tk) * H * d * itemsize,
+                5 * 2.0 * N * H * Tq * Tk * d, BF16_FLOPS)[0]
+            fwd_ms = cuda_ms(torch, lambda: ops.small_mha_dropout_fwd_flat(*args))
+            fwd_plain = cuda_ms(torch, lambda: ops.small_mha_dropout_flat_plain(*args))
+            bwd_ms = cuda_ms(torch, lambda: ops.small_mha_dropout_bwd_flat(*args, dout))
+            bwd_plain = cuda_ms(torch, lambda: ops.small_mha_dropout_bwd_flat_plain(
+                *args, dout))
+            print(f"phase 3b {case} {name_dt}: K3 err {fwd_err:.3g}, {fwd_ms:.4f} ms "
+                  f"(plain {fwd_plain:.4f}, bound {fwd_bound:.4f}); K4 err "
+                  f"{bwd_err:.3g}, {bwd_ms:.4f} ms (plain {bwd_plain:.4f}, bound "
+                  f"{bwd_bound:.4f})")
 
     # max-pool tie gradients: the card's backward against the CPU's on a
     # post-ReLU bf16 input of small integers, full of ties (zeros and equal
@@ -928,6 +1081,93 @@ def _cli_train(torch, cli, ops, argv):
     return tr, out, ops.launch_counts(), time.perf_counter() - t0
 
 
+def phase_tiny(torch, np, dev):
+    """The tiny preset (``config.tiny_test("sbl")``: d_k = 16, as any `cli
+    --d_model/--n_head` choice with d != 64) through recognize and one train
+    step on the card, its kernels built for d = 16.  Recognize launches K1
+    (and K11 with the fused decoder layer) as expected_launches counts and
+    agrees with the plain path (f32 and bf16; f32 also fused); the train
+    step launches K2, K3 and K4 as steps.expected_launches counts and
+    equals the plain path's step."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.data import SyntheticLipDataset
+    from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
+    from sbl_for_multilingual_lip_reading_tpu_torch.recognize import (
+        expected_launches, recognize_batch)
+    from sbl_for_multilingual_lip_reading_tpu_torch.training import steps
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.schedule import (
+        make_optimizer)
+
+    cfg = C.tiny_test("sbl")
+    T, raw, crop = cfg.data.frames, cfg.data.raw_size, cfg.data.crop_size
+    clips = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, size=(TINY_BATCH, T, raw, raw), dtype=np.uint8)).to(dev)
+    out = {}
+    for dtype, fused in (("float32", False), ("bfloat16", False), ("float32", True)):
+        runs = []
+        for kernels in (True, False):
+            c = dataclasses.replace(cfg, compute_dtype=dtype,
+                                    use_pallas_attention=kernels,
+                                    use_fused_decoder_layer=fused)
+            model = build_model(c, dev, seed=0)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            runs.append(recognize_batch(model, clips, crop))
+            torch.cuda.synchronize()
+            if kernels:
+                launches, want = ops.launch_counts(), expected_launches(c)
+            del model
+        kern, plain = runs
+        first = max((a[:, 0] - b[:, 0]).abs().max().item() for a, b in (
+            (kern.logits_l2r, plain.logits_l2r), (kern.logits_r2l, plain.logits_r2l)))
+        agree = torch.cat([(kern.ys_l2r == plain.ys_l2r)[:, 1:],
+                           (kern.ys_r2l == plain.ys_r2l)[:, 1:]]).float().mean().item()
+        label = f"phase 4b tiny sbl {dtype}{' fused layer' if fused else ''}"
+        print(f"{label} B={TINY_BATCH} recognize: K1 launches "
+              f"{launches['small_mha_flat']}, K11 {launches['fused_decoder_layer']} "
+              f"(expected {want['small_mha_flat']}, {want['fused_decoder_layer']}); "
+              f"kernel vs plain path first-step logits {first:.3g} (tol "
+              f"{LOGIT_TOL[dtype]}), token agreement {agree:.4f}")
+        check(launches == want, f"{label}: launches {launches} != {want}")
+        check(launches["small_mha_flat"] > 0, f"{label}: K1 not launched")
+        out[f"{label} K1"] = launches["small_mha_flat"]
+        check(first <= LOGIT_TOL[dtype], f"{label}: logits differ by {first}")
+        check(agree >= MIN_TOKEN_AGREEMENT[dtype], f"{label}: tokens agree {agree}")
+
+    # one train step: K2, K3 and K4 on the card
+    data = SyntheticLipDataset(size=TINY_BATCH, frames=T, raw_size=raw, seed=0)
+    batch = train_batch(torch, np, dev, cfg, data, TINY_BATCH, 1)
+    runs = []
+    for kernels in (True, False):
+        c = dataclasses.replace(cfg, use_pallas_attention=kernels)
+        model = build_model(c, dev, seed=0)
+        step = steps.make_train_step(model, make_optimizer(model, c.optim), c)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        loss = step(batch, torch.Generator().manual_seed(5))["loss"].item()
+        torch.cuda.synchronize()
+        runs.append((loss, ops.launch_counts(),
+                     {n: p.grad.detach().clone() for n, p in model.named_parameters()}))
+        del model, step
+    (lk, launches, gk), (lp, _, gp) = runs
+    want = steps.expected_launches(cfg)
+    fwd, bwd = "small_mha_dropout_fwd_flat", "small_mha_dropout_bwd_flat"
+    errs = _grad_errors(gk, gp)
+    print(f"phase 4b tiny sbl float32 B={TINY_BATCH} train step: launches K2 "
+          f"{launches['stack_frames']}, K3 {launches[fwd]}, K4 {launches[bwd]} "
+          f"(expected {want['stack_frames']}, {want[fwd]}, {want[bwd]}); loss "
+          f"{lk:.6f} vs plain path {lp:.6f}, gradient rel err max "
+          f"{max(errs.values()):.3g}")
+    check(launches == want, f"tiny train step launches {launches} != {want}")
+    check(launches[fwd] > 0 and launches[bwd] > 0, "tiny train step: K3/K4 not launched")
+    check(np.isfinite(lk) and abs(lk - lp) <= TRAIN_LOSS_TOL["float32"],
+          f"tiny train step losses {lk} vs {lp}")
+    check(max(errs.values()) <= TRAIN_GRAD_TOL["float32"], "tiny gradients differ")
+    out["train step K3"], out["train step K4"] = launches[fwd], launches[bwd]
+    return out
+
+
 def phase_train(torch, np, dev):
     """The train slice: kernel path vs plain path, then the B=240 bf16 step
     through the entry point, then its timing."""
@@ -1226,13 +1466,17 @@ def phase_entry(torch, np, dev):
     return launches, dict(seconds=seconds, turns=turns, loss=out["train_loss"])
 
 
-def _layer_for_check(torch, dev, dtype, seed):
+def _layer_for_check(torch, dev, dtype, seed, n_head=None):
     """A full-width ``_SBLLayer`` with seeded weights and non-trivial
-    biases and LayerNorm vectors (their init is zeros and ones)."""
+    biases and LayerNorm vectors (their init is zeros and ones); with
+    ``n_head``, that many heads of width d_model / n_head."""
     from sbl_for_multilingual_lip_reading_tpu_torch import config as C
     from sbl_for_multilingual_lip_reading_tpu_torch.models import init_weights
     from sbl_for_multilingual_lip_reading_tpu_torch.models.decoder_sbl import _SBLLayer
     d = C.sbl().dims
+    if n_head is not None:
+        d = dataclasses.replace(d, n_head=n_head, d_k=d.d_model // n_head,
+                                d_v=d.d_model // n_head)
     layer = _SBLLayer(d.d_model, d.n_head, d.d_k, d.d_v, d.d_inner, dtype, True,
                       d.dropout, use_fused_layer=True)
     g = torch.Generator().manual_seed(seed)
@@ -1432,6 +1676,28 @@ def phase_eval_kernels(torch, np, dev, frames=RESBLOCK_FRAMES, batch=SLICE_BATCH
             del x, ck, cv
         del layer
         torch.cuda.empty_cache()
+    # a head width above the GEMM tile's 64 columns (d_k = 128, 4 heads):
+    # the head projections run in two column tiles
+    for dt in (torch.float32, torch.bfloat16):
+        name_dt = str(dt).split(".")[-1]
+        layer, d = _layer_for_check(torch, dev, dt, 12, n_head=4)
+        L = 17
+        x = torch.randn((2, 64, L, d.d_model), generator=g, device=dev).to(dt)
+        ck = torch.randn((2, 64, Tk, d.d_model), generator=g, device=dev).to(dt)
+        causal = ops.mask_to_bias(
+            torch.ones(L, L, dtype=torch.bool, device=dev).triu(1)[None], L, L)[0]
+        with torch.inference_mode():
+            args = (x, *layer_params_to_args(layer), ck, ck.flip(-1).contiguous(),
+                    d.n_head)
+            got = ops.fused_decoder_layer(*args, mask_bias=causal)
+            want = ops.fused_decoder_layer_plain(*args, mask_bias=causal)
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"phase 3d fused_decoder_layer d_k=128 L={L} causal bias "
+              f"(2,64,{L},{d.d_model}) {name_dt}: max abs err {err:.3g} (tol "
+              f"{LAYER_TOL[name_dt]})")
+        check(err <= LAYER_TOL[name_dt] and bool(torch.isfinite(got).all()),
+              f"K11 d_k=128 {name_dt}: max abs err {err}")
+        del layer, x, ck, got, want
     for r in k11:
         print(f"phase 3d fused_decoder_layer {r['case']} {r['dtype']}: max abs err "
               f"{r['max_abs_err']:.3g} (tol {LAYER_TOL[r['dtype']]}), vs module path "
@@ -1856,6 +2122,7 @@ def main() -> int:
     ingest, stats = timed("3c", phase_ingest_bn_kernels, torch, np, dev)
     twins = timed("3e", phase_twin_kernels, torch, dev)
     launches, rate = timed("4", phase_slice, torch, np, dev)
+    tiny = timed("4b", phase_tiny, torch, np, dev)
     train_launches, train = timed("5", phase_train, torch, np, dev)
     entry_launches, entry = timed("6", phase_entry, torch, np, dev)
     k9, k10, k11 = timed("3d", phase_eval_kernels, torch, np, dev)
@@ -1998,7 +2265,7 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "card": smi,
                       "recognize_clips_per_s": rate, "train": train,
                       "entry_point": entry, "path_a": path_a, "path_b": path_b,
-                      "path_c": path_c, "path_d": path_d}))
+                      "path_c": path_c, "path_d": path_d, "tiny": tiny}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -24,7 +24,8 @@
 // scores.  Every GEMM streams its weight tiles from L2 through gemm_tile
 // (gemm_tile.cuh); the layer's weights therefore cross L2 once per block,
 // which is why the host picks the largest Bt that fits.  Self-attention runs
-// head by head (the head's three projections, scores, f32 softmax, PV), the
+// head by head (the head's three projections, in column tiles of 64 so that
+// any head width d_k = D / H is taken, then scores, f32 softmax, PV), the
 // cross-attention reads its K/V rows straight from device memory, and the
 // 2048-wide FFN intermediate is produced and consumed in chunks of D columns
 // so that it never exists in full: the w2 partial products accumulate into
@@ -194,12 +195,14 @@ __global__ void __launch_bounds__(sbl::kGemmThreads) decoder_layer_kernel(const 
     const float* bq = vec + BQ * D + h * dk;
     const float* bk = vec + BK * D + h * dk;
     const float* bv = vec + BV * D + h * dk;
-    gemm_tile<T>(ax, R, D, wq + (long long)h * dk * D, (long long)D, dk, 0, 0, stage,
-                 [&](int m, int n, float a) { qb[m * ldq + n] = from_f32<T>(a + bq[n]); });
-    gemm_tile<T>(ax, R, D, wk + (long long)h * dk * D, (long long)D, dk, 0, 0, stage,
-                 [&](int m, int n, float a) { kb[m * ldq + n] = from_f32<T>(a + bk[n]); });
-    gemm_tile<T>(ax, R, D, wv + (long long)h * dk * D, (long long)D, dk, 0, 0, stage,
-                 [&](int m, int n, float a) { vb[m * ldq + n] = from_f32<T>(a + bv[n]); });
+    for (int n0 = 0; n0 < dk; n0 += sbl::kTileN) {
+      gemm_tile<T>(ax, R, D, wq + (long long)h * dk * D, (long long)D, dk, 0, n0, stage,
+                   [&](int m, int n, float a) { qb[m * ldq + n] = from_f32<T>(a + bq[n]); });
+      gemm_tile<T>(ax, R, D, wk + (long long)h * dk * D, (long long)D, dk, 0, n0, stage,
+                   [&](int m, int n, float a) { kb[m * ldq + n] = from_f32<T>(a + bk[n]); });
+      gemm_tile<T>(ax, R, D, wv + (long long)h * dk * D, (long long)D, dk, 0, n0, stage,
+                   [&](int m, int n, float a) { vb[m * ldq + n] = from_f32<T>(a + bv[n]); });
+    }
     __syncthreads();
     for (int i = threadIdx.x; i < R * L; i += blockDim.x) {
       const int m = i / L;
@@ -244,8 +247,9 @@ __global__ void __launch_bounds__(sbl::kGemmThreads) decoder_layer_kernel(const 
     const RowsA<T> a{act1, ldt};
     for (int h = 0; h < H; ++h) {
       const float* bq2 = vec + BQ2 * D + h * dk;
-      gemm_tile<T>(a, R, D, wq2 + (long long)h * dk * D, (long long)D, dk, 0, 0, stage,
-                   [&](int m, int n, float acc) { qb[m * ldq + n] = from_f32<T>(acc + bq2[n]); });
+      for (int n0 = 0; n0 < dk; n0 += sbl::kTileN)
+        gemm_tile<T>(a, R, D, wq2 + (long long)h * dk * D, (long long)D, dk, 0, n0, stage,
+                     [&](int m, int n, float acc) { qb[m * ldq + n] = from_f32<T>(acc + bq2[n]); });
       __syncthreads();
       for (int i = threadIdx.x; i < R * Tk; i += blockDim.x) {
         const int m = i / Tk;
@@ -329,8 +333,8 @@ extern "C" long long sbl_decoder_layer_smem_bytes(int Bt, int L, int D, int dk, 
 }
 
 // Shapes as in LayerArgs; every activation and weight in one dtype (0 =
-// float32, 1 = bfloat16), vecs/b1/bias f32.  Needs Bt * L <= 64, dk <= 64,
-// H * dk == D, DI a multiple of D.  Returns the cudaError_t of the launch.
+// float32, 1 = bfloat16), vecs/b1/bias f32.  Needs Bt * L <= 64, H * dk ==
+// D, DI a multiple of D.  Returns the cudaError_t of the launch.
 extern "C" int sbl_fused_decoder_layer(const void* x, const void* wq, const void* wk,
                                        const void* wv, const void* fc, const void* wq2,
                                        const void* fc2, const void* w1, const void* w2,
@@ -339,7 +343,7 @@ extern "C" int sbl_fused_decoder_layer(const void* x, const void* wq, const void
                                        int B, int L, int D, int H, int dk, int DI, int Tk, int Bt,
                                        float scale, int dtype, int device, void* stream) {
   if (dirs <= 0 || B <= 0 || L <= 0 || Tk <= 0 || Bt <= 0 || Bt * L > sbl::kTileM || dk <= 0 ||
-      dk > sbl::kTileN || H * dk != D || DI <= 0 || DI % D != 0)
+      H * dk != D || DI <= 0 || DI % D != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;

@@ -8,6 +8,8 @@ import torch
 from torch import nn
 
 from ..config import model_kind
+from ..ops.attention import HEAD_DIMS, train_kernels_fit
+from ..ops.decoder_layer import MAX_ROWS, decoder_layer_fits
 from ..utils.device import resolve_device
 from .classify import ClassifyTransformer
 from .decoder_sbl import SBLDecoder
@@ -15,6 +17,41 @@ from .decoder_uni import UniDecoder
 from .encoder import encoder_from_config
 from .frontend import frontend_from_config
 from .sbl import SBLTransformer, UniTransformer
+
+
+def check_kernel_shapes(cfg) -> None:
+    """Raise ValueError where a kernel that ``cfg`` selects does not take the
+    shapes its model gives it, before anything runs on the card.  The
+    attention kernels (``use_pallas_attention``) are built for head widths
+    in HEAD_DIMS, and the training ones (K3/K4) take the longest sequence
+    of the workload (its frames, or the decoder's maxlen + 1 positions)
+    within their shared memory; K11 (``use_fused_decoder_layer``) takes a
+    decode segment of at most MAX_ROWS positions and d_inner a multiple of
+    d_model."""
+    dims, dec = cfg.dims, cfg.decoder
+    if cfg.use_pallas_attention:
+        if dims.d_k not in HEAD_DIMS:
+            raise ValueError(
+                f"d_k={dims.d_k} (d_model {dims.d_model} / n_head "
+                f"{dims.n_head}): the attention kernels are built for head "
+                f"widths {HEAD_DIMS}; choose one of them, or run with "
+                f"use_pallas_attention=False")
+        longest = max([cfg.data.frames] + (
+            [] if dec is None else [dec.maxlen + 1, dec.target_pad_len + 2]))
+        if not train_kernels_fit(dims.d_k, longest, longest):
+            raise ValueError(
+                f"{longest} positions at d_k={dims.d_k}: the training "
+                f"attention kernels stage a head's sequence in shared "
+                f"memory, which does not hold it")
+    if (dec is not None and getattr(cfg, "use_fused_decoder_layer", False)
+            and not decoder_layer_fits(dec.maxlen + 1, dims.d_model,
+                                       dims.d_inner)):
+        raise ValueError(
+            f"use_fused_decoder_layer: {dec.maxlen + 1} positions, d_inner "
+            f"{dims.d_inner}, d_model {dims.d_model}: the fused decoder "
+            f"layer takes at most {MAX_ROWS} positions and d_inner a "
+            f"multiple of d_model")
+
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded init of every parameter, mirroring the JAX initializers (He
@@ -44,9 +81,12 @@ def build_model(cfg, device=None, seed: Optional[int] = None,
     JAX, which no config carries).  A bidirectional decoder config gives an
     ``SBLTransformer``, a unidirectional one a ``UniTransformer``, and the
     ``classify`` workload (no decoder) a ``ClassifyTransformer`` whose
-    language slot is the last frame."""
+    language slot is the last frame.  On the card, a config whose shapes a
+    selected kernel does not take raises (``check_kernel_shapes``)."""
     kind = model_kind(cfg)
     device = resolve_device(device)
+    if device.type == "cuda":
+        check_kernel_shapes(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     kernels = cfg.use_pallas_attention
     dims, d = cfg.dims, cfg.decoder

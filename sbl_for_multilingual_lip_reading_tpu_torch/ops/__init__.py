@@ -10,11 +10,12 @@ from .attention import (MASK_FILL, dropout_keep_mask, dropout_keep_mask_flat,
                         small_mha_dropout_bwd_plain, small_mha_dropout_flat,
                         small_mha_dropout_flat_plain, small_mha_dropout_fwd,
                         small_mha_dropout_fwd_flat, small_mha_dropout_fwd_plain,
-                        small_mha_flat, small_mha_flat_plain)
+                        small_mha_flat, small_mha_flat_plain,
+                        train_kernels_fit)
 from .batchnorm import (bn_train, channel_sums, channel_sums_pair,
                         channel_sums_pair_plain, channel_sums_plain)
-from .decoder_layer import (fused_decoder_layer, fused_decoder_layer_plain,
-                            layer_params_to_args)
+from .decoder_layer import (decoder_layer_fits, fused_decoder_layer,
+                            fused_decoder_layer_plain, layer_params_to_args)
 from .ingest import ingest_train, ingest_train_plain
 from .resblock import fold_bn, fused_resblock, fused_resblock_plain
 from .stem import (stack_frames, stack_frames_plain, stack_frames_u8,

@@ -39,6 +39,13 @@ Each kernel wrapper takes its plain version on a CPU tensor; on a CUDA
 tensor it launches the kernel or raises, and it refuses (never copies) a
 non-contiguous input.  ``<wrapper>.launches`` counts the launches each
 wrapper makes; a twin counts its own, not the flat kernel's.
+
+Head widths.  K1/K12 and K3/K4 are built for d in HEAD_DIMS (a template
+parameter of each kernel).  K1/K12 take any sequence lengths; K3/K4 stage
+a head's operands whole in shared memory, so their lengths are bounded by
+``train_smem_bytes`` (Tq = Tk <= 116 at d = 64).  ``models.build_model``
+refuses a configuration whose shapes these kernels do not take before
+anything runs on the card; a wrapper given such a CUDA tensor raises.
 """
 from __future__ import annotations
 
@@ -55,9 +62,27 @@ from . import _build
 MASK_FILL = -1e9
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 64  # the one head width the kernels are built for (d_k = d_v = 64)
-# the training kernels give each key one lane of a warp
-TRAIN_MAX_T = 32
+# the head widths the attention kernels are built for (a template parameter)
+HEAD_DIMS = (16, 32, 64, 128)
+_TRAIN_WARPS = 4   # warps of a K3/K4 block
+
+
+def train_smem_bytes(tq: int, tk: int, d: int, backward: bool) -> int:
+    """Bytes of shared memory a K3 (``backward`` False) or K4 block takes:
+    the head's f32 rows of stride d + 1 (K and V; in K4 also Q and dO), K4's
+    (Tq, Tk) dS and dropped P, and a row of Tk per warp (csrc/
+    attention_train.cu ``smem_bytes``)."""
+    pad = d + 1
+    if not backward:
+        return 4 * (2 * tk * pad + _TRAIN_WARPS * d + _TRAIN_WARPS * tk)
+    return 4 * ((2 * tq + 2 * tk) * pad + 2 * tq * tk + _TRAIN_WARPS * tk)
+
+
+def train_kernels_fit(d: int, tq: int, tk: int) -> bool:
+    """Whether K3 and K4 take head width d at query/key lengths tq, tk."""
+    return d in HEAD_DIMS and all(
+        train_smem_bytes(tq, tk, d, bwd) <= _build.MAX_SMEM_BYTES
+        for bwd in (False, True))
 
 
 def mask_to_bias(mask: torch.Tensor, tq: int, tk: int) -> torch.Tensor:
@@ -90,9 +115,10 @@ def _check(q, k, v, n_head, bias):
     return B, Tq, Tk, D
 
 
-def _check_cuda(name, tensors, bias, d, max_t=None):
+def _check_cuda(name, tensors, bias, d, train=False):
     """Refuse what a CUDA kernel does not take: tensors[0] is q, whose
-    device and dtype every other operand shares; the bias is f32."""
+    device and dtype every other operand shares, tensors[1] k; the bias is
+    f32.  ``train``: K3/K4, whose lengths ``train_kernels_fit`` bounds."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -106,10 +132,16 @@ def _check_cuda(name, tensors, bias, d, max_t=None):
         raise ValueError(f"{name}: bias must be float32, got {bias.dtype}")
     if not all(t.is_contiguous() for t in every):
         raise ValueError(f"{name}: inputs must be contiguous")
-    if d != HEAD_DIM:
-        raise ValueError(f"{name}: head dim {d}; the kernel takes {HEAD_DIM}")
-    if max_t is not None and max(t.shape[1] for t in tensors) > max_t:
-        raise ValueError(f"{name}: sequence length above {max_t}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d}; the kernel takes {HEAD_DIMS}")
+    if train:   # (B, T, ...) layouts: q's and k's T
+        tq, tk = q.shape[1], tensors[1].shape[1]
+        if not train_kernels_fit(d, tq, tk):
+            raise ValueError(f"{name}: Tq={tq}, Tk={tk} at d={d} need more "
+                             f"shared memory than a block may take")
+    elif q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: bf16 operands must be 16-byte aligned")
 
 
 def _scale(scale, D, n_head):
@@ -152,8 +184,9 @@ def small_mha_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, Tq, H*d), k/v: (B, Tk, H*d); bias: optional additive
     (1|B, Tq, Tk) f32 (broadcast over heads).  Returns (B, Tq, H*d) in q's
-    dtype.  CUDA tensors launch kernel K1 (d = 64; f32 or bf16; all
-    contiguous); CPU tensors take the plain version."""
+    dtype.  CUDA tensors launch kernel K1 (d in HEAD_DIMS; f32 or bf16; all
+    contiguous, bf16 16-byte aligned); CPU tensors take the plain
+    version."""
     if q.device.type == "cpu":
         return small_mha_flat_plain(q, k, v, n_head, bias, scale)
     out = _k1("small_mha_flat", q, k, v, n_head, bias, scale)
@@ -347,9 +380,9 @@ def small_mha_dropout_fwd_flat(q: torch.Tensor, k: torch.Tensor,
                                seed: int = 0, rate: float = 0.0,
                                scale: Optional[float] = None) -> torch.Tensor:
     """K3: flat attention with dropout ``rate`` on its probabilities, the
-    mask drawn from ``seed``.  CUDA tensors (d = 64, Tq and Tk at most 32,
-    f32 or bf16, contiguous) launch the kernel; CPU tensors take the plain
-    version."""
+    mask drawn from ``seed``.  CUDA tensors (``train_kernels_fit``: d in
+    HEAD_DIMS, Tq and Tk within its shared memory; f32 or bf16, contiguous)
+    launch the kernel; CPU tensors take the plain version."""
     _check(q, k, v, n_head, bias)
     _check_seed(seed)
     dropout_threshold(rate)
@@ -370,7 +403,7 @@ def _k3(name, q, k, v, n_head, bias, seed, rate, scale):
     B, Tq, Tk, D = _check(q, k, v, n_head, bias)
     seed = _check_seed(seed)
     thresh, inv_keep, on = _dropout_launch_args(rate)
-    _check_cuda(name, (q, k, v), bias, D // n_head, TRAIN_MAX_T)
+    _check_cuda(name, (q, k, v), bias, D // n_head, train=True)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -418,7 +451,7 @@ def _k4(name, q, k, v, n_head, bias, seed, rate, scale, dout):
         raise ValueError(f"dout {tuple(dout.shape)} does not match q")
     seed = _check_seed(seed)
     thresh, inv_keep, on = _dropout_launch_args(rate)
-    _check_cuda(name, (q, k, v, dout), bias, D // n_head, TRAIN_MAX_T)
+    _check_cuda(name, (q, k, v, dout), bias, D // n_head, train=True)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
@@ -501,10 +534,10 @@ def _unflat(x: torch.Tensor, H: int) -> torch.Tensor:
     return x.view(B, T, H, D // H)
 
 
-def _headed_cuda(name, tensors, bias, max_t=None):
+def _headed_cuda(name, tensors, bias, train=False):
     """Refuse what the flat kernel does not take, on the (B, T, H, d)
     tensors themselves (no copy is made), then return their flat views."""
-    _check_cuda(name, tensors, bias, tensors[0].shape[-1], max_t)
+    _check_cuda(name, tensors, bias, tensors[0].shape[-1], train)
     return [_flat(t) for t in tensors]
 
 
@@ -549,7 +582,7 @@ def small_mha_bwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                   dout: torch.Tensor):
     """JAX ``_small_mha_bwd``: (dq, dk, dv) of ``fused_small_mha`` for the
     output gradient ``dout`` (B, Tq, H, d).  CUDA tensors launch K4 at rate 0
-    on the flat views (T at most TRAIN_MAX_T); CPU tensors take the plain
+    on the flat views (K3/K4's lengths); CPU tensors take the plain
     version."""
     H = _check_headed(qh, kh, vh, bias)
     if dout.shape != qh.shape:
@@ -557,7 +590,7 @@ def small_mha_bwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     if qh.device.type == "cpu":
         return small_mha_bwd_plain(qh, kh, vh, bias, scale, dout)
     q, k, v, g = _headed_cuda("small_mha_bwd", (qh, kh, vh, dout), bias,
-                              TRAIN_MAX_T)
+                              train=True)
     grads = _k4("small_mha_bwd", q, k, v, H, bias, 0, 0.0, scale, g)
     small_mha_bwd.launches += 1
     return tuple(_unflat(x, H) for x in grads)
@@ -589,7 +622,7 @@ def small_mha_dropout_fwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                           bias: Optional[torch.Tensor], seed: int,
                           scale: Optional[float], rate: float) -> torch.Tensor:
     """JAX ``fused_small_mha_dropout_fwd`` (argument order as there): K3 on
-    the flat views for CUDA tensors (T at most TRAIN_MAX_T), the plain
+    the flat views for CUDA tensors (K3/K4's lengths), the plain
     version for CPU tensors.  The mask is the flat kernel's, which does not
     depend on the layout (see ``dropout_keep_mask``)."""
     H = _check_headed(qh, kh, vh, bias)
@@ -598,7 +631,7 @@ def small_mha_dropout_fwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     if qh.device.type == "cpu":
         return small_mha_dropout_fwd_plain(qh, kh, vh, bias, seed, scale, rate)
     q, k, v = _headed_cuda("small_mha_dropout_fwd", (qh, kh, vh), bias,
-                           TRAIN_MAX_T)
+                           train=True)
     out = _k3("small_mha_dropout_fwd", q, k, v, H, bias, seed, rate, scale)
     small_mha_dropout_fwd.launches += 1
     return _unflat(out, H)
@@ -633,7 +666,7 @@ def small_mha_dropout_bwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
         return small_mha_dropout_bwd_plain(qh, kh, vh, bias, seed, scale, rate,
                                            dout)
     q, k, v, g = _headed_cuda("small_mha_dropout_bwd", (qh, kh, vh, dout),
-                              bias, TRAIN_MAX_T)
+                              bias, train=True)
     grads = _k4("small_mha_dropout_bwd", q, k, v, H, bias, seed, rate, scale, g)
     small_mha_dropout_bwd.launches += 1
     return tuple(_unflat(x, H) for x in grads)
@@ -721,8 +754,9 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: Optional[float] = None) -> torch.Tensor:
     """K12 (JAX ``fused_mha``): q (B, H, Tq, d), k/v (B, H, Tk, d), bias an
     optional additive (B, H|1, Tq, Tk) f32, per head or broadcast over the
-    heads -> (B, H, Tq, d).  CUDA tensors (d = 64; f32 or bf16; all contiguous)
-    launch the kernel, any Tk; CPU tensors take the plain version."""
+    heads -> (B, H, Tq, d).  CUDA tensors (d in HEAD_DIMS; f32
+    or bf16; all contiguous, bf16 16-byte aligned) launch the kernel, any
+    Tk; CPU tensors take the plain version."""
     B, H, Tq, Tk, d = _check_head_major(q, k, v, bias)
     if q.device.type == "cpu":
         return fused_mha_plain(q, k, v, bias, scale)

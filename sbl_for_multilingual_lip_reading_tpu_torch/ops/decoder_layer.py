@@ -159,6 +159,12 @@ def fused_decoder_layer_plain(x, wq, bq, wk, bk, wv, bv, fc_w, fc_b, ln1_s,
     return h3.to(cdt)
 
 
+def decoder_layer_fits(L: int, D: int, DI: int) -> bool:
+    """Whether K11 takes a segment of L positions at model width D and FFN
+    width DI (any head width d_k = D / n_head)."""
+    return L <= MAX_ROWS and DI % D == 0
+
+
 def pick_tile(lib, B: int, L: int, D: int, dk: int, Tk: int, elem: int) -> int:
     """Samples per thread block: the most whose rows (at most MAX_ROWS) and
     buffers fit the block's shared memory."""
@@ -199,10 +205,10 @@ def fused_decoder_layer(x, wq, bq, wk, bk, wv, bv, fc_w, fc_b, ln1_s, ln1_b,
         raise ValueError(f"fused_decoder_layer: unsupported device {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"fused_decoder_layer: dtype {x.dtype} not supported")
-    if L > MAX_ROWS or dk > MAX_ROWS or DI % D:
-        raise ValueError(f"fused_decoder_layer: L={L}, d_k={dk}, d_inner={DI} "
-                         f"outside what the kernel takes (L, d_k <= {MAX_ROWS}; "
-                         f"d_inner a multiple of d_model)")
+    if not decoder_layer_fits(L, D, DI):
+        raise ValueError(f"fused_decoder_layer: L={L}, d_inner={DI} outside "
+                         f"what the kernel takes (L <= {MAX_ROWS}; d_inner a "
+                         f"multiple of d_model)")
     if not all(t.is_contiguous() for t in (x, ck, cv) + weights):
         raise ValueError("fused_decoder_layer: x, ck, cv and the weights must "
                          "be contiguous")

@@ -127,6 +127,22 @@ def test_fused_mha_matches_jax(bias_kind):
         np.testing.assert_allclose(got[:, :, 0].numpy(), v[:, :, 0], atol=FWD_ATOL)
 
 
+@pytest.mark.parametrize("d", [16, 128])
+def test_fused_mha_head_widths_match_jax(d):
+    """K12's plain version against JAX's ``fused_mha`` at the narrowest and
+    the widest head the kernel is built for, with a per-head bias and
+    cross-attention lengths."""
+    rng = np.random.default_rng(d)
+    B, H, Tq, Tk = 2, 2, 5, 9
+    q, k, v = (_normal(rng, B, H, T, d) for T in (Tq, Tk, Tk))
+    bias = _normal(rng, B, H, Tq, Tk)
+    with jax.default_matmul_precision("highest"):
+        want = jax_attention.fused_mha(*map(jnp.asarray, (q, k, v)),
+                                       bias=jnp.asarray(bias), interpret=True)
+    got = ops.fused_mha(*_t(q, k, v, bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=FWD_ATOL)
+
+
 def test_fused_mha_cross_attention_lengths_match_jax():
     rng = np.random.default_rng(2)
     q, k, v = _normal(rng, 1, 2, 5, 16), _normal(rng, 1, 2, 9, 16), \
@@ -218,8 +234,8 @@ def fake_launch(monkeypatch):
     monkeypatch.setattr(attention._build, "library", lambda: lib)
     monkeypatch.setattr(attention, "_stream", lambda device: 0)
     monkeypatch.setattr(attention, "_check_cuda",
-                        lambda name, tensors, bias, d, max_t=None:
-                        checked.append((name, tensors, d, max_t)))
+                        lambda name, tensors, bias, d, train=False:
+                        checked.append((name, tensors, d, train)))
     ops.reset_launch_counts()
     yield lib, checked
     ops.reset_launch_counts()
@@ -241,7 +257,8 @@ def test_twins_launch_the_flat_kernels_on_views(fake_launch):
     # K4 at rate 0: threshold 0, nothing drawn (on = 0)
     assert name == "sbl_small_mha_dropout_bwd_flat"
     assert args[8:14] == (B, Tk, Tk, H, d, 0) and args[16] == 0 and args[18] == 0
-    assert checked[-1][3] == attention.TRAIN_MAX_T
+    # checked against the training kernels' shapes (K3/K4's lengths)
+    assert checked[-1][3] is True
 
     attention.small_mha_dropout_fwd(kv, kv, kv, None, 5, None, 0.1)
     name, args = lib.calls[-1]

@@ -1,0 +1,243 @@
+"""Which shapes the port's kernels take, the configuration check that
+refuses the others before anything runs on the card, and whether the
+ctypes signatures match the CUDA sources.
+
+The attention kernels (K1/K12, K3/K4) are built for head widths
+``HEAD_DIMS``; K3/K4 bound their lengths by the shared memory a block
+takes (``train_smem_bytes``), K11 its segment length and FFN width
+(``decoder_layer_fits``).  ``models.check_kernel_shapes`` holds a config to
+them, and ``build_model`` calls it for the card.  The model's attention
+then launches the kernels for every shape it gives them: it is driven here
+with meta tensors, whose device is neither the CPU nor a card, through the
+wrappers' card branch, with a stand-in library that records the launches.
+The card itself runs the tiny preset (d_k = 16) through recognize and a
+train step in ``chip_smoke.py`` phase 4b.
+
+The ctypes argument lists in ``ops/_build.py`` must match the ``extern
+"C"`` declarations of ``csrc/*.cu`` one for one: a mismatch (a pointer
+passed as an int, a missing argument) would otherwise show only on the
+card.
+"""
+import ctypes
+import dataclasses
+import re
+
+import pytest
+import torch
+
+from sbl_for_multilingual_lip_reading_tpu_torch import config as port_config
+from sbl_for_multilingual_lip_reading_tpu_torch import models, ops
+from sbl_for_multilingual_lip_reading_tpu_torch.models import layers
+from sbl_for_multilingual_lip_reading_tpu_torch.models.layers import DropoutRNG
+from sbl_for_multilingual_lip_reading_tpu_torch.ops import _build, attention
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def test_attention_head_widths():
+    assert attention.HEAD_DIMS == (16, 32, 64, 128)
+
+
+@pytest.mark.parametrize("d,tq,tk,fits", [
+    (16, 9, 30, True), (64, 17, 30, True), (64, 31, 31, True),
+    (64, 1, 1, True), (32, 40, 70, True), (128, 30, 30, True),
+    # the longest equal lengths each width takes in 227 KB
+    (16, 153, 153, True), (16, 154, 154, False), (32, 139, 139, True),
+    (32, 140, 140, False), (64, 116, 116, True), (64, 117, 117, False),
+    (128, 84, 84, True), (128, 85, 85, False),
+    # widths the kernels are not built for
+    (8, 9, 9, False), (48, 17, 17, False), (256, 4, 4, False)])
+def test_train_kernels_fit_head_widths_and_lengths(d, tq, tk, fits):
+    """K3/K4: d in HEAD_DIMS, and both kernels' shared memory within the
+    227 KB a block may take."""
+    assert ops.train_kernels_fit(d, tq, tk) is fits
+
+
+def test_train_smem_bytes_counts_the_staged_buffers():
+    """K4 at Tq = Tk = 32, d = 64: Q, dO, K, V as f32 rows of 65, dS and
+    the dropped P (32 x 32 each) and a row of 32 per warp; K3: K, V, a
+    query row and a probability row per warp."""
+    assert attention.train_smem_bytes(32, 32, 64, True) == 4 * (
+        4 * 32 * 65 + 2 * 32 * 32 + 4 * 32)
+    assert attention.train_smem_bytes(32, 32, 64, False) == 4 * (
+        2 * 32 * 65 + 4 * 64 + 4 * 32)
+    # one query row (the cached cross-attention's shape): the forward's
+    # per-warp query rows outweigh the backward's one Q and dO row
+    assert (attention.train_smem_bytes(1, 30, 128, False)
+            > attention.train_smem_bytes(1, 30, 128, True))
+
+
+@pytest.mark.parametrize("L,D,DI,fits", [
+    (17, 512, 2048, True), (9, 64, 128, True), (64, 512, 2048, True),
+    (65, 512, 2048, False), (17, 1024, 4096, True), (17, 512, 700, False)])
+def test_decoder_layer_fits_segment_and_ffn(L, D, DI, fits):
+    """K11: a segment of at most 64 positions, d_inner a multiple of
+    d_model, any head width."""
+    assert ops.decoder_layer_fits(L, D, DI) is fits
+
+
+@pytest.mark.parametrize("preset", sorted(port_config.PRESETS))
+@pytest.mark.parametrize("fused", [False, True])
+def test_every_preset_passes_the_kernel_shape_check(preset, fused):
+    cfg = dataclasses.replace(port_config.PRESETS[preset](),
+                              use_fused_decoder_layer=fused)
+    models.check_kernel_shapes(cfg)
+
+
+@pytest.mark.parametrize("name", ["sbl", "lrw", "lrw1000", "classify"])
+def test_tiny_presets_pass_the_kernel_shape_check(name):
+    """The tiny presets' d_k = 16 is a width the kernels are built for."""
+    cfg = port_config.tiny_test(name)
+    assert cfg.dims.d_k == 16
+    models.check_kernel_shapes(dataclasses.replace(cfg, use_fused_decoder_layer=True))
+
+
+def _dims(cfg, **kw):
+    return dataclasses.replace(cfg, dims=dataclasses.replace(cfg.dims, **kw))
+
+
+@pytest.mark.parametrize("change,match", [
+    (lambda c: _dims(c, d_model=64, n_head=8, d_k=8, d_v=8), "head widths"),
+    (lambda c: _dims(c, d_model=96, n_head=2, d_k=48, d_v=48), "head widths"),
+    (lambda c: dataclasses.replace(
+        c, data=dataclasses.replace(c.data, frames=200)), "shared memory"),
+    (lambda c: dataclasses.replace(
+        c, use_fused_decoder_layer=True,
+        decoder=dataclasses.replace(c.decoder, maxlen=70)), "at most 64"),
+    (lambda c: dataclasses.replace(c, use_fused_decoder_layer=True,
+                                   dims=dataclasses.replace(c.dims, d_inner=100)),
+     "multiple of d_model")])
+def test_the_kernel_shape_check_refuses_what_no_kernel_takes(change, match):
+    with pytest.raises(ValueError, match=match):
+        models.check_kernel_shapes(change(port_config.tiny_test("sbl")))
+
+
+def test_the_kernel_shape_check_leaves_the_plain_path_alone():
+    """With the attention kernels off, any head width runs (their plain
+    versions), on the card as on the CPU."""
+    cfg = _dims(port_config.tiny_test("sbl"), d_model=64, n_head=8, d_k=8, d_v=8)
+    models.check_kernel_shapes(dataclasses.replace(cfg, use_pallas_attention=False))
+    # on the CPU the config is not checked: the wrappers take their plain versions
+    models.build_model(cfg, "cpu")
+
+
+class _FakeLibrary:
+    """Stands in for the kernel library: records each entry point's
+    arguments and reports a clean launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.fixture
+def meta_as_card(monkeypatch):
+    """Meta tensors through the wrappers' card branch: the device check
+    records the head width and whether the shapes fit, and the library
+    records the launches."""
+    lib, checked = _FakeLibrary(), []
+
+    def check(name, tensors, bias, d, train=False):
+        fit = (d in attention.HEAD_DIMS and not train) or attention.train_kernels_fit(
+            d, tensors[0].shape[1], tensors[1].shape[1])
+        checked.append((name, d, train, fit))
+    monkeypatch.setattr(attention._build, "library", lambda: lib)
+    monkeypatch.setattr(attention, "_stream", lambda device: 0)
+    monkeypatch.setattr(attention, "_check_cuda", check)
+    ops.reset_launch_counts()
+    yield lib, checked
+    ops.reset_launch_counts()
+
+
+def test_attend_launches_the_kernels_at_the_tiny_preset(meta_as_card):
+    """At the tiny preset's d_k = 16 the deterministic attention launches K1
+    and the training attention K3 forward and K4 backward, each counted
+    once, at d = 16."""
+    lib, checked = meta_as_card
+    cfg = port_config.tiny_test("sbl")
+    H, d = cfg.dims.n_head, cfg.dims.d_k
+    # the decoder's (dirs, B, L, H*d) projections, both directions per call
+    q = torch.zeros((2, 3, 9, H * d), device="meta")
+    causal = torch.zeros((1, 9, 9), device="meta")
+    out = layers.attend(q, q, q, H, causal, d ** -0.5, use_kernels=True)
+    assert out.shape == q.shape
+    assert lib.calls[-1][0] == "sbl_small_mha_flat"
+    assert lib.calls[-1][1][5:10] == (6, 9, 9, H, d)
+    assert ops.launch_counts()["small_mha_flat"] == 1
+
+    leaf = torch.zeros((6, 9, H * d), device="meta", requires_grad=True)
+    out = layers.attend(leaf, leaf, leaf, H, causal, d ** -0.5, use_kernels=True,
+                        rate=0.1, rng=DropoutRNG(0, "cpu"))
+    assert out.shape == leaf.shape
+    assert lib.calls[-1][0] == "sbl_small_mha_dropout_fwd_flat"
+    assert lib.calls[-1][1][5:10] == (6, 9, 9, H, d)
+    out.sum().backward()
+    assert lib.calls[-1][0] == "sbl_small_mha_dropout_bwd_flat"
+    assert lib.calls[-1][1][8:13] == (6, 9, 9, H, d)
+    counts = ops.launch_counts()
+    assert counts["small_mha_dropout_fwd_flat"] == counts["small_mha_dropout_bwd_flat"] == 1
+    assert all(fit for *_, fit in checked) and {c[1] for c in checked} == {d}
+
+    # kernels off: the plain versions, no launch
+    calls = len(lib.calls)
+    layers.attend(q, q, q, H, causal, d ** -0.5, use_kernels=False)
+    layers.attend(q, q, q, H, causal, d ** -0.5, use_kernels=False, rate=0.1,
+                  rng=DropoutRNG(0, "cpu"))
+    assert len(lib.calls) == calls
+
+
+@pytest.mark.parametrize("d,T", [(16, 30), (32, 17), (128, 30), (64, 70),
+                                 (16, 150)])
+def test_attend_launches_k3_k4_at_every_width_and_length(meta_as_card, d, T):
+    """The training attention launches K3 and K4 at every head width the
+    kernels are built for, and past one tile of 32 keys."""
+    lib, checked = meta_as_card
+    q = torch.zeros((4, T, 4 * d), device="meta", requires_grad=True)
+    out = layers.attend(q, q, q, 4, None, d ** -0.5, use_kernels=True, rate=0.1,
+                        rng=DropoutRNG(0, "cpu"))
+    out.sum().backward()
+    assert [c[0] for c in lib.calls] == ["sbl_small_mha_dropout_fwd_flat",
+                                         "sbl_small_mha_dropout_bwd_flat"]
+    assert all(fit and train for _, _, train, fit in checked)
+
+
+# C type of a declared argument -> the ctypes type ``_build`` must give it
+_C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "long long": ctypes.c_longlong, "float": ctypes.c_float,
+            "unsigned long long": ctypes.c_ulonglong,
+            "unsigned int": ctypes.c_uint}
+
+
+def _declarations():
+    """{entry point: (C return type, [C argument types])} of every
+    ``extern "C"`` function in csrc/*.cu."""
+    out = {}
+    for src in _build.sources():
+        for m in re.finditer(r'extern\s+"C"\s+(int|long long)\s+(\w+)\s*\(([^)]*)\)',
+                             src.read_text()):
+            args = []
+            for arg in m.group(3).split(","):
+                arg = re.sub(r"\bconst\b", "", " ".join(arg.replace("*", "* ").split()))
+                args.append(" ".join(arg.split()).rsplit(" ", 1)[0].replace(" *", "*"))
+            out[m.group(2)] = (m.group(1), args)
+    return out
+
+
+def test_ctypes_signatures_match_the_cuda_sources():
+    decls = _declarations()
+    assert set(decls) == set(_build._SIGNATURES) | set(_build._SIZERS)
+    for name, (ret, args) in decls.items():
+        want = _build._SIGNATURES.get(name, _build._SIZERS.get(name))
+        assert ret == ("int" if name in _build._SIGNATURES else "long long"), name
+        assert [_C_TYPES[a] for a in args] == want, name

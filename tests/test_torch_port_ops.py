@@ -61,6 +61,12 @@ def _bias(kind, B, Tq, Tk, rng):
     (3, 5, 9, 2, 64, None),
     (3, 5, 9, 2, 64, "key_pad"),
     (2, 6, 6, 2, 32, "masked_row"),
+    # the widest head the kernel is built for, and keys beyond two of its
+    # 32-key tiles (the online softmax across tiles)
+    (2, 5, 9, 2, 128, None),
+    (2, 5, 9, 2, 128, "causal"),
+    (2, 17, 70, 2, 64, "key_pad"),
+    (2, 3, 150, 2, 16, None),
 ])
 def test_small_mha_flat_matches_pallas(B, Tq, Tk, H, d, kind):
     rng = np.random.default_rng(B * 100 + Tq * 10 + Tk)

@@ -97,6 +97,36 @@ def test_dropout_attention_rate0_matches_jax(kind):
         np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=GRAD_TOL)
 
 
+@pytest.mark.parametrize("d,Tq,Tk,kind", [
+    (32, 9, 9, "shared"), (128, 9, 9, None), (64, 40, 40, "per_row"),
+    (16, 5, 70, None)])
+def test_dropout_attention_head_widths_and_lengths_match_jax(d, Tq, Tk, kind):
+    """Rate 0, as above, at the other head widths K3/K4 are built for and
+    past one tile of 32 keys: forward and gradients against JAX's
+    custom-VJP flat kernel pair (interpret mode)."""
+    B, H = 2, 2
+    q, k, v = _qkv(B, Tq, Tk, H, d, d + Tk)
+    w = np.random.default_rng(3).standard_normal((B, Tq, H * d)).astype(np.float32)
+    bias = _bias(kind, B, Tq)
+    scale = 1.0 / np.sqrt(d)
+    jb = None if bias is None else jnp.asarray(bias)
+    seed = jnp.zeros((1,), jnp.int32)
+
+    def f(q, k, v):
+        return jax_attn.small_mha_dropout_grad_flat(q, k, v, jb, seed, H,
+                                                    scale, 0.0)
+
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    with jax.default_matmul_precision("highest"):
+        want = f(jq, jk, jv)
+        want_g = jax.grad(lambda *a: jnp.sum(f(*a) * jnp.asarray(w)),
+                          argnums=(0, 1, 2))(jq, jk, jv)
+    got, got_g = _port_grads(q, k, v, H, bias, 0, 0.0, scale, w)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=FWD_TOL)
+    for a, b in zip(got_g, want_g):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=GRAD_TOL)
+
+
 @pytest.mark.parametrize("kind,Tq,Tk", [(None, 9, 9), ("shared", 9, 9),
                                         (None, 5, 12)])
 def test_dropout_attention_masked_matches_reference(kind, Tq, Tk):

@@ -30,11 +30,9 @@ checks bound).  With that, perturbation seeds 1-24 all pass (readings in
 PERF.md).  The Trainer runs 2 epochs x 2 steps with a validation after
 each: epoch losses within 1e-5 relative, WER/PER equal.
 """
-import contextlib
 import dataclasses
 import types
 
-import flax.linen
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,19 +66,16 @@ from sbl_for_multilingual_lip_reading_tpu_torch.utils import state_dict_from_jax
 
 from test_torch_port_recognize import _perturbed
 from test_torch_port_train import (GRAD_ATOL, GRAD_RTOL, LOSS_RTOL,
-                                   TEST_ADAM_EPS, XLA_OPTIONS,
-                                   _assert_step_matches, _torch_batch)
+                                   TEST_ADAM_EPS, XLA_OPTIONS, JaxReluTap,
+                                   _assert_flips_within_margin,
+                                   _assert_step_matches, _torch_batch,
+                                   jax_routing)
 
 BATCH = 3
 STEPS = {"lrw1000": 3, "lrw": 1}
 EPOCHS, EPOCH_STEPS = 2, 2
 DROPOUT = 0.3
 PERTURB_SEED = 2
-# from the same weights, a ReLU input on which the two sides disagree in
-# sign lies within the forwards' f32 difference of 0 (<= 2.6e-5 at every
-# ReLU of these models); after a step the weights differ within the
-# parameter tolerance, and the forwards by more (flips up to 4.9e-4)
-FLIP_MARGIN = 1e-4
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -89,75 +84,6 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
-
-
-class JaxReluTap:
-    """Hands every ReLU input of a compiled JAX function to the host as the
-    function runs: ``jax.nn.relu`` and ``flax.linen.relu`` are patched while
-    it is traced, each call site numbered in trace order, and a
-    ``jax.debug.callback`` carries the input out."""
-
-    def __init__(self):
-        self.sites, self.seen = 0, {}
-
-    @contextlib.contextmanager
-    def tracing(self):
-        relu = jax.nn.relu
-
-        def tapped(x):
-            site, self.sites = self.sites, self.sites + 1
-            jax.debug.callback(
-                lambda v: self.seen.__setitem__(site, np.asarray(v)), x)
-            return relu(x)
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(jax.nn, "relu", tapped)
-            mp.setattr(flax.linen, "relu", tapped)
-            yield
-
-    def take(self):
-        """The ReLU inputs of the last run, in trace order."""
-        jax.effects_barrier()
-        assert self.sites and sorted(self.seen) == list(range(self.sites))
-        out, self.seen = [self.seen[i] for i in range(self.sites)], {}
-        return out
-
-
-def _port_layout(a, shape):
-    """A JAX ReLU input (channels last; the stem's frames folded into the
-    batch) in the port's channels-first layout."""
-    if len(shape) == 5:
-        B, ch, T, H, W = shape
-        a = a.reshape(B, T, H, W, ch).transpose(0, 4, 1, 2, 3)
-    elif len(shape) == 4:
-        a = a.transpose(0, 3, 1, 2)
-    return np.ascontiguousarray(a.reshape(shape))
-
-
-@contextlib.contextmanager
-def jax_routing(relu_inputs, flips):
-    """The port's ReLUs route as JAX's did: the i-th ``F.relu`` of the step
-    passes x, forward and backward, where JAX's i-th ReLU input was > 0.
-    Where the port's own sign disagrees, |x| goes to ``flips``.  An element
-    that close to 0 may take the kink's other side in either framework
-    (their f32 forwards differ by ~1e-5), and one such element moves a
-    gradient by 1-4%; with one routing for both, the comparison holds on
-    every CPU, and the flips of a step from the same weights are checked
-    against FLIP_MARGIN."""
-    todo = iter(relu_inputs)
-
-    def relu(x, inplace=False):
-        keep = torch.from_numpy(_port_layout(next(todo) > 0, tuple(x.shape)))
-        own = x.detach() > 0
-        flips.extend(x.detach()[own != keep].abs().tolist())
-        return x * keep.to(x.dtype)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(torch.nn.functional, "relu", relu)
-        yield
-    assert next(todo, None) is None, "JAX ran more ReLUs than the port"
-
-
-def _assert_flips_within_margin(flips):
-    assert max(flips, default=0.0) <= FLIP_MARGIN, sorted(flips)[-5:]
 
 
 def _deterministic(cfg, **dims):

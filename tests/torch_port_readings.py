@@ -3,7 +3,7 @@
 
     JAX_PLATFORMS=cpu python tests/torch_port_readings.py train [plain]
     JAX_PLATFORMS=cpu python tests/torch_port_readings.py eval
-    JAX_PLATFORMS=cpu python tests/torch_port_readings.py routing [FIRST LAST]
+    JAX_PLATFORMS=cpu python tests/torch_port_readings.py routing [FIRST LAST [FILE...]]
 
 ``train``: three train steps of the port against JAX, per step the loss,
 the BN statistics and the parameters, and the one-step gradients per
@@ -13,11 +13,16 @@ some CPUs shows the faulty frontend gradient.  ``ATEN_CPU_CAPABILITY=default``
 in the environment takes torch off its AVX2/AVX-512 paths.  ``eval``: the
 plain versions of K9, K10 and K11 against the Pallas kernels in interpret
 mode, and the unidirectional decoder in f32 and bf16.  ``routing``: the
-step and gradient tests of ``test_torch_port_uni_train.py`` and
-``test_torch_port_classify.py`` at each perturbation seed FIRST..LAST
-(default 1..24), four processes at a time, each seed's outcome with the
-step-0 elements on which the port's ReLU sign disagrees with JAX's (count,
-largest |x|) and the largest such |x| of the later steps.  Not a test:
+step and gradient tests of ``test_torch_port_train.py`` (``sbl``),
+``test_torch_port_uni_train.py`` and ``test_torch_port_classify.py`` at
+each perturbation seed FIRST..LAST (default 1..24), four processes at a
+time, each seed's outcome with the elements on which the port's ReLU sign
+disagrees with JAX's (the count held to the step-0 margin, the largest |x|
+held to each margin) and, for the ``sbl`` files, the largest distance
+between a port ReLU input and the JAX input it was matched with
+(``routing [FIRST LAST] [FILE...]`` runs only the named files of
+ROUTING_TESTS).  The train readings run the port on JAX's routing, as the
+tests do.  Not a test:
 pytest does not collect it.
 """
 import dataclasses
@@ -47,10 +52,11 @@ def train_readings(plain: bool) -> None:
         model, opt = T._port(cfg, setup["variables"])
         step = T.make_sbl_train_step(model, opt, cfg)
         for i, (batch, w) in enumerate(zip(setup["batches"], want)):
-            m = step(T._torch_batch(batch), torch.Generator().manual_seed(i),
-                     use_gold=w["coins"])
+            with T.jax_routing_by_value(w["relu"], []):
+                m = step(T._torch_batch(batch), torch.Generator().manual_seed(i),
+                         use_gold=w["coins"])
             if i == 0:
-                grads = T._jax_grads(cfg, setup["variables"], batch)
+                grads, _ = T._jax_grads(cfg, setup["variables"], batch)
                 rel, zero = [], []
                 for n, p in model.named_parameters():
                     g, ref = p.grad.numpy(), grads[n].numpy()
@@ -146,6 +152,9 @@ def eval_readings() -> None:
 
 
 ROUTING_TESTS = {
+    "sbl": ("test_torch_port_train",
+            "three_train_steps or one_step_gradients or frozen_prefix"),
+    "sbl_bf16": ("test_torch_port_train_bf16", "bf16_train_step"),
     "uni": ("test_torch_port_uni_train",
             "match_jax and (steps or gradients)"),
     "classify": ("test_torch_port_classify",
@@ -154,35 +163,51 @@ ROUTING_TESTS = {
 
 def routing_one(which: str, seed: int) -> None:
     """One file's step and gradient tests at one perturbation seed; prints
-    one JSON line."""
+    one JSON line: the largest |x| the tests held to each flip margin, the
+    count held to the step-0 margin, and the largest distance between a
+    port ReLU input and the JAX input it was matched with."""
     import json
+    import test_torch_port_train as T
     import test_torch_port_uni_train as U
     name, select = ROUTING_TESTS[which]
     mod = __import__(name)
-    mod.PERTURB_SEED = seed
-    lists, checked = [], []
-    route, check = U.jax_routing, U._assert_flips_within_margin
+    mod.PERTURB_SEED = T.PERTURB_SEED = seed
+    lists, checked, distances = [], [], []
+    check = T._assert_flips_within_margin
 
-    def routing(relu_inputs, flips):
-        lists.append(flips)
-        return route(relu_inputs, flips)
+    def recording(route, by_value):
+        def routing(relu_inputs, flips, *args, **kw):
+            lists.append(flips)
+            if by_value:
+                kw["distances"] = distances
+            return route(relu_inputs, flips, *args, **kw)
+        return routing
 
-    def record(flips):
-        checked.append(flips)
-        check(flips)
-    for m in (U, mod):
-        m.jax_routing, m._assert_flips_within_margin = routing, record
+    def record(flips, margin=T.FLIP_MARGIN):
+        checked.append((margin, flips))
+        check(flips, margin)
+    routes = {n: recording(getattr(T, n), n == "jax_routing_by_value")
+              for n in ("jax_routing", "jax_routing_by_value")}
+    for m in (T, U, mod):
+        for n, fn in routes.items():
+            if hasattr(m, n):
+                setattr(m, n, fn)
+        m._assert_flips_within_margin = record
     rc = pytest.main(["-q", "-p", "no:cacheprovider", mod.__file__, "-k", select])
-    step0 = [x for flips in checked for x in flips]
-    later = [x for flips in lists if not any(flips is c for c in checked)
-             for x in flips]
-    print(json.dumps(dict(which=which, seed=seed, passed=int(rc) == 0,
-                          step0_flips=len(step0),
-                          step0_max=max(step0, default=0.0),
-                          later_max=max(later, default=0.0))), flush=True)
+    maxima = {}
+    for margin, flips in checked:
+        key = f"{margin:g}"
+        maxima[key] = max(maxima.get(key, 0.0), max(flips, default=0.0))
+    unchecked = [x for flips in lists
+                 if not any(flips is c for _, c in checked) for x in flips]
+    print(json.dumps(dict(
+        which=which, seed=seed, passed=int(rc) == 0,
+        step0_flips=sum(len(f) for m, f in checked if m == T.FLIP_MARGIN),
+        max_by_margin=maxima, unchecked_max=max(unchecked, default=0.0),
+        match_max=max(distances, default=0.0))), flush=True)
 
 
-def routing_readings(first: int, last: int) -> None:
+def routing_readings(first: int, last: int, files=()) -> None:
     import json
     import subprocess
     from concurrent.futures import ThreadPoolExecutor
@@ -193,27 +218,32 @@ def routing_readings(first: int, last: int) -> None:
                               str(seed)], capture_output=True, text=True,
                              check=False)
         return json.loads(res.stdout.strip().splitlines()[-1])
-    jobs = [(w, s) for w in ROUTING_TESTS for s in range(first, last + 1)]
+    files = list(files) or list(ROUTING_TESTS)
+    jobs = [(w, s) for w in files for s in range(first, last + 1)]
     with ThreadPoolExecutor(4) as pool:
         results = list(pool.map(run, jobs))
-    for which in ROUTING_TESTS:
+    for which in files:
         mine = [r for r in results if r["which"] == which]
         for r in mine:
             print(json.dumps(r))
+        maxima = {}
+        for r in mine:
+            for key, v in r["max_by_margin"].items():
+                maxima[key] = max(maxima.get(key, 0.0), v)
         print(f"{which}: {sum(r['passed'] for r in mine)} of {len(mine)} seeds "
               f"pass; step-0 sign disagreements {sum(r['step0_flips'] for r in mine)}"
-              f" over {sum(bool(r['step0_flips']) for r in mine)} seeds, largest "
-              f"|x| {max(r['step0_max'] for r in mine):.3g}; later steps' largest "
-              f"|x| {max(r['later_max'] for r in mine):.3g}")
-
+              f" over {sum(bool(r['step0_flips']) for r in mine)} seeds; largest "
+              f"|x| by margin {maxima}; unchecked "
+              f"{max(r['unchecked_max'] for r in mine):.3g}; largest match "
+              f"distance {max(r['match_max'] for r in mine):.3g}")
 
 if __name__ == "__main__":
     which = sys.argv[1] if len(sys.argv) > 1 else "eval"
     if which == "train":
         train_readings(plain="plain" in sys.argv[2:])
     elif which == "routing":
-        routing_readings(*(map(int, sys.argv[2:4]) if len(sys.argv) > 3
-                           else (1, 24)))
+        first, last = map(int, sys.argv[2:4]) if len(sys.argv) > 3 else (1, 24)
+        routing_readings(first, last, sys.argv[4:])
     elif which == "routing-one":
         routing_one(sys.argv[2], int(sys.argv[3]))
     else:
