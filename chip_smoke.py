@@ -10,8 +10,9 @@ line (phase 2 adds nvcc's per-kernel register report):
 
   1. card   -- nvidia-smi's name and power limit, torch's device name;
   2. build  -- build (or load) the hand-written kernels from csrc/;
-  2 also prints, per head width, ptxas's registers and spills of K1/K12's
-     tensor-core body and of K3/K4's bodies, and fails if one spills;
+  2 also prints, per head width, ptxas's registers and spills of the
+     tensor-core bodies of K1/K12 and K3/K4 and of K3/K4's f32 scalar
+     bodies, and fails if one spills;
   3. kernels vs plain versions on the card, at the recognize path's shapes:
      K2 stack_frames bit-exact; K1 small_mha_flat within K1_TOL, f32 and
      bf16, at d = 64 and at the other head widths it is built for (16, 32,
@@ -21,9 +22,11 @@ line (phase 2 adds nvcc's per-kernel register report):
      against the plain Philox, keep fraction KEEP_FRACTION; K3
      small_mha_dropout_fwd_flat and K4 small_mha_dropout_bwd_flat within
      TRAIN_TOL given K5's mask; K3 at rate 0 against K1; times of all
-     three and their plain versions; then K3/K4 at the other head widths
-     they are built for (16, 32, 128) and at lengths past one tile of 32
-     keys (70, 150, and 84 at d = 128, the edge of their shared memory);
+     three, their plain versions and scaled_dot_product_attention's
+     forward and backward, with their bounds; then K3/K4 at the other head
+     widths they are built for (16, 32, 128) and at lengths past one tile
+     of 32 keys (70, 150, one query row against 300 keys, and the longest
+     each width takes: 153, 139, 116, 84 at d = 16, 32, 64, 128);
      max-pool tie gradients, card vs CPU;
   4. recognize slice at the full config.sbl() width with seeded random
      weights: kernel path vs plain path at B=32 in f32 (TF32 off) and bf16,
@@ -326,22 +329,28 @@ def phase_build():
                                   and "0 bytes spill stores, 0 bytes spill loads"
                                   not in line):
                 print(f"  ptxas: {line.strip()}")
-        # K1/K12's tensor-core body and K3/K4's bodies, one instantiation
-        # per head width (and dtype)
+        spills = []
+        # the attention bodies, one instantiation per head width: K1/K12's
+        # and K3/K4's tensor-core bodies (bf16) and K3/K4's scalar ones (f32)
         for kernel, pattern, n in (
                 ("small_mha_mma_kernel (K1/K12 bf16)",
-                 r"small_mha_mma_kernelILi(\d+)E()", 4),
-                ("dropout_attention_fwd_kernel (K3)",
-                 r"dropout_attention_fwd_kernelI(\w+?)Li(\d+)E", 8),
-                ("dropout_attention_bwd_kernel (K4)",
-                 r"dropout_attention_bwd_kernelI(\w+?)Li(\d+)E", 8)):
+                 r"small_mha_mma_kernelILi(\d+)E", 4),
+                ("dropout_attention_fwd_mma_kernel (K3 bf16)",
+                 r"dropout_attention_fwd_mma_kernelILi(\d+)E", 4),
+                ("dropout_attention_bwd_mma_kernel (K4 bf16)",
+                 r"dropout_attention_bwd_mma_kernelILi(\d+)ELb(\d)E", 8),
+                ("dropout_attention_fwd_f32_kernel (K3 f32)",
+                 r"dropout_attention_fwd_f32_kernelILi(\d+)E", 4),
+                ("dropout_attention_bwd_f32_kernel (K4 f32)",
+                 r"dropout_attention_bwd_f32_kernelILi(\d+)E", 4)):
             found = ptxas_report(text, pattern)
             check(len(found) == n, f"ptxas report of {kernel}: {sorted(found)}")
             for key, (used, spill) in sorted(found.items()):
-                print(f"phase 2 {kernel} <{', '.join(filter(None, key))}>: "
-                      f"{used}; {spill}")
-                check("0 bytes spill stores, 0 bytes spill loads" in spill,
-                      f"{kernel} <{key}> spills: {spill}")
+                variant = {("1",): ", tiles", ("0",): ", recompute"}.get(key[1:], "")
+                print(f"phase 2 {kernel} <d={key[0]}{variant}>: {used}; {spill}")
+                if "0 bytes spill stores, 0 bytes spill loads" not in spill:
+                    spills.append(f"{kernel} <{key}>: {spill}")
+        check(not spills, f"kernels spill: {spills}")
     return seconds
 
 
@@ -482,15 +491,26 @@ def _train_close(got, want, kind):
     return _bf16_close(got, want)
 
 
+def _ms(x):
+    return "n/a" if x is None else f"{x:.4f}"
+
+
 def dtype_name(t):
     return str(t.dtype).split(".")[-1]
 
 
-def phase_train_kernels(torch, dev):
-    """K3/K4/K5 against their plain versions at the train step's shapes."""
+def phase_train_kernels(torch, dev, timing=True):
+    """K3/K4/K5 against their plain versions at the train step's shapes
+    (``timing`` False: the checks alone, every time NaN)."""
     import torch.nn.functional as F
     from sbl_for_multilingual_lip_reading_tpu_torch import ops
     g = torch.Generator(device=dev).manual_seed(1)
+
+    def ms_of(fn):
+        return cuda_ms(torch, fn) if timing else float("nan")
+
+    def lib_of(fn, call):
+        return library_time(torch, fn, call) if timing else (None, call)
     H, B = 8, TRAIN_BATCH
     L = 17
     causal = ops.mask_to_bias(
@@ -545,16 +565,16 @@ def phase_train_kernels(torch, dev):
                       f"K4 {case} {name_dt} d{which}: max abs err {err}")
                 bwd_err = max(bwd_err, err)
             sq, sk, sv, mask = sdpa_args(torch, q, k, v, H, bias)
-            fwd_lib_ms, fwd_lib_call = library_time(
-                torch, lambda: F.scaled_dot_product_attention(
+            fwd_lib_ms, fwd_lib_call = lib_of(
+                lambda: F.scaled_dot_product_attention(
                     sq, sk, sv, attn_mask=mask, dropout_p=DROPOUT_RATE),
                 "F.scaled_dot_product_attention(dropout_p=0.1) on (B,H,T,64) views")
             gq, gk, gv = (t.detach().requires_grad_(True) for t in (sq, sk, sv))
             lib_out = F.scaled_dot_product_attention(gq, gk, gv, attn_mask=mask,
                                                      dropout_p=DROPOUT_RATE)
             lib_dout = dout.view(N, Tq, H, 64).transpose(1, 2)
-            bwd_lib_ms, bwd_lib_call = library_time(
-                torch, lambda: torch.autograd.grad(lib_out, (gq, gk, gv), lib_dout,
+            bwd_lib_ms, bwd_lib_call = lib_of(
+                lambda: torch.autograd.grad(lib_out, (gq, gk, gv), lib_dout,
                                                    retain_graph=True),
                 "the backward of F.scaled_dot_product_attention(dropout_p=0.1)")
             del lib_out, gq, gk, gv
@@ -575,22 +595,22 @@ def phase_train_kernels(torch, dev):
                 bwd_lib_ms=bwd_lib_ms, bwd_lib_call=bwd_lib_call,
                 case=case, dtype=name_dt, keep_fraction=frac,
                 fwd_err=fwd_err, bwd_err=bwd_err, rate0_vs_k1_err=k1_err,
-                fwd_ms=cuda_ms(torch, lambda: ops.small_mha_dropout_fwd_flat(*args)),
-                fwd_plain_ms=cuda_ms(torch, lambda: ops.small_mha_dropout_flat_plain(*args)),
-                bwd_ms=cuda_ms(torch, lambda: ops.small_mha_dropout_bwd_flat(*args, dout)),
-                bwd_plain_ms=cuda_ms(torch, lambda: ops.small_mha_dropout_bwd_flat_plain(
+                fwd_ms=ms_of(lambda: ops.small_mha_dropout_fwd_flat(*args)),
+                fwd_plain_ms=ms_of(lambda: ops.small_mha_dropout_flat_plain(*args)),
+                bwd_ms=ms_of(lambda: ops.small_mha_dropout_bwd_flat(*args, dout)),
+                bwd_plain_ms=ms_of(lambda: ops.small_mha_dropout_bwd_flat_plain(
                     *args, dout)),
-                mask_ms=cuda_ms(torch, lambda: ops.dropout_keep_mask_flat(
+                mask_ms=ms_of(lambda: ops.dropout_keep_mask_flat(
                     N, Tq, Tk, H, seed, DROPOUT_RATE, dev)),
-                mask_plain_ms=cuda_ms(torch, lambda: ops.dropout_keep_mask_flat_plain(
+                mask_plain_ms=ms_of(lambda: ops.dropout_keep_mask_flat_plain(
                     N, Tq, Tk, H, seed, DROPOUT_RATE, dev))))
     for r in rows:
         print(f"phase 3b {r['case']} {r['dtype']}: keep {r['keep_fraction']:.4f}; "
               f"K3 err {r['fwd_err']:.3g}, {r['fwd_ms']:.4f} ms (plain "
-              f"{r['fwd_plain_ms']:.4f}, library {r['fwd_lib_ms']}, bound "
+              f"{r['fwd_plain_ms']:.4f}, sdpa {_ms(r['fwd_lib_ms'])}, bound "
               f"{r['fwd_bound'][0]:.4f}); K4 err {r['bwd_err']:.3g}, "
-              f"{r['bwd_ms']:.4f} ms (plain {r['bwd_plain_ms']:.4f}, library "
-              f"{r['bwd_lib_ms']}, bound {r['bwd_bound'][0]:.4f}); K5 "
+              f"{r['bwd_ms']:.4f} ms (plain {r['bwd_plain_ms']:.4f}, sdpa "
+              f"{_ms(r['bwd_lib_ms'])}, bound {r['bwd_bound'][0]:.4f}); K5 "
               f"bit-exact, {r['mask_ms']:.4f} ms (plain {r['mask_plain_ms']:.4f}, "
               f"bound {r['mask_bound'][0]:.4f}); "
               f"K3 rate 0 vs K1 err {r['rate0_vs_k1_err']:.3g}")
@@ -603,6 +623,11 @@ def phase_train_kernels(torch, dev):
     long_pad = ops.mask_to_bias(
         torch.arange(150, device=dev)[None, None, :]
         >= torch.randint(1, 151, (64, 1, 1), generator=g, device=dev), 17, 150)
+    edge_causal = ops.mask_to_bias(
+        torch.ones(116, 116, dtype=torch.bool, device=dev).triu(1)[None], 116, 116)
+    wide_pad = ops.mask_to_bias(
+        torch.arange(300, device=dev)[None, None, :]
+        >= torch.randint(1, 301, (64, 1, 1), generator=g, device=dev), 1, 300)
     extras = [  # (name, rows, Tq, Tk, bias, d), H=8
         ("d=16 encoder (240,30,8x16)", B, 30, 30, None, 16),
         ("d=16 decoder self (480,17,8x16) causal", 2 * B, L, L, causal, 16),
@@ -612,6 +637,13 @@ def phase_train_kernels(torch, dev):
         ("extra: d=64 Tq=Tk=70 causal", 64, 70, 70, long_causal, 64),
         ("extra: d=16 Tq=17 Tk=150 per-batch bias", 64, L, 150, long_pad, 16),
         ("extra: d=128 Tq=Tk=84 (shared memory's edge)", 32, 84, 84, None, 128),
+        # the longest equal lengths the other widths take (train_kernels_fit),
+        # and one query row against many keys (K4's key tiles in three sweeps)
+        ("extra: d=16 Tq=Tk=153 (shared memory's edge)", 32, 153, 153, None, 16),
+        ("extra: d=32 Tq=Tk=139 (shared memory's edge)", 32, 139, 139, None, 32),
+        ("extra: d=64 Tq=Tk=116 causal (shared memory's edge)", 32, 116, 116,
+         edge_causal, 64),
+        ("extra: d=64 Tq=1 Tk=300 per-batch bias", 64, 1, 300, wide_pad, 64),
     ]
     for dt in (torch.float32, torch.bfloat16):
         name_dt = str(dt).split(".")[-1]
@@ -642,10 +674,10 @@ def phase_train_kernels(torch, dev):
                 attention_bound(N, Tq, Tk, H, d, itemsize, bias, 0)[0]
                 * HBM_BYTES_S / 1e3 + (N * Tq + 2 * N * Tk) * H * d * itemsize,
                 5 * 2.0 * N * H * Tq * Tk * d, BF16_FLOPS)[0]
-            fwd_ms = cuda_ms(torch, lambda: ops.small_mha_dropout_fwd_flat(*args))
-            fwd_plain = cuda_ms(torch, lambda: ops.small_mha_dropout_flat_plain(*args))
-            bwd_ms = cuda_ms(torch, lambda: ops.small_mha_dropout_bwd_flat(*args, dout))
-            bwd_plain = cuda_ms(torch, lambda: ops.small_mha_dropout_bwd_flat_plain(
+            fwd_ms = ms_of(lambda: ops.small_mha_dropout_fwd_flat(*args))
+            fwd_plain = ms_of(lambda: ops.small_mha_dropout_flat_plain(*args))
+            bwd_ms = ms_of(lambda: ops.small_mha_dropout_bwd_flat(*args, dout))
+            bwd_plain = ms_of(lambda: ops.small_mha_dropout_bwd_flat_plain(
                 *args, dout))
             print(f"phase 3b {case} {name_dt}: K3 err {fwd_err:.3g}, {fwd_ms:.4f} ms "
                   f"(plain {fwd_plain:.4f}, bound {fwd_bound:.4f}); K4 err "

@@ -27,8 +27,9 @@
 // unidirectional decoder's cached cross-attention (512,1)x(512,30) 32.5 MB
 // (9.7 us).
 //
-// The bf16 body (small_mha_mma_kernel) is built so that nothing but those
-// bytes costs time:
+// The bf16 body (small_mha_mma_kernel, which runs sbl::mha_fwd_block of
+// mma.cuh; K3 runs the same body with its dropout) is built so that
+// nothing but those bytes costs time:
 //   * one block per (batch row, head), one warp per 16 query rows (at most
 //     kMaxMmaWarps; more rows take more rounds), so the encoder's 30 rows
 //     are two warps and a cached decode step's one row is one;
@@ -75,12 +76,14 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
+using sbl::bf16;
+using sbl::kMaxMmaWarps;
 using sbl::warp_max;
 using sbl::warp_sum;
-using bf16 = __nv_bfloat16;
 
 // Element strides of one launch: q and out share a layout, k and v share
 // one; every sequence position is `row` elements after the one before.
@@ -105,81 +108,8 @@ Layout head_major_layout(int Tq, int Tk, int H, int D, long long bias_batch,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: tensor cores (the body is sbl::mha_fwd_block, mma.cuh)
 // ---------------------------------------------------------------------------
-
-constexpr int kKeyTile = 32;     // keys staged per tile (four n8 score tiles)
-constexpr int kMaxMmaWarps = 4;  // warps of a block, 16 query rows each
-
-// bf16 elements of dynamic shared memory: K and V tiles, 16 Q rows per warp
-__host__ __device__ constexpr int mma_smem_elems(int D, int warps) {
-  return (2 * kKeyTile + 16 * warps) * (D + 8);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy; src_bytes 0 fills the destination with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, column-major)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 -> one register of two bf16 (x in the low half)
-__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// hi = bf16(x, y) and lo = bf16(x - hi.x, y - hi.y)
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(x - __low2float(h), y - __high2float(h));
-}
-
-// Stage rows [row0, row0 + nrows) of one head (row stride `stride`
-// elements) into shared memory rows of D + 8; rows at or past `nvalid` are
-// zero-filled.  Threads tid, tid + nthreads, ... each copy 16 bytes.
-template <int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long stride, int row0,
-                                           int nrows, int nvalid, int tid, int nthreads) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = tid; i < nrows * kChunks; i += nthreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    const bool ok = row0 + r < nvalid;
-    cp_async16(dst + r * (D + 8) + c, ok ? src + (long long)(row0 + r) * stride + c : src,
-               ok ? 16 : 0);
-  }
-}
 
 // q, out: Tq rows of D per (batch row, head); k, v: Tk rows; bias: null or
 // a (Tq, Tk) f32 block per (batch row, head) at the layout's strides.
@@ -189,171 +119,15 @@ __global__ void __launch_bounds__(kMaxMmaWarps * 32)
 small_mha_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const float* __restrict__ bias,
                      bf16* __restrict__ out, int Tq, int Tk, int H, Layout lay, float scale) {
-  static_assert(D % 16 == 0 && D <= 128, "head width");
-  constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kKeyTile][LD]
-  bf16* vs = ks + kKeyTile * LD;                 // [kKeyTile][LD]
-  bf16* qs = vs + kKeyTile * LD;                 // [warps * 16][LD]
-
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // the fragment row (and row + 8) this lane holds
-  const int t = lane & 3;   // its column pair within an 8-wide tile
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
-  const long long rs = lay.row;
   const long long qoff = b * lay.q_batch + h * lay.q_head;
   const long long koff = b * lay.k_batch + h * lay.k_head;
-  const bf16* qb = q + qoff;
-  const bf16* kb = k + koff;
-  const bf16* vb = v + koff;
-  bf16* ob = out + qoff;
   const float* bb = nullptr;
   if (bias != nullptr) bb = bias + b * lay.bias_batch + h * lay.bias_head;
-  bf16* qw = qs + warp * 16 * LD;  // this warp's 16 query rows
-
-  const int m_tiles = (Tq + 15) / 16;
-  const int n_ktiles = (Tk + kKeyTile - 1) / kKeyTile;
-
-  // every warp runs the same rounds and key tiles, so the block-wide
-  // barriers are reached uniformly; `active` only gates the math
-  for (int r0 = 0; r0 < m_tiles; r0 += warps) {
-    const int mt = r0 + warp;
-    const bool active = mt < m_tiles;
-    const int row0 = mt * 16;
-    if (active) stage_rows<D>(qw, qb, rs, row0, 16, Tq, lane, 32);
-
-    float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
-    float l_run[2] = {0.f, 0.f};
-    float o[D / 8][4];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-
-    for (int kt = 0; kt < n_ktiles; ++kt) {
-      const int key0 = kt * kKeyTile;
-      if (n_ktiles > 1 || r0 == 0) {
-        if (n_ktiles > 1) __syncthreads();  // every warp is done with the last tile
-        stage_rows<D>(ks, kb, rs, key0, kKeyTile, Tk, threadIdx.x, blockDim.x);
-        stage_rows<D>(vs, vb, rs, key0, kKeyTile, Tk, threadIdx.x, blockDim.x);
-      }
-      // this lane's bias elements, loaded while the copies are in flight
-      float bias_r[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = row0 + g + (e >> 1) * 8;
-          const int key = key0 + j * 8 + 2 * t + (e & 1);
-          bias_r[j][e] = (bb != nullptr && active && row < Tq && key < Tk)
-                             ? __ldg(bb + (long long)row * Tk + key)
-                             : 0.f;
-        }
-      }
-      cp_async_wait_all();
-      __syncthreads();
-      if (!active) continue;
-
-      // S = Q K^T over this key tile: four n8 tiles of keys
-      float s[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        ldmatrix_x4(a, qw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t bk[4];
-          ldmatrix_x4(bk, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
-                              ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], a, bk[0], bk[1]);
-          mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
-        }
-      }
-
-      // scale, bias, mask the keys past Tk; online softmax per row
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + j * 8 + 2 * t + (e & 1);
-          const float x = key < Tk ? s[j][e] * scale + bias_r[j][e] : -INFINITY;
-          s[j][e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-      }
-      float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float m_new = fmaxf(m_run[i], mx[i]);
-        corr[i] = __expf(m_run[i] - m_new);  // 0 on the first tile
-        m_run[i] = m_new;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = __expf(s[j][e] - m_run[e >> 1]);
-          s[j][e] = p;
-          sum[e >> 1] += p;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-        l_run[i] = l_run[i] * corr[i] + sum[i];
-      }
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[j][0] *= corr[0];
-        o[j][1] *= corr[0];
-        o[j][2] *= corr[1];
-        o[j][3] *= corr[1];
-      }
-
-      // O += P V, P split into hi + lo bf16 parts, 16 keys per k-step
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t ph[4], pl[4];
-        split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-        split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                    dp * 16 + (lane >> 4) * 8);
-          mma_bf16(o[2 * dp], ph, bv[0], bv[1]);
-          mma_bf16(o[2 * dp + 1], ph, bv[2], bv[3]);
-          mma_bf16(o[2 * dp], pl, bv[0], bv[1]);
-          mma_bf16(o[2 * dp + 1], pl, bv[2], bv[3]);
-        }
-      }
-    }
-
-    if (active) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = row0 + g + 8 * i;
-        if (row < Tq) {
-          const float inv = 1.f / l_run[i];
-          bf16* orow = ob + (long long)row * rs + 2 * t;
-#pragma unroll
-          for (int j = 0; j < D / 8; ++j)
-            *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-                pack_bf16(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
-        }
-      }
-    }
-    __syncwarp();  // this warp's Q rows are staged again in the next round
-  }
+  sbl::mha_fwd_block<D>(q + qoff, k + koff, v + koff, bb, out + qoff, lay.row, Tq, Tk, scale,
+                        sbl::NoDropout{}, reinterpret_cast<bf16*>(smem_raw));
 }
 
 template <int D>
@@ -362,7 +136,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
                         cudaStream_t stream) {
   const int m_tiles = (Tq + 15) / 16;
   const int warps = m_tiles < kMaxMmaWarps ? m_tiles : kMaxMmaWarps;
-  const size_t smem = sizeof(bf16) * (size_t)mma_smem_elems(D, warps);  // <= 34.8 KB
+  const size_t smem = sizeof(bf16) * (size_t)sbl::mma_smem_elems(D, warps);  // <= 34.8 KB
   small_mha_mma_kernel<D><<<(unsigned)B * (unsigned)H, warps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(bias), static_cast<bf16*>(out), Tq, Tk, H, lay, scale);

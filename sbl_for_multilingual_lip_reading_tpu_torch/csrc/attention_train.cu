@@ -26,46 +26,102 @@
 // it bit for bit.  The decoder folds its two directions into the batch (2B
 // rows), so the batch row in the counter gives each direction its own mask.
 //
-// What bounds them: the bytes of Q/K/V/dO and the outputs would take 0.01-
-// 0.03 ms at the train step's shapes (Tq, Tk <= 31, d = 64), but the time
-// is set by per-(row, key) work on CUDA cores: the Philox draw, the score
-// row's passes through shared memory and the warp-serial PV loop, which a
-// narrower head does not shrink (PERF.md has the readings).  Design:
-//   * the head width d is a template parameter, instantiated for 16, 32, 64
-//     and 128 (the widths K1 is built for): lane l owns output columns l,
-//     l + 32, ... below d;
-//   * one block of 4 warps per (batch row, head).  The head's K and V (in
-//     K4 also Q and dO) are staged whole in shared memory as f32, each row
-//     padded by one float so that lanes reading different rows hit
-//     different banks.  K4 also keeps dS and the dropped P of the whole
-//     (query, key) tile there, so the sums over queries for dK and dV stay
-//     inside the block: one warp per key row, no atomics.  Shared memory
-//     grows with Tq, Tk and d (41 KB for K4 at Tq = Tk = 32, d = 64); past
-//     48 KB the launch opts in, up to the card's 227 KB a block, which
-//     bounds the lengths the kernels take (Tq = Tk <= 116 at d = 64, 84 at
-//     d = 128; smem_bytes below, mirrored by ops/attention.py);
-//   * one warp per query row, the keys in tiles of 32, lane l owning keys
-//     l, l + 32, ...: a row's scores go to a per-warp row of shared memory,
-//     its max and sum by shuffles over the lanes' partial ones, an f32
-//     softmax normalised before the mask is applied (as the JAX kernel
-//     orders it), one Philox draw per (row, key).
-// Operands are upcast to f32 as the JAX kernels do; outputs and gradients
-// are rounded once to the input dtype.  wgmma/TMA are later work.
+// What bounds them.  At the train step's shapes (Tq, Tk <= 31, d = 64) a
+// head's products are a few hundred kFLOP, under a microsecond of the
+// card's bf16 tensor-core rate for the whole launch, against the bytes of
+// Q, K, V (K4 also dO) and the outputs read or written once: 0.009-0.025
+// ms at 3.35 TB/s.  Scalar bodies (the f32 route's, below) take 7-9x that
+// in bf16: per-(row, key) work on the CUDA cores (one 2-byte load per
+// element to stage, each product a scalar FMA chain out of shared memory,
+// one warp per query row walking the score row several times).  The bf16
+// bodies put every product on the tensor cores, as K1's does (mma.cuh), so
+// what is left is the bytes, the Philox draw (~80 integer operations per
+// score, once per element in each kernel) and a block's latency:
+//   * one block per (batch row, head), one warp per 16 query rows (K4's
+//     second phase: per 16 keys), so the encoder's 30 rows and the
+//     decoder's 17 take two warps; Q, K, V (and dO) are staged as bf16 by
+//     16-byte cp.async.cg with rows past T zero-filled, padded against
+//     ldmatrix bank conflicts, and the first bias elements are loaded while
+//     the copies are in flight;
+//   * S = Q K^T, dP = dO V^T, P V, dS K, P_drop^T dO and dS^T Q are
+//     mma.sync.m16n8k16 products (bf16 in, f32 accumulate) fed by ldmatrix;
+//     the f32 A operands (P, P_drop, dS) are split into bf16 hi + lo with
+//     both products issued, since the JAX kernels multiply with f32
+//     operands; wgmma's 64-row tiles do not fit a head's 17-31 rows, and
+//     the tensor cores' rate is not what bounds these kernels;
+//   * scores, P, dP and dS stay in registers; row max and sums are taken
+//     across the quad that holds a row by shuffles; exp is __expf;
+//   * the mask is drawn per score element in the accumulator layout (K3:
+//     only for rows < Tq and keys < Tk), and applied to P after the
+//     softmax, as the JAX kernel orders it.
+// K3 (dropout_attention_fwd_mma_kernel) is K1's body, sbl::mha_fwd_block,
+// with the block's mask as its weights: keep * exp(s - max) goes into P V
+// and the output is scaled by inv_keep / rowsum at the end, which equals
+// the normalise-then-drop order up to f32 rounding and lets an online
+// (running max) softmax carry across key tiles, so any Tk works.
+// K4 (dropout_attention_bwd_mma_kernel) stages the head's Q, dO, K and V
+// whole (bwd_mma_smem_bytes: 28.5 KB at Tq = Tk = 30, d = 64) and runs two
+// phases with one barrier between them, so the sums over queries for dK and
+// dV and over keys for dQ each stay in one warp's registers: no atomics, no
+// f32 scratch in device memory, each gradient rounded once to bf16:
+//   1. per 16 query rows: the row max and sum, then P, dP through the mask,
+//      D_i = rowsum(dP o P) in f32 from registers (not from a rounded
+//      forward output), dS and dQ = scale * dS K.  With one key tile (Tk <=
+//      32, every train-step shape) this is one pass over registers; longer
+//      rows take three sweeps over the key tiles (max and sum; D_i, drawing
+//      the mask; dS and dQ, reading it);
+//   2. per 16 key rows: dV += P_drop^T dO and dK += scale * dS^T Q over
+//      every 16 queries.  At one key tile and at most 64 query rows (every
+//      train-step shape; <D, true>) phase 1 leaves P_drop and dS, split
+//      into bf16 hi + lo, in shared-memory tiles, which phase 2 reads
+//      transposed by ldmatrix.trans as its A operands.  Otherwise (<D,
+//      false>) phase 1 leaves each row's statistics and keep bits (one word
+//      per 32 keys, OR-ed across the quad), and phase 2 recomputes S^T =
+//      K Q^T and dP^T = V dO^T, P from the statistics and the mask from the
+//      bits (no second Philox), reusing P_drop^T and dS^T from the
+//      registers.  Phase 2 runs over 32 columns at a time (recomputing at
+//      d = 64: all 64), to keep its accumulators in registers.
+//   Padded query rows and keys get P_drop = dS = 0 by selection, so they
+//   never reach D_i, dK or dV.
+// Lengths: the bf16 bodies take any lengths that the f32 bodies take (K3's
+// shared memory does not grow with T; K4's is below the f32 body's
+// wherever the f32 body fits), so f32_smem_bytes alone bounds them
+// (Tq = Tk <= 116 at d = 64, 84 at d = 128), mirrored by ops/attention.py.
+//
+// f32 inputs keep the scalar bodies (dropout_attention_{fwd,bwd}_f32_kernel):
+// a TF32 mma would break the f32 check's tolerance, and the f32 route is
+// the card's f32 check, not the main path (which runs bf16).  One block of
+// 4 warps per (batch row, head) stages the head's K and V (in K4 also Q and
+// dO) as f32 rows padded by one float, one warp per query row scores keys
+// l, l + 32, ... on lane l, keeps the score row in shared memory, and K4
+// keeps dS and P_drop of the whole (query, key) tile there, one warp per
+// key row summing over queries for dK and dV.  Their shared memory grows
+// with Tq, Tk and d; past 48 KB the launch opts in, up to the card's 227 KB
+// a block.  Every output and gradient is rounded once to the input dtype.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-using sbl::from_f32;
-using sbl::to_f32;
+using sbl::bf16;
+using sbl::cp_async_wait_all;
+using sbl::kKeyTile;
+using sbl::kMaxMmaWarps;
+using sbl::mma_abt;
+using sbl::mma_pb;
+using sbl::pack_bf16;
+using sbl::stage_rows;
 using sbl::warp_max;
 using sbl::warp_sum;
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;         // warps of an f32 block
 constexpr int kMaxSmem = 232448;  // the card's dynamic shared memory a block
 
 constexpr uint32_t kPhiloxM0 = 0xD2511F53u;
@@ -106,15 +162,19 @@ struct Dropout {
   }
 };
 
+// ---------------------------------------------------------------------------
+// f32: the scalar bodies
+// ---------------------------------------------------------------------------
+
 // Copy a head's (n, D) rows of a flat (.., T, H*D) tensor into shared memory
 // as f32 rows of stride D + 1.  src points at row 0 of the head.
-template <typename T, int D>
-__device__ __forceinline__ void stage(const T* __restrict__ src, long long row_stride, int n,
+template <int D>
+__device__ __forceinline__ void stage(const float* __restrict__ src, long long row_stride, int n,
                                       float* dst) {
   for (int idx = threadIdx.x; idx < n * D; idx += blockDim.x) {
     const int r = idx / D;
     const int c = idx % D;
-    dst[r * (D + 1) + c] = to_f32(src[(long long)r * row_stride + c]);
+    dst[r * (D + 1) + c] = src[(long long)r * row_stride + c];
   }
 }
 
@@ -149,9 +209,10 @@ __device__ __forceinline__ void softmax_row(const float* qrow, const float* ks, 
   for (int j = lane; j < Tk; j += 32) prow[j] = prow[j] / total;
 }
 
-// Bytes of dynamic shared memory the forward (backward = 0) or backward
-// (1) kernel takes at these lengths; ops/attention.py mirrors it.
-__host__ __device__ inline long long smem_bytes(int Tq, int Tk, int D, int backward) {
+// Bytes of dynamic shared memory the f32 forward (backward = 0) or
+// backward (1) body takes at these lengths; it bounds the lengths both
+// routes take, and ops/attention.py mirrors it.
+__host__ __device__ inline long long f32_smem_bytes(int Tq, int Tk, int D, int backward) {
   const long long pad = D + 1;
   if (!backward) return 4LL * (2LL * Tk * pad + (long long)kWarps * D + (long long)kWarps * Tk);
   return 4LL * ((2LL * Tq + 2LL * Tk) * pad + 2LL * Tq * Tk + (long long)kWarps * Tk);
@@ -159,12 +220,12 @@ __host__ __device__ inline long long smem_bytes(int Tq, int Tk, int D, int backw
 
 // q: (B, Tq, H*D); k, v: (B, Tk, H*D); bias: null or (1|B, Tq, Tk) f32;
 // out: (B, Tq, H*D).  Grid: B*H blocks of kWarps warps.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
-dropout_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, const float* __restrict__ bias,
-                             T* __restrict__ out, int Tq, int Tk, int H, int bias_per_batch,
-                             float scale, Dropout drop) {
+dropout_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ bias,
+                                 float* __restrict__ out, int Tq, int Tk, int H,
+                                 int bias_per_batch, float scale, Dropout drop) {
   constexpr int kPad = D + 1;
   constexpr int kCols = (D + 31) / 32;  // output columns per lane
   extern __shared__ float smem[];
@@ -179,19 +240,19 @@ dropout_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x >> 5;
   const long long rs = (long long)H * D;
   const long long head = (long long)h * D;
-  const T* qb = q + (long long)b * Tq * rs + head;
-  T* ob = out + (long long)b * Tq * rs + head;
+  const float* qb = q + (long long)b * Tq * rs + head;
+  float* ob = out + (long long)b * Tq * rs + head;
   const float* bb = nullptr;
   if (bias != nullptr) bb = bias + (bias_per_batch ? (long long)b * Tq * Tk : 0LL);
 
-  stage<T, D>(k + (long long)b * Tk * rs + head, rs, Tk, ks);
-  stage<T, D>(v + (long long)b * Tk * rs + head, rs, Tk, vs);
+  stage<D>(k + (long long)b * Tk * rs + head, rs, Tk, ks);
+  stage<D>(v + (long long)b * Tk * rs + head, rs, Tk, vs);
   __syncthreads();
 
   float* qrow = qs + warp * D;
   float* prow = ps + warp * Tk;
   for (int row = warp; row < Tq; row += kWarps) {
-    for (int c = lane; c < D; c += 32) qrow[c] = to_f32(qb[(long long)row * rs + c]);
+    for (int c = lane; c < D; c += 32) qrow[c] = qb[(long long)row * rs + c];
     __syncwarp();
     softmax_row<D>(qrow, ks, bb, row, Tk, scale, lane, prow);
     if (drop.on)
@@ -209,20 +270,20 @@ dropout_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int m = 0; m < kCols; ++m)
-      if (lane + 32 * m < D) ob[(long long)row * rs + lane + 32 * m] = from_f32<T>(acc[m]);
+      if (lane + 32 * m < D) ob[(long long)row * rs + lane + 32 * m] = acc[m];
     __syncwarp();  // this warp's query and probability rows are rewritten next round
   }
 }
 
 // K3's inputs plus dout: (B, Tq, H*D); writes dq (B, Tq, H*D) and dk, dv
 // (B, Tk, H*D).  Grid: B*H blocks of kWarps warps.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
-dropout_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, const float* __restrict__ bias,
-                             const T* __restrict__ dout, T* __restrict__ dq,
-                             T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int H,
-                             int bias_per_batch, float scale, Dropout drop) {
+dropout_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ bias,
+                                 const float* __restrict__ dout, float* __restrict__ dq,
+                                 float* __restrict__ dk, float* __restrict__ dv, int Tq, int Tk,
+                                 int H, int bias_per_batch, float scale, Dropout drop) {
   constexpr int kPad = D + 1;
   constexpr int kCols = (D + 31) / 32;
   extern __shared__ float smem[];
@@ -245,10 +306,10 @@ dropout_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* bb = nullptr;
   if (bias != nullptr) bb = bias + (bias_per_batch ? (long long)b * Tq * Tk : 0LL);
 
-  stage<T, D>(q + qoff, rs, Tq, qs);
-  stage<T, D>(dout + qoff, rs, Tq, gs);
-  stage<T, D>(k + koff, rs, Tk, ks);
-  stage<T, D>(v + koff, rs, Tk, vs);
+  stage<D>(q + qoff, rs, Tq, qs);
+  stage<D>(dout + qoff, rs, Tq, gs);
+  stage<D>(k + koff, rs, Tk, ks);
+  stage<D>(v + koff, rs, Tk, vs);
   __syncthreads();
 
   // rows of dS and P_drop, and dQ = dS K * scale
@@ -287,7 +348,7 @@ dropout_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int m = 0; m < kCols; ++m)
-      if (lane + 32 * m < D) dq[qoff + (long long)row * rs + lane + 32 * m] = from_f32<T>(acc[m] * scale);
+      if (lane + 32 * m < D) dq[qoff + (long long)row * rs + lane + 32 * m] = acc[m] * scale;
     __syncwarp();  // dprow is rewritten next round
   }
   __syncthreads();
@@ -312,12 +373,473 @@ dropout_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int m = 0; m < kCols; ++m) {
       if (lane + 32 * m < D) {
-        dk[o + lane + 32 * m] = from_f32<T>(ka[m] * scale);
-        dv[o + lane + 32 * m] = from_f32<T>(va[m]);
+        dk[o + lane + 32 * m] = ka[m] * scale;
+        dv[o + lane + 32 * m] = va[m];
       }
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+// K3's weights for K1's body: the block's keep mask on exp(s - max), drawn
+// only for rows < Tq and keys < Tk, and inv_keep in the output's scale.
+struct HeadDropout {
+  Dropout drop;
+  int b, h, Tq, Tk;
+
+  __device__ __forceinline__ float operator()(int row, int key, float p) const {
+    return drop.on && row < Tq && key < Tk && !drop.keep(b, h, row, key) ? 0.f : p;
+  }
+  __device__ __forceinline__ float scale(float inv_l) const {
+    return drop.on ? inv_l * drop.inv_keep : inv_l;
+  }
+};
+
+// q, out: (B, Tq, H*D); k, v: (B, Tk, H*D); bias: null or (1|B, Tq, Tk) f32.
+// Grid: B*H blocks of min(ceil(Tq / 16), kMaxMmaWarps) warps.
+template <int D>
+__global__ void __launch_bounds__(kMaxMmaWarps * 32)
+dropout_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, const float* __restrict__ bias,
+                                 bf16* __restrict__ out, int Tq, int Tk, int H,
+                                 int bias_per_batch, float scale, Dropout drop) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const long long rs = (long long)H * D;
+  const long long qoff = (long long)b * Tq * rs + (long long)h * D;
+  const long long koff = (long long)b * Tk * rs + (long long)h * D;
+  const float* bb = nullptr;
+  if (bias != nullptr) bb = bias + (bias_per_batch ? (long long)b * Tq * Tk : 0LL);
+  sbl::mha_fwd_block<D>(q + qoff, k + koff, v + koff, bb, out + qoff, rs, Tq, Tk, scale,
+                        HeadDropout{drop, b, h, Tq, Tk}, reinterpret_cast<bf16*>(smem_raw));
+}
+
+// Whether K4's bf16 body keeps P_drop and dS of the whole head in shared
+// memory for its second phase (one key tile, every query row in one round
+// of warps: every train-step shape), instead of recomputing them there.
+__host__ __device__ inline bool bwd_mma_tiles(int Tq, int Tk) {
+  return Tk <= kKeyTile && Tq <= 16 * kMaxMmaWarps;
+}
+
+// Bytes of dynamic shared memory K4's bf16 body takes: Q and dO (rows
+// padded to 16), K and V (to key tiles) as bf16 rows of D + 8; per query
+// row its max, 1 / sum and D_i (f32) and one keep word per key tile; with
+// bwd_mma_tiles, the hi and lo halves of P_drop and dS as bf16 rows of
+// kKeyTile + 8.  ops/attention.py mirrors it.
+__host__ __device__ inline long long bwd_mma_smem_bytes(int Tq, int Tk, int D) {
+  const long long tq = (Tq + 15) / 16 * 16;
+  const long long n_ktiles = (Tk + kKeyTile - 1) / kKeyTile;
+  const long long tiles = bwd_mma_tiles(Tq, Tk) ? 4LL * tq * (kKeyTile + 8) * 2 : 0LL;
+  return 2LL * (2 * tq + 2 * n_ktiles * kKeyTile) * (D + 8) + 4LL * tq * (3 + n_ktiles) + tiles;
+}
+
+// K3's inputs plus dout: (B, Tq, H*D); writes dq (B, Tq, H*D) and dk, dv
+// (B, Tk, H*D).  Grid: B*H blocks of min(max(ceil(Tq / 16), ceil(Tk /
+// 16)), kMaxMmaWarps) warps.  Phase 1 gives each warp 16 query rows, phase 2
+// 16 key rows (more take more rounds); in the accumulator layout lane (g,
+// t) holds rows g and g + 8 and columns 2 t, 2 t + 1 of each n8 tile.
+// kTiles: bwd_mma_tiles holds, and phase 2 reads P_drop and dS from shared
+// memory; else it recomputes them from the row statistics and keep bits.
+template <int D, bool kTiles>
+__global__ void __launch_bounds__(kMaxMmaWarps * 32)
+dropout_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, const float* __restrict__ bias,
+                                 const bf16* __restrict__ dout, bf16* __restrict__ dq,
+                                 bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk,
+                                 int H, int bias_per_batch, float scale, Dropout drop) {
+  static_assert(D % 16 == 0 && D <= 128, "head width");
+  constexpr int LD = D + 8;
+  constexpr int TL = kKeyTile + 8;           // row of a P_drop / dS tile
+  // phase 2's columns per pass.  Reading P_drop and dS from the tiles, a
+  // pass costs one more ldmatrix of each, so 32 columns keep dK's and dV's
+  // accumulators to 32 registers; recomputing, d = 64 takes one pass and
+  // d = 128 four (ptxas spills at two)
+  constexpr int kCols = (kTiles || D > 64) && D > 32 ? 32 : D;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m_tiles = (Tq + 15) / 16;
+  const int n_ktiles = (Tk + kKeyTile - 1) / kKeyTile;
+  const int tq = m_tiles * 16;
+  const int tk = n_ktiles * kKeyTile;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);              // [tq][LD]
+  bf16* gs = qs + tq * LD;                                   // [tq][LD] dO
+  bf16* ks = gs + tq * LD;                                   // [tk][LD]
+  bf16* vs = ks + tk * LD;                                   // [tk][LD]
+  float* row_max = reinterpret_cast<float*>(vs + tk * LD);   // [tq]
+  float* row_inv = row_max + tq;                             // [tq] 1 / rowsum(e)
+  float* row_dp = row_inv + tq;                              // [tq] D_i
+  uint32_t* keep_bits = reinterpret_cast<uint32_t*>(row_dp + tq);  // [tq][n_ktiles]
+  // kTiles: P_drop hi, lo and dS hi, lo, each [tq][TL]
+  bf16* tiles = reinterpret_cast<bf16*>(keep_bits + tq * n_ktiles);
+
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const long long rs = (long long)H * D;
+  const long long qoff = (long long)b * Tq * rs + (long long)h * D;
+  const long long koff = (long long)b * Tk * rs + (long long)h * D;
+  const float* bb = nullptr;
+  if (bias != nullptr) bb = bias + (bias_per_batch ? (long long)b * Tq * Tk : 0LL);
+
+  stage_rows<D>(qs, q + qoff, rs, 0, tq, Tq, threadIdx.x, blockDim.x);
+  stage_rows<D>(gs, dout + qoff, rs, 0, tq, Tq, threadIdx.x, blockDim.x);
+  stage_rows<D>(ks, k + koff, rs, 0, tk, Tk, threadIdx.x, blockDim.x);
+  stage_rows<D>(vs, v + koff, rs, 0, tk, Tk, threadIdx.x, blockDim.x);
+
+  // phase 1's bias elements of the 16 rows at row0 and the key tile at key0
+  auto load_bias = [&](int row0, int key0, float (&br)[4][4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + g + (e >> 1) * 8;
+        const int key = key0 + j * 8 + 2 * t + (e & 1);
+        br[j][e] = (bb != nullptr && row < Tq && key < Tk)
+                       ? __ldg(bb + (long long)row * Tk + key)
+                       : 0.f;
+      }
+    }
+  };
+  float bias_r[4][4];
+  load_bias(warp * 16, 0, bias_r);  // the first tile's, while the copies are in flight
+  cp_async_wait_all();
+  __syncthreads();
+
+  // scale * Q K^T + bias over key tile kt for the 16 rows at qw; -inf past Tk
+  auto scores = [&](const bf16* qw, int kt, const float (&br)[4][4], float (&s)[4][4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    mma_abt<D, 4>(s, qw, ks + kt * kKeyTile * LD, lane);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kt * kKeyTile + j * 8 + 2 * t + (e & 1);
+        s[j][e] = key < Tk ? s[j][e] * scale + br[j][e] : -INFINITY;
+      }
+    }
+  };
+  // the keep words of rows g and g + 8 of the 16 rows at row0 over key
+  // tile kt (bit = key - 32 kt; all set without dropout).  draw: from
+  // Philox for rows < Tq and keys < Tk, OR-ed across the quad (and kept in
+  // keep_bits for the recomputing phase 2); else read from keep_bits
+  auto keep_words = [&](int row0, int kt, bool draw, uint32_t (&w)[2]) {
+    w[0] = w[1] = 0xffffffffu;
+    if (!drop.on) return;
+    uint32_t* words = keep_bits + (row0 + g) * n_ktiles + kt;
+    if (!draw) {
+      w[0] = words[0];
+      w[1] = words[8 * n_ktiles];
+      return;
+    }
+    w[0] = w[1] = 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + g + (e >> 1) * 8;
+        const int bit = j * 8 + 2 * t + (e & 1);
+        const int key = kt * kKeyTile + bit;
+        if (row < Tq && key < Tk && drop.keep(b, h, row, key)) w[e >> 1] |= 1u << bit;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      w[i] |= __shfl_xor_sync(0xffffffffu, w[i], 1);
+      w[i] |= __shfl_xor_sync(0xffffffffu, w[i], 2);
+    }
+    if (!kTiles && t == 0) {
+      words[0] = w[0];
+      words[8 * n_ktiles] = w[1];
+    }
+  };
+  auto kept = [&](const uint32_t (&w)[2], int j, int e) {
+    return ((w[e >> 1] >> (j * 8 + 2 * t + (e & 1))) & 1u) != 0u;
+  };
+  // dO V^T over key tile kt through the mask: keep ? dp * inv_keep : 0
+  auto dprobs = [&](const bf16* gw, int kt, const uint32_t (&w)[2], float (&dp)[4][4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+    mma_abt<D, 4>(dp, gw, vs + kt * kKeyTile * LD, lane);
+    if (!drop.on) return;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = kept(w, j, e) ? dp[j][e] * drop.inv_keep : 0.f;
+    }
+  };
+  auto quad_sum = [&](float (&x)[2]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      x[i] += __shfl_xor_sync(0xffffffffu, x[i], 1);
+      x[i] += __shfl_xor_sync(0xffffffffu, x[i], 2);
+    }
+  };
+  // rows r0 + g and r0 + g + 8 (those below n) of the accumulator tiles acc
+  // times mul, rounded once to bf16, to out (row stride rs) at columns c0 +
+  // 8 j + 2 t
+  auto store = [&](bf16* out, int r0, int n, const auto& acc, int c0, float mul) {
+    constexpr int kTilesN = sizeof(acc) / sizeof(acc[0]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + g + 8 * i;
+      if (row < n) {
+        bf16* o = out + (long long)row * rs + c0 + 2 * t;
+#pragma unroll
+        for (int j = 0; j < kTilesN; ++j)
+          *reinterpret_cast<uint32_t*>(o + 8 * j) =
+              pack_bf16(acc[j][2 * i] * mul, acc[j][2 * i + 1] * mul);
+      }
+    }
+  };
+
+  // phase 1: per 16 query rows, the row statistics, the mask and dQ
+  for (int mt = warp; mt < m_tiles; mt += warps) {
+    const int row0 = mt * 16;
+    const bf16* qw = qs + row0 * LD;
+    const bf16* gw = gs + row0 * LD;
+    float s[4][4], dp[4][4];
+    uint32_t w[2];
+    // each row's max and sum over the key tiles; s keeps the last tile's
+    // exp(score - max)
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.f, 0.f};
+    for (int kt = 0; kt < n_ktiles; ++kt) {
+      if (mt != warp || kt > 0) load_bias(row0, kt * kKeyTile, bias_r);
+      scores(qw, kt, bias_r, s);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+      float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m_run[i], mx[i]);
+        corr[i] = __expf(m_run[i] - m_new);  // 0 on the first tile
+        m_run[i] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = __expf(s[j][e] - m_run[e >> 1]);
+          sum[e >> 1] += s[j][e];
+        }
+      }
+      quad_sum(sum);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l_run[i] = l_run[i] * corr[i] + sum[i];
+    }
+    const float inv_l[2] = {1.f / l_run[0], 1.f / l_run[1]};
+
+    float dsum[2] = {0.f, 0.f};  // D_i of rows g and g + 8
+    if (n_ktiles == 1) {
+      // one key tile: P, dP, D_i, dS and dQ from the registers of s
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= inv_l[e >> 1];
+      }
+      keep_words(row0, 0, true, w);
+      dprobs(gw, 0, w, dp);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dsum[e >> 1] += dp[j][e] * s[j][e];
+      }
+      quad_sum(dsum);
+      if constexpr (kTiles) {
+        // P_drop and dS, split into hi and lo, to the tiles for phase 2;
+        // padded rows and keys exactly 0
+        bf16* pd_hi = tiles;
+        bf16* pd_lo = pd_hi + tq * TL;
+        bf16* ds_hi = pd_lo + tq * TL;
+        bf16* ds_lo = ds_hi + tq * TL;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int row = row0 + g + 8 * i;
+            const int col = j * 8 + 2 * t;
+            float pd[2], ds[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 2 * i + c;
+              const bool valid = row < Tq && col + c < Tk;
+              const float p = s[j][e];
+              pd[c] = valid && kept(w, j, e) ? (drop.on ? p * drop.inv_keep : p) : 0.f;
+              ds[c] = valid ? p * (dp[j][e] - dsum[i]) : 0.f;
+            }
+            uint32_t hi, lo;
+            sbl::split_bf16(pd[0], pd[1], hi, lo);
+            *reinterpret_cast<uint32_t*>(pd_hi + row * TL + col) = hi;
+            *reinterpret_cast<uint32_t*>(pd_lo + row * TL + col) = lo;
+            sbl::split_bf16(ds[0], ds[1], hi, lo);
+            *reinterpret_cast<uint32_t*>(ds_hi + row * TL + col) = hi;
+            *reinterpret_cast<uint32_t*>(ds_lo + row * TL + col) = lo;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= dp[j][e] - dsum[e >> 1];
+      }
+      float dqa[D / 8][4] = {};
+      mma_pb<D, 2, D>(dqa, s, ks, 0, lane);
+      store(dq + qoff, row0, Tq, dqa, 0, scale);
+    } else if constexpr (!kTiles) {
+      // D_i over every key tile, drawing the mask; then dS and dQ, reading it
+      for (int kt = 0; kt < n_ktiles; ++kt) {
+        load_bias(row0, kt * kKeyTile, bias_r);
+        scores(qw, kt, bias_r, s);
+        keep_words(row0, kt, true, w);
+        dprobs(gw, kt, w, dp);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = __expf(s[j][e] - m_run[e >> 1]) * inv_l[e >> 1];
+            dsum[e >> 1] += dp[j][e] * p;
+          }
+        }
+      }
+      quad_sum(dsum);
+      __syncwarp();  // the quad's keep words are read by all its lanes
+      // at d = 128 over two column halves, recomputing S and dP for each,
+      // so that dQ's accumulators fit the registers beside the sweep's
+      constexpr int kQCols = D > 64 ? D / 2 : D;
+#pragma unroll 1
+      for (int c0 = 0; c0 < D; c0 += kQCols) {
+        float dqa[kQCols / 8][4] = {};
+        for (int kt = 0; kt < n_ktiles; ++kt) {
+          load_bias(row0, kt * kKeyTile, bias_r);
+          scores(qw, kt, bias_r, s);
+          keep_words(row0, kt, false, w);
+          dprobs(gw, kt, w, dp);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float p = __expf(s[j][e] - m_run[e >> 1]) * inv_l[e >> 1];
+              s[j][e] = p * (dp[j][e] - dsum[e >> 1]);
+            }
+          }
+          mma_pb<D, 2, kQCols>(dqa, s, ks + kt * kKeyTile * LD, c0, lane);
+        }
+        store(dq + qoff, row0, Tq, dqa, c0, scale);
+      }
+    }
+    if (!kTiles && t == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + g + 8 * i;
+        row_max[row] = m_run[i];
+        row_inv[row] = inv_l[i];
+        row_dp[row] = dsum[i];
+      }
+    }
+  }
+  __syncthreads();
+
+  // phase 2: per 16 key rows, dV = P_drop^T dO and dK = scale * dS^T Q,
+  // summed over every 16 queries with P_drop^T and dS^T as the A operands
+  const int n_tiles = (Tk + 15) / 16;
+  for (int nt = warp; nt < n_tiles; nt += warps) {
+    const int key0 = nt * 16;
+    const bf16* kw = ks + key0 * LD;
+    const bf16* vw = vs + key0 * LD;
+#pragma unroll 1
+    for (int c0 = 0; c0 < D; c0 += kCols) {
+      float dka[kCols / 8][4], dva[kCols / 8][4];
+#pragma unroll
+      for (int j = 0; j < kCols / 8; ++j) {
+        dka[j][0] = dka[j][1] = dka[j][2] = dka[j][3] = 0.f;
+        dva[j][0] = dva[j][1] = dva[j][2] = dva[j][3] = 0.f;
+      }
+      for (int qt = 0; qt < m_tiles; ++qt) {
+        const int q0 = qt * 16;
+        if constexpr (kTiles) {
+          // the transposed 16 x 16 blocks of the tiles: rows are this
+          // warp's keys, columns the 16 queries
+          const int at = (q0 + (lane & 7) + (lane >> 4) * 8) * TL + key0 + ((lane >> 3) & 1) * 8;
+          uint32_t ph[4], pl[4], sh[4], sl[4];
+          sbl::ldmatrix_x4_trans(ph, tiles + at);
+          sbl::ldmatrix_x4_trans(pl, tiles + tq * TL + at);
+          sbl::ldmatrix_x4_trans(sh, tiles + 2 * tq * TL + at);
+          sbl::ldmatrix_x4_trans(sl, tiles + 3 * tq * TL + at);
+          sbl::mma_hl_b<D, kCols>(dva, ph, pl, gs + q0 * LD, c0, lane);
+          sbl::mma_hl_b<D, kCols>(dka, sh, sl, qs + q0 * LD, c0, lane);
+        } else {
+          float br[2][4];
+#pragma unroll
+          for (int jn = 0; jn < 2; ++jn) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = key0 + g + (e >> 1) * 8;
+              const int qi = q0 + jn * 8 + 2 * t + (e & 1);
+              br[jn][e] = (bb != nullptr && key < Tk && qi < Tq)
+                              ? __ldg(bb + (long long)qi * Tk + key)
+                              : 0.f;
+            }
+          }
+          // S^T and dP^T: rows are this warp's keys, columns the 16 queries
+          float st[2][4], dpt[2][4];
+#pragma unroll
+          for (int jn = 0; jn < 2; ++jn) {
+            st[jn][0] = st[jn][1] = st[jn][2] = st[jn][3] = 0.f;
+            dpt[jn][0] = dpt[jn][1] = dpt[jn][2] = dpt[jn][3] = 0.f;
+          }
+          mma_abt<D, 2>(st, kw, qs + q0 * LD, lane);
+          mma_abt<D, 2>(dpt, vw, gs + q0 * LD, lane);
+#pragma unroll
+          for (int jn = 0; jn < 2; ++jn) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = key0 + g + (e >> 1) * 8;
+              const int qi = q0 + jn * 8 + 2 * t + (e & 1);
+              float pd = 0.f, ds = 0.f;
+              if (key < Tk && qi < Tq) {
+                const float x = st[jn][e] * scale + br[jn][e];
+                const float p = __expf(x - row_max[qi]) * row_inv[qi];
+                float dpv = dpt[jn][e];
+                pd = p;
+                if (drop.on) {
+                  const bool keep = (keep_bits[qi * n_ktiles + key / kKeyTile] >>
+                                     (key % kKeyTile)) & 1u;
+                  pd = keep ? p * drop.inv_keep : 0.f;
+                  dpv = keep ? dpv * drop.inv_keep : 0.f;
+                }
+                ds = p * (dpv - row_dp[qi]);
+              }
+              st[jn][e] = pd;   // P_drop^T
+              dpt[jn][e] = ds;  // dS^T
+            }
+          }
+          mma_pb<D, 1, kCols>(dva, st, gs + q0 * LD, c0, lane);
+          mma_pb<D, 1, kCols>(dka, dpt, qs + q0 * LD, c0, lane);
+        }
+      }
+      store(dv + koff, key0, Tk, dva, c0, 1.f);
+      store(dk + koff, key0, Tk, dka, c0, scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5
+// ---------------------------------------------------------------------------
 
 // out: (B, H, Tq, Tk) bytes, 1 = keep.  A grid-stride loop over elements.
 __global__ void dropout_keep_mask_kernel(unsigned char* __restrict__ out, long long n, int H,
@@ -335,9 +857,17 @@ __global__ void dropout_keep_mask_kernel(unsigned char* __restrict__ out, long l
   }
 }
 
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+// The shapes both routes take: the f32 bodies' shared memory bounds the
+// lengths, and the bf16 bodies take all of them.
 bool shape_ok(int B, int Tq, int Tk, int H, int D) {
   return B > 0 && H > 0 && (D == 16 || D == 32 || D == 64 || D == 128) && Tq > 0 && Tk > 0 &&
-         smem_bytes(Tq, Tk, D, 0) <= kMaxSmem && smem_bytes(Tq, Tk, D, 1) <= kMaxSmem;
+         f32_smem_bytes(Tq, Tk, D, 0) <= kMaxSmem && f32_smem_bytes(Tq, Tk, D, 1) <= kMaxSmem;
 }
 
 Dropout make_dropout(unsigned long long seed, unsigned int thresh, float inv_keep, int on) {
@@ -349,63 +879,95 @@ Dropout make_dropout(unsigned long long seed, unsigned int thresh, float inv_kee
   return d;
 }
 
-// Launch kernel with smem bytes of dynamic shared memory, opting in past
-// the 48 KB a launch gets without.
+int warps_for(int rows) {
+  const int tiles = (rows + 15) / 16;
+  return tiles < kMaxMmaWarps ? tiles : kMaxMmaWarps;
+}
+
+// Launch kernel as blocks of `threads` with smem bytes of dynamic shared
+// memory, opting in past the 48 KB a launch gets without.
 template <typename Kernel, typename... Args>
-cudaError_t launch_with(Kernel kernel, unsigned blocks, size_t smem, cudaStream_t stream,
-                        Args... args) {
+cudaError_t launch_with(Kernel kernel, unsigned blocks, int threads, size_t smem,
+                        cudaStream_t stream, Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<blocks, kWarps * 32, smem, stream>>>(args...);
+  kernel<<<blocks, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* out,
                        int B, int Tq, int Tk, int H, int bias_per_batch, float scale,
-                       Dropout drop, cudaStream_t stream) {
-  return launch_with(dropout_attention_fwd_kernel<T, D>, (unsigned)B * (unsigned)H,
-                     (size_t)smem_bytes(Tq, Tk, D, 0), stream, static_cast<const T*>(q),
-                     static_cast<const T*>(k), static_cast<const T*>(v),
-                     static_cast<const float*>(bias), static_cast<T*>(out), Tq, Tk, H,
-                     bias_per_batch, scale, drop);
+                       Dropout drop, int dtype, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)B * (unsigned)H;
+  if (dtype == 0)
+    return launch_with(dropout_attention_fwd_f32_kernel<D>, blocks, kWarps * 32,
+                       (size_t)f32_smem_bytes(Tq, Tk, D, 0), stream,
+                       static_cast<const float*>(q), static_cast<const float*>(k),
+                       static_cast<const float*>(v), static_cast<const float*>(bias),
+                       static_cast<float*>(out), Tq, Tk, H, bias_per_batch, scale, drop);
+  const int warps = warps_for(Tq);
+  return launch_with(dropout_attention_fwd_mma_kernel<D>, blocks, warps * 32,
+                     sizeof(bf16) * (size_t)sbl::mma_smem_elems(D, warps), stream,
+                     static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                     static_cast<const bf16*>(v), static_cast<const float*>(bias),
+                     static_cast<bf16*>(out), Tq, Tk, H, bias_per_batch, scale, drop);
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* bias,
                        const void* dout, void* dq, void* dk, void* dv, int B, int Tq, int Tk,
-                       int H, int bias_per_batch, float scale, Dropout drop,
+                       int H, int bias_per_batch, float scale, Dropout drop, int dtype,
                        cudaStream_t stream) {
-  return launch_with(dropout_attention_bwd_kernel<T, D>, (unsigned)B * (unsigned)H,
-                     (size_t)smem_bytes(Tq, Tk, D, 1), stream, static_cast<const T*>(q),
-                     static_cast<const T*>(k), static_cast<const T*>(v),
-                     static_cast<const float*>(bias), static_cast<const T*>(dout),
-                     static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), Tq, Tk, H,
+  const unsigned blocks = (unsigned)B * (unsigned)H;
+  if (dtype == 0)
+    return launch_with(dropout_attention_bwd_f32_kernel<D>, blocks, kWarps * 32,
+                       (size_t)f32_smem_bytes(Tq, Tk, D, 1), stream,
+                       static_cast<const float*>(q), static_cast<const float*>(k),
+                       static_cast<const float*>(v), static_cast<const float*>(bias),
+                       static_cast<const float*>(dout), static_cast<float*>(dq),
+                       static_cast<float*>(dk), static_cast<float*>(dv), Tq, Tk, H,
+                       bias_per_batch, scale, drop);
+  const int warps = warps_for(Tq > Tk ? Tq : Tk);
+  return launch_with(bwd_mma_tiles(Tq, Tk) ? dropout_attention_bwd_mma_kernel<D, true>
+                                           : dropout_attention_bwd_mma_kernel<D, false>,
+                     blocks, warps * 32, (size_t)bwd_mma_smem_bytes(Tq, Tk, D), stream,
+                     static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                     static_cast<const bf16*>(v), static_cast<const float*>(bias),
+                     static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
+                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, Tk, H,
                      bias_per_batch, scale, drop);
 }
 
-// Return LAUNCH's instantiation for the launch's dtype (0 = float32, 1 =
-// bfloat16) and head width D, called with the remaining arguments.
-#define SBL_TRAIN_DISPATCH(LAUNCH, ...)                                                    \
-  switch (dtype * 1000 + D) {                                                            \
-    case 16: return (int)LAUNCH<float, 16>(__VA_ARGS__);                                  \
-    case 32: return (int)LAUNCH<float, 32>(__VA_ARGS__);                                  \
-    case 64: return (int)LAUNCH<float, 64>(__VA_ARGS__);                                  \
-    case 128: return (int)LAUNCH<float, 128>(__VA_ARGS__);                                \
-    case 1016: return (int)LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__);                        \
-    case 1032: return (int)LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__);                        \
-    case 1064: return (int)LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);                        \
-    case 1128: return (int)LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);                       \
-    default: return (int)cudaErrorInvalidValue;                                          \
+// Check the launch's dtype, shape and (bf16: 16-byte staging copies)
+// pointers, select the device, and return 0 or the error to report.
+int prepare(int B, int Tq, int Tk, int H, int D, int dtype, int device,
+            std::initializer_list<const void*> ptrs) {
+  if (!shape_ok(B, Tq, Tk, H, D) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    for (const void* p : ptrs)
+      if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
+  return (int)cudaSetDevice(device);
+}
+
+// Return LAUNCH's instantiation for the head width D, called with the
+// remaining arguments.
+#define SBL_TRAIN_DISPATCH(LAUNCH, ...)                              \
+  switch (D) {                                                       \
+    case 16: return (int)LAUNCH<16>(__VA_ARGS__);                    \
+    case 32: return (int)LAUNCH<32>(__VA_ARGS__);                    \
+    case 64: return (int)LAUNCH<64>(__VA_ARGS__);                    \
+    case 128: return (int)LAUNCH<128>(__VA_ARGS__);                  \
+    default: return (int)cudaErrorInvalidValue;                      \
   }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D in {16, 32, 64, 128}; Tq, Tk such that
-// smem_bytes fits a block (kMaxSmem).
+// dtype: 0 = float32, 1 = bfloat16 (pointers 16-byte aligned); D in {16,
+// 32, 64, 128}; Tq, Tk such that f32_smem_bytes fits a block (kMaxSmem).
 // thresh = uint32(rate * 2^32), inv_keep = 1 / (1 - rate), dropout_on =
 // rate > 0.  Each returns the cudaError_t of its launch (0 on success).
 extern "C" int sbl_small_mha_dropout_fwd_flat(const void* q, const void* k, const void* v,
@@ -415,12 +977,12 @@ extern "C" int sbl_small_mha_dropout_fwd_flat(const void* q, const void* k, cons
                                               unsigned int thresh, float inv_keep,
                                               int dropout_on, int dtype, int device,
                                               void* stream) {
-  if (!shape_ok(B, Tq, Tk, H, D)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const int err = prepare(B, Tq, Tk, H, D, dtype, device, {q, k, v, out});
+  if (err != 0) return err;
   const Dropout drop = make_dropout(seed, thresh, inv_keep, dropout_on);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SBL_TRAIN_DISPATCH(launch_fwd, q, k, v, bias, out, B, Tq, Tk, H, bias_per_batch, scale, drop, s)
+  SBL_TRAIN_DISPATCH(launch_fwd, q, k, v, bias, out, B, Tq, Tk, H, bias_per_batch, scale, drop,
+                     dtype, s)
 }
 
 extern "C" int sbl_small_mha_dropout_bwd_flat(const void* q, const void* k, const void* v,
@@ -430,12 +992,12 @@ extern "C" int sbl_small_mha_dropout_bwd_flat(const void* q, const void* k, cons
                                               unsigned long long seed, unsigned int thresh,
                                               float inv_keep, int dropout_on, int dtype,
                                               int device, void* stream) {
-  if (!shape_ok(B, Tq, Tk, H, D)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const int err = prepare(B, Tq, Tk, H, D, dtype, device, {q, k, v, dout, dq, dk, dv});
+  if (err != 0) return err;
   const Dropout drop = make_dropout(seed, thresh, inv_keep, dropout_on);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SBL_TRAIN_DISPATCH(launch_bwd, q, k, v, bias, dout, dq, dk, dv, B, Tq, Tk, H, bias_per_batch, scale, drop, s)
+  SBL_TRAIN_DISPATCH(launch_bwd, q, k, v, bias, dout, dq, dk, dv, B, Tq, Tk, H, bias_per_batch,
+                     scale, drop, dtype, s)
 }
 
 // out: (B, H, Tq, Tk) torch.bool (one byte per element).

@@ -41,9 +41,11 @@ non-contiguous input.  ``<wrapper>.launches`` counts the launches each
 wrapper makes; a twin counts its own, not the flat kernel's.
 
 Head widths.  K1/K12 and K3/K4 are built for d in HEAD_DIMS (a template
-parameter of each kernel).  K1/K12 take any sequence lengths; K3/K4 stage
-a head's operands whole in shared memory, so their lengths are bounded by
-``train_smem_bytes`` (Tq = Tk <= 116 at d = 64).  ``models.build_model``
+parameter of each kernel).  K1/K12 take any sequence lengths; K3/K4's f32
+route stages a head's operands whole in shared memory, so their lengths
+are bounded by ``train_smem_bytes`` (Tq = Tk <= 116 at d = 64), and their
+bf16 (tensor-core) route, whose shared memory ``train_mma_smem_bytes``
+counts, takes the same lengths.  ``models.build_model``
 refuses a configuration whose shapes these kernels do not take before
 anything runs on the card; a wrapper given such a CUDA tensor raises.
 """
@@ -64,22 +66,48 @@ MASK_FILL = -1e9
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the head widths the attention kernels are built for (a template parameter)
 HEAD_DIMS = (16, 32, 64, 128)
-_TRAIN_WARPS = 4   # warps of a K3/K4 block
+_TRAIN_WARPS = 4   # warps of a K3/K4 f32 block
+# csrc/mma.cuh: keys per score tile, and the most warps (16 rows each) of a
+# tensor-core block
+_KEY_TILE = 32
+_MAX_MMA_WARPS = 4
 
 
 def train_smem_bytes(tq: int, tk: int, d: int, backward: bool) -> int:
-    """Bytes of shared memory a K3 (``backward`` False) or K4 block takes:
-    the head's f32 rows of stride d + 1 (K and V; in K4 also Q and dO), K4's
-    (Tq, Tk) dS and dropped P, and a row of Tk per warp (csrc/
-    attention_train.cu ``smem_bytes``)."""
+    """Bytes of shared memory a K3 (``backward`` False) or K4 block of the
+    f32 route takes: the head's f32 rows of stride d + 1 (K and V; in K4
+    also Q and dO), K4's (Tq, Tk) dS and dropped P, and a row of Tk per warp
+    (csrc/attention_train.cu ``f32_smem_bytes``).  It bounds the lengths
+    both routes take."""
     pad = d + 1
     if not backward:
         return 4 * (2 * tk * pad + _TRAIN_WARPS * d + _TRAIN_WARPS * tk)
     return 4 * ((2 * tq + 2 * tk) * pad + 2 * tq * tk + _TRAIN_WARPS * tk)
 
 
+def train_mma_smem_bytes(tq: int, tk: int, d: int, backward: bool) -> int:
+    """Bytes of shared memory a block of the bf16 (tensor-core) route takes.
+    K3 runs K1's body: a tile of K and V and 16 query rows per warp, bf16
+    rows of d + 8 (csrc/mma.cuh ``mma_smem_elems``), whatever the lengths.
+    K4 stages Q and dO (rows padded to 16) and K and V (to tiles of 32 keys)
+    whole, per query row three f32 statistics and one keep word per key
+    tile, and, at one key tile and at most 64 query rows, the bf16 hi and lo
+    halves of P_drop and dS in rows of 40 (csrc/attention_train.cu
+    ``bwd_mma_smem_bytes``)."""
+    if not backward:
+        warps = min(-(-tq // 16), _MAX_MMA_WARPS)
+        return 2 * (2 * _KEY_TILE + 16 * warps) * (d + 8)
+    rows = -(-tq // 16) * 16
+    key_tiles = -(-tk // _KEY_TILE)
+    tiles = (4 * rows * (_KEY_TILE + 8) * 2
+             if tk <= _KEY_TILE and tq <= 16 * _MAX_MMA_WARPS else 0)
+    return (2 * (2 * rows + 2 * key_tiles * _KEY_TILE) * (d + 8)
+            + 4 * rows * (3 + key_tiles) + tiles)
+
+
 def train_kernels_fit(d: int, tq: int, tk: int) -> bool:
-    """Whether K3 and K4 take head width d at query/key lengths tq, tk."""
+    """Whether K3 and K4 take head width d at query/key lengths tq, tk (the
+    f32 route's shared memory bounds both routes)."""
     return d in HEAD_DIMS and all(
         train_smem_bytes(tq, tk, d, bwd) <= _build.MAX_SMEM_BYTES
         for bwd in (False, True))
@@ -139,8 +167,7 @@ def _check_cuda(name, tensors, bias, d, train=False):
         if not train_kernels_fit(d, tq, tk):
             raise ValueError(f"{name}: Tq={tq}, Tk={tk} at d={d} need more "
                              f"shared memory than a block may take")
-    elif q.dtype == torch.bfloat16 and any(
-            t.data_ptr() % 16 for t in tensors):
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: bf16 operands must be 16-byte aligned")
 
 

@@ -73,6 +73,57 @@ def test_train_smem_bytes_counts_the_staged_buffers():
             > attention.train_smem_bytes(1, 30, 128, True))
 
 
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_the_bf16_train_bodies_fit_every_admitted_length(d):
+    """K3/K4's tensor-core bodies take every (Tq, Tk) that the f32 route's
+    shared memory admits (``train_kernels_fit``): for each Tq, at the
+    longest Tk admitted (their shared memory grows with both), the bf16
+    route's blocks fit the 227 KB too."""
+    tq = 1
+    while attention.train_kernels_fit(d, tq, 1):
+        lo, hi = 1, 4096   # the longest admitted Tk at this Tq
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if attention.train_kernels_fit(d, tq, mid) else (lo, mid - 1)
+        for bwd in (False, True):
+            assert attention.train_mma_smem_bytes(tq, lo, d, bwd) <= _build.MAX_SMEM_BYTES
+        tq += 1
+    assert tq > 84
+
+
+@pytest.mark.parametrize("tq,tk,d,fwd,bwd", [
+    # encoder: 2 warps; Q, dO as 32 rows and K, V as one 32-key tile of
+    # d + 8 bf16, 32 rows of three f32 statistics and one keep word, and
+    # P_drop and dS (hi and lo) as 32 rows of 40 bf16
+    (30, 30, 64, 2 * (64 + 32) * 72,
+     2 * (2 * 32 + 2 * 32) * 72 + 4 * 32 * 4 + 4 * 32 * 40 * 2),
+    # the decoder's 17 rows: 2 m16 tiles; the cached cross-attention's 1 row
+    (17, 17, 64, 2 * (64 + 32) * 72,
+     2 * (2 * 32 + 2 * 32) * 72 + 4 * 32 * 4 + 4 * 32 * 40 * 2),
+    (1, 30, 128, 2 * (64 + 16) * 136,
+     2 * (2 * 16 + 2 * 32) * 136 + 4 * 16 * 4 + 4 * 16 * 40 * 2),
+    # past one key tile no P_drop / dS tiles; K3's block stops growing at 4
+    # warps, K4's key tiles and words do not
+    (17, 33, 64, 2 * (64 + 32) * 72, 2 * (2 * 32 + 2 * 64) * 72 + 4 * 32 * 5),
+    (116, 116, 64, 2 * (64 + 64) * 72, 2 * (2 * 128 + 2 * 128) * 72 + 4 * 128 * 7)])
+def test_train_mma_smem_bytes_counts_the_staged_buffers(tq, tk, d, fwd, bwd):
+    assert attention.train_mma_smem_bytes(tq, tk, d, False) == fwd
+    assert attention.train_mma_smem_bytes(tq, tk, d, True) == bwd
+
+
+def test_the_smem_mirrors_take_the_sources_constants():
+    """The tile constants ``ops/attention.py`` mirrors are those of
+    csrc/mma.cuh (key tile, warps of a tensor-core block) and
+    csrc/attention_train.cu (warps of an f32 block, the card's limit)."""
+    def constant(src, name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             (_build.CSRC / src).read_text()).group(1))
+    assert constant("mma.cuh", "kKeyTile") == attention._KEY_TILE
+    assert constant("mma.cuh", "kMaxMmaWarps") == attention._MAX_MMA_WARPS
+    assert constant("attention_train.cu", "kWarps") == attention._TRAIN_WARPS
+    assert constant("attention_train.cu", "kMaxSmem") == _build.MAX_SMEM_BYTES
+
+
 @pytest.mark.parametrize("L,D,DI,fits", [
     (17, 512, 2048, True), (9, 64, 128, True), (64, 512, 2048, True),
     (65, 512, 2048, False), (17, 1024, 4096, True), (17, 512, 700, False)])
