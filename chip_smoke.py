@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card (written for an H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare-eval PARENT_DIR
 
 Run from the repository root on a machine with one NVIDIA card and the CUDA
 toolkit (nvcc on PATH or under /usr/local/cuda).  It needs no network, and
@@ -12,7 +13,9 @@ line (phase 2 adds nvcc's per-kernel register report):
   2. build  -- build (or load) the hand-written kernels from csrc/;
   2 also prints, per head width, ptxas's registers and spills of the
      tensor-core bodies of K1/K12 and K3/K4 and of K3/K4's f32 scalar
-     bodies, and fails if one spills;
+     bodies, and those of K11's and K10's bodies (the warpgroup-MMA ones,
+     K10's per number of 64-row tiles a warpgroup holds, and the f32
+     ones), and fails if a tensor-core body spills;
   3. kernels vs plain versions on the card, at the recognize path's shapes:
      K2 stack_frames bit-exact; K1 small_mha_flat within K1_TOL, f32 and
      bf16, at d = 64 and at the other head widths it is built for (16, 32,
@@ -32,9 +35,10 @@ line (phase 2 adds nvcc's per-kernel register report):
      weights: kernel path vs plain path at B=32 in f32 (TF32 off) and bf16,
      then the bf16 recognize path at B=512: launch counts, output checks,
      stage split, clips/s;
-  4b. the tiny preset (d_k = 16) through recognize (f32, bf16, and f32 with
-     the fused decoder layer) and one f32 train step, each against the
-     plain path: recognize launches K1 (and K11), the train step K2, K3 and
+  4b. the tiny preset (d_k = 16) through recognize (f32, bf16, f32 with
+     the fused decoder layer, and f32 and bf16 with both eval-side switches,
+     K10 at C = 8, S = 8) and one f32 train step, each against the plain
+     path: recognize launches K1 (and K11, K10), the train step K2, K3 and
      K4, as counted;
   3c. the training entry point's kernels vs their plain versions at its
      shapes, f32 and bf16: K6 ingest_train at (240,30,96,96) -> 88 with
@@ -67,7 +71,10 @@ line (phase 2 adds nvcc's per-kernel register report):
      both directions, B=512, f32 and bf16, within LAYER_TOL of its plain
      version (and, printed, against the module path); times of kernel, plain
      version and the module (library) composition; K11 at d_k = 128 (4
-     heads) within LAYER_TOL; K1 at Tq=1 runs in phase 3;
+     heads) within LAYER_TOL; K1 at Tq=1 runs in phase 3; the per-batch
+     sums of K10; K10 at C = 12 and K11 at d_model 40 (2 heads of 20) in
+     bf16, whose weights TMA cannot map (rows not a multiple of 16 bytes:
+     the ring's register path), within RESBLOCK_TOL / LAYER_TOL;
   7. path A, `sbl` recognize at the full width with both eval-side switches
      on and K9 as the ingest: switches on vs off at B=SWITCH_CHECK_BATCH
      (first-step logits, token agreement), then B=512: launches per batch
@@ -120,6 +127,15 @@ tensor cores, which also stands for 32-bit integer work).
 Any failed phase raises, so the script exits non-zero without the result
 line; so it does when torch sees no CUDA device, and when the port's
 package is not beside it.
+
+With --compare-eval it runs instead phase 3d and phase 7 (the eval-side
+kernels K9-K11 against their plain versions, with their device times, and
+path A) in the checkout PARENT_DIR and in this one, in turns (parent,
+change, change, parent), each in a process of its own with that checkout
+first on sys.path and by that checkout's own chip_smoke.py, so one card and
+one host serve both trees; each turn's lines go to
+chiprun_out/compare_eval_<label><turn>.log, and the K10/K11 times and path
+A's rates of every turn to chiprun_out/compare_eval.json.
 """
 from __future__ import annotations
 
@@ -197,6 +213,10 @@ RESBLOCK_F32_FRAMES = 1536
 # (name, C, S, launches per recognize batch): ResNet-18's eligible blocks
 RESBLOCK_SHAPES = (("layer1 x2", 64, 22, 2), ("layer2 block1", 128, 11, 1),
                    ("layer3 block1", 256, 6, 1), ("layer4 block1", 512, 3, 1))
+# bf16 only, checked and not timed: channels whose weight rows TMA cannot
+# map (9C bf16 not a multiple of 16 bytes), so the ring fills its stages
+# through registers
+RESBLOCK_REGISTER_SHAPES = (("weights through registers", 12, 8, 0),)
 # K11 against its plain version: LayerNorm outputs of O(1).  f32: summation
 # order (the FFN's w2 sum is taken in chunks).  bf16: seven roundings to
 # bf16 inside the layer (q, k, v, two contexts, two LayerNorm outputs, the
@@ -350,6 +370,21 @@ def phase_build():
                 print(f"phase 2 {kernel} <d={key[0]}{variant}>: {used}; {spill}")
                 if "0 bytes spill stores, 0 bytes spill loads" not in spill:
                     spills.append(f"{kernel} <{key}>: {spill}")
+        # the K10/K11 bodies: the tensor-core ones (bf16, csrc/gemm_ring.cuh)
+        # and the f32 ones (gemm_tile.cuh's FMA tile)
+        # (the K10 body once per number of 64-row tiles a warpgroup holds)
+        for kernel, pattern, n, tensor_cores in (
+                ("decoder_layer_mma_kernel (K11 bf16)", r"(decoder_layer_mma_kernel)", 1, True),
+                ("resblock_mma_kernel (K10 bf16)", r"resblock_mma_kernelILi(\d+)E", 4, True),
+                ("decoder_layer_kernel (K11 f32)", r"(decoder_layer_kernel)IfE", 1, False),
+                ("resblock_kernel (K10 f32)", r"(resblock_kernel)IfE", 1, False)):
+            found = ptxas_report(text, pattern)
+            check(len(found) == n, f"ptxas report of {kernel}: {sorted(found)}")
+            for key, (used, spill) in sorted(found.items()):
+                variant = f" <{key[0]} x 64 rows>" if key[0].isdigit() else ""
+                print(f"phase 2 {kernel}{variant}: {used}; {spill}")
+                if tensor_cores and "0 bytes spill stores, 0 bytes spill loads" not in spill:
+                    spills.append(f"{kernel}{variant}: {spill}")
         check(not spills, f"kernels spill: {spills}")
     return seconds
 
@@ -1136,33 +1171,41 @@ def phase_tiny(torch, np, dev):
     clips = torch.from_numpy(np.random.default_rng(7).integers(
         0, 256, size=(TINY_BATCH, T, raw, raw), dtype=np.uint8)).to(dev)
     out = {}
-    for dtype, fused in (("float32", False), ("bfloat16", False), ("float32", True)):
+    # (dtype, K11 fused layer, K10 on the eligible block: C = 8 at S = 8)
+    for dtype, fused, resblock in (("float32", False, False), ("bfloat16", False, False),
+                                   ("float32", True, False), ("float32", True, True),
+                                   ("bfloat16", True, True)):
         runs = []
         for kernels in (True, False):
             c = dataclasses.replace(cfg, compute_dtype=dtype,
                                     use_pallas_attention=kernels,
                                     use_fused_decoder_layer=fused)
-            model = build_model(c, dev, seed=0)
+            model = build_model(c, dev, seed=0, use_pallas_resblock=resblock)
             torch.cuda.synchronize()
             ops.reset_launch_counts()
             runs.append(recognize_batch(model, clips, crop))
             torch.cuda.synchronize()
             if kernels:
-                launches, want = ops.launch_counts(), expected_launches(c)
+                launches = ops.launch_counts()
+                want = expected_launches(c, use_pallas_resblock=resblock)
             del model
         kern, plain = runs
         first = max((a[:, 0] - b[:, 0]).abs().max().item() for a, b in (
             (kern.logits_l2r, plain.logits_l2r), (kern.logits_r2l, plain.logits_r2l)))
         agree = torch.cat([(kern.ys_l2r == plain.ys_l2r)[:, 1:],
                            (kern.ys_r2l == plain.ys_r2l)[:, 1:]]).float().mean().item()
-        label = f"phase 4b tiny sbl {dtype}{' fused layer' if fused else ''}"
+        label = (f"phase 4b tiny sbl {dtype}{' fused layer' if fused else ''}"
+                 f"{' resblock' if resblock else ''}")
         print(f"{label} B={TINY_BATCH} recognize: K1 launches "
-              f"{launches['small_mha_flat']}, K11 {launches['fused_decoder_layer']} "
-              f"(expected {want['small_mha_flat']}, {want['fused_decoder_layer']}); "
+              f"{launches['small_mha_flat']}, K11 {launches['fused_decoder_layer']}, "
+              f"K10 {launches['fused_resblock']} (expected {want['small_mha_flat']}, "
+              f"{want['fused_decoder_layer']}, {want['fused_resblock']}); "
               f"kernel vs plain path first-step logits {first:.3g} (tol "
               f"{LOGIT_TOL[dtype]}), token agreement {agree:.4f}")
         check(launches == want, f"{label}: launches {launches} != {want}")
         check(launches["small_mha_flat"] > 0, f"{label}: K1 not launched")
+        check(launches["fused_resblock"] > 0 or not resblock, f"{label}: K10 not launched")
+        check(launches["fused_decoder_layer"] > 0 or not fused, f"{label}: K11 not launched")
         out[f"{label} K1"] = launches["small_mha_flat"]
         check(first <= LOGIT_TOL[dtype], f"{label}: logits differ by {first}")
         check(agree >= MIN_TOKEN_AGREEMENT[dtype], f"{label}: tokens agree {agree}")
@@ -1498,14 +1541,17 @@ def phase_entry(torch, np, dev):
     return launches, dict(seconds=seconds, turns=turns, loss=out["train_loss"])
 
 
-def _layer_for_check(torch, dev, dtype, seed, n_head=None):
+def _layer_for_check(torch, dev, dtype, seed, n_head=None, d_model=None):
     """A full-width ``_SBLLayer`` with seeded weights and non-trivial
     biases and LayerNorm vectors (their init is zeros and ones); with
-    ``n_head``, that many heads of width d_model / n_head."""
+    ``n_head``, that many heads of width d_model / n_head; with
+    ``d_model``, that width and an FFN twice as wide."""
     from sbl_for_multilingual_lip_reading_tpu_torch import config as C
     from sbl_for_multilingual_lip_reading_tpu_torch.models import init_weights
     from sbl_for_multilingual_lip_reading_tpu_torch.models.decoder_sbl import _SBLLayer
     d = C.sbl().dims
+    if d_model is not None:
+        d = dataclasses.replace(d, d_model=d_model, d_inner=2 * d_model)
     if n_head is not None:
         d = dataclasses.replace(d, n_head=n_head, d_k=d.d_model // n_head,
                                 d_v=d.d_model // n_head)
@@ -1584,7 +1630,8 @@ def phase_eval_kernels(torch, np, dev, frames=RESBLOCK_FRAMES, batch=SLICE_BATCH
     for dt, n in ((torch.bfloat16, frames), (torch.float32,
                                              min(frames, RESBLOCK_F32_FRAMES))):
         name_dt = str(dt).split(".")[-1]
-        for name, C_, S, per_batch in RESBLOCK_SHAPES:
+        extra = RESBLOCK_REGISTER_SHAPES if dt == torch.bfloat16 else ()
+        for name, C_, S, per_batch in RESBLOCK_SHAPES + extra:
             block = BasicBlock(C_, C_, 1, cfg.frontend.bn_epsilon, dt).to(dev).eval()
             with torch.no_grad():
                 for conv in (block.conv1, block.conv2):
@@ -1627,7 +1674,7 @@ def phase_eval_kernels(torch, np, dev, frames=RESBLOCK_FRAMES, batch=SLICE_BATCH
                 n_bytes = (2 * x.numel() + 2 * 9 * C_ * C_) * x.element_size() + 16 * C_
                 bound_ms, bound_by = bound(
                     n_bytes, flops, BF16_FLOPS if dt == torch.bfloat16 else F32_OPS)
-                timed = timing and dt == torch.bfloat16
+                timed = timing and dt == torch.bfloat16 and per_batch > 0
                 k10.append(dict(
                     case=f"{name} ({n},{C_},{S},{S})", dtype=name_dt,
                     per_batch=per_batch, max_abs_err=max_err, largest=top,
@@ -1649,6 +1696,12 @@ def phase_eval_kernels(torch, np, dev, frames=RESBLOCK_FRAMES, batch=SLICE_BATCH
               f"{r['max_abs_err']:.3g} (largest element {r['largest']:.3g}), vs "
               f"module {r['vs_module']:.3g}; {times}, bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']})")
+    timed16 = [r for r in k10 if r["ms"] is not None]
+    if timed16:
+        print("phase 3d fused_resblock per path-A batch (bf16, 5 launches): kernel "
+              + ", ".join(f"{what} {sum(r[key] * r['per_batch'] for r in timed16):.3f} ms"
+                          for what, key in (("", "ms"), ("module (cuDNN)", "module_ms"),
+                                            ("bound", "bound_ms"))).lstrip(" ,"))
 
     # ---- K11 at the decode loop's narrowest and widest segment
     k11 = []
@@ -1730,6 +1783,27 @@ def phase_eval_kernels(torch, np, dev, frames=RESBLOCK_FRAMES, batch=SLICE_BATCH
         check(err <= LAYER_TOL[name_dt] and bool(torch.isfinite(got).all()),
               f"K11 d_k=128 {name_dt}: max abs err {err}")
         del layer, x, ck, got, want
+    # d_model 40, 2 heads of 20, bf16: no TMA map (its boxes need d_model a
+    # multiple of 16), so the ring fills its stages through registers; a
+    # cluster of 2; x staged by 16-byte copies, cross K/V (d_k not a
+    # multiple of 8) element by element
+    layer, d = _layer_for_check(torch, dev, torch.bfloat16, 13, n_head=2, d_model=40)
+    L = 17
+    x = torch.randn((2, 64, L, d.d_model), generator=g, device=dev).to(torch.bfloat16)
+    ck = torch.randn((2, 64, Tk, d.d_model), generator=g, device=dev).to(torch.bfloat16)
+    causal = ops.mask_to_bias(
+        torch.ones(L, L, dtype=torch.bool, device=dev).triu(1)[None], L, L)[0]
+    with torch.inference_mode():
+        args = (x, *layer_params_to_args(layer), ck, ck.flip(-1).contiguous(), d.n_head)
+        got = ops.fused_decoder_layer(*args, mask_bias=causal)
+        want = ops.fused_decoder_layer_plain(*args, mask_bias=causal)
+    err = (got.float() - want.float()).abs().max().item()
+    print(f"phase 3d fused_decoder_layer weights through registers: d_model "
+          f"{d.d_model}, d_k={d.d_k}, L={L} causal bias (2,64,{L},{d.d_model}) "
+          f"bfloat16: max abs err {err:.3g} (tol {LAYER_TOL['bfloat16']})")
+    check(err <= LAYER_TOL["bfloat16"] and bool(torch.isfinite(got).all()),
+          f"K11 d_model={d.d_model} bfloat16: max abs err {err}")
+    del layer, x, ck, got, want
     for r in k11:
         print(f"phase 3d fused_decoder_layer {r['case']} {r['dtype']}: max abs err "
               f"{r['max_abs_err']:.3g} (tol {LAYER_TOL[r['dtype']]}), vs module path "
@@ -2125,7 +2199,68 @@ def phase_path_d(torch, np, dev):
                           recipe=summary, **timing)
 
 
+def eval_child(tree: str) -> dict:
+    """One checkout's phase 3d and phase 7, by its own chip_smoke.py (in a
+    process of its own, with the checkout first on sys.path)."""
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+    import chip_smoke as target
+    if not Path(target.__file__).resolve().is_relative_to(Path(tree).resolve()):
+        raise RuntimeError(f"chip_smoke came from {target.__file__}, not {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    target.phase_build()
+    _, k10, k11 = target.phase_eval_kernels(torch, np, dev)
+    _, path_a = target.phase_path_a(torch, np, dev)
+
+    def bf16(rows):
+        return {r["case"]: {k: r[k] for k in ("ms", "plain_ms", "module_ms", "bound_ms",
+                                              "max_abs_err")}
+                for r in rows if r["dtype"] == "bfloat16"}
+    return dict(tree=tree, fused_resblock=bf16(k10), fused_decoder_layer=bf16(k11),
+                path_a=path_a)
+
+
+def compare_eval(parent: str) -> int:
+    """Phase 3d and phase 7 in PARENT_DIR and in this checkout, in turns."""
+    change = str(Path(__file__).resolve().parent)
+    out = Path(change) / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    runs = []
+    for turn, (label, tree) in enumerate((("parent", parent), ("change", change),
+                                          ("change", change), ("parent", parent))):
+        res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--eval-child", tree], cwd=tree, capture_output=True,
+                             text=True, timeout=900, check=False)
+        (out / f"compare_eval_{label}{turn}.log").write_text(res.stdout + res.stderr)
+        check(res.returncode == 0, f"{label} turn in {tree} failed:\n{res.stderr[-2000:]}")
+        run = dict(json.loads(res.stdout.strip().splitlines()[-1]), label=label)
+        print(json.dumps(run), flush=True)
+        runs.append(run)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=False).stdout.strip()
+    summary = {f"{kernel} {case}": {lab: [r[kernel][case]["ms"] for r in runs
+                                          if r["label"] == lab]
+                                    for lab in ("parent", "change")}
+               for kernel in ("fused_resblock", "fused_decoder_layer")
+               for case in runs[0][kernel]}
+    for key in ("clips_per_s_on", "clips_per_s_off"):
+        summary[f"path_a {key}"] = {lab: [r["path_a"][key] for r in runs if r["label"] == lab]
+                                    for lab in ("parent", "change")}
+    summary["card"] = smi
+    (out / "compare_eval.json").write_text(json.dumps(dict(runs=runs, summary=summary)))
+    print(smi)
+    print(json.dumps(summary))
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--eval-child"]:
+        print(json.dumps(eval_child(sys.argv[2])), flush=True)
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this script runs only "
@@ -2136,6 +2271,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if sys.argv[1:2] == ["--compare-eval"]:
+        return compare_eval(str(Path(sys.argv[2]).resolve()))
     _set_switches(False)
 
     t_start = time.perf_counter()
@@ -2256,17 +2393,18 @@ def main() -> int:
     rows.append(row("stack_frames_u8", "stem.cu", "stem.py:65",
                     next(r for r in k9 if r["dtype"] == "bfloat16"), 0.0, k9))
     rb16 = [r for r in k10 if r["dtype"] == "bfloat16"]
+    path16 = [r for r in rb16 if r["per_batch"]]
     rows.append(row(
         "fused_resblock", "resblock.cu", "resblock.py:53", rb16[0],
         max(r["max_abs_err"] for r in rb16), k10,
-        per_batch_ms=sum(r["ms"] * r["per_batch"] for r in rb16),
-        per_batch_module_ms=sum(r["module_ms"] * r["per_batch"] for r in rb16),
-        per_batch_bound_ms=sum(r["bound_ms"] * r["per_batch"] for r in rb16)))
+        per_batch_ms=sum(r["ms"] * r["per_batch"] for r in path16),
+        per_batch_module_ms=sum(r["module_ms"] * r["per_batch"] for r in path16),
+        per_batch_bound_ms=sum(r["bound_ms"] * r["per_batch"] for r in path16)))
     dl16 = [r for r in k11 if r["dtype"] == "bfloat16"]
+    head = next(r for r in dl16 if r["case"].startswith("L=17 causal"))
     rows.append(row(
-        "fused_decoder_layer", "decoder_layer.cu", "decoder_layer.py:159",
-        next(r for r in dl16 if r["case"].startswith("L=17 causal")),
-        max(r["max_abs_err"] for r in dl16), k11))
+        "fused_decoder_layer", "decoder_layer.cu", "decoder_layer.py:159", head,
+        max(r["max_abs_err"] for r in dl16), k11, module_ms=head["module_ms"]))
     # the layout twins and K12: no model path of either package calls them,
     # so they launch on no path (0 everywhere); the headline rows are bf16 at
     # the decoder's shapes (the dropout mask's at the decoder's, K12 at

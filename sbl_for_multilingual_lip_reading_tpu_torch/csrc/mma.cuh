@@ -1,5 +1,6 @@
 // Tensor-core building blocks of the port's bf16 attention bodies
-// (attention.cu: K1/K12; attention_train.cu: K3/K4), for Hopper (sm_90a):
+// (attention.cu: K1/K12; attention_train.cu: K3/K4; the attention of
+// decoder_layer.cu: K11) and of gemm_ring.cuh, for Hopper (sm_90a):
 // 16-byte cp.async staging of bf16 rows into shared memory, ldmatrix,
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate), the hi + lo bf16 split of
 // an f32 A operand, the tile products every body is built from (A B^T from

@@ -77,15 +77,19 @@ _SIGNATURES = {
     # x, w1, w2, aff, out, N, C, S, Bt, BH, dtype, device, stream
     "sbl_fused_resblock": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, wq, wk, wv, fc, wq2, fc2, w1, w2, vecs, b1, ck, cv, bias, out, dirs,
-    # B, L, D, H, dk, DI, Tk, Bt, scale, dtype, device, stream
-    "sbl_fused_decoder_layer": [_P] * 15 + [_I] * 9 + [_F, _I, _I, _P],
+    # B, L, D, H, dk, DI, Tk, Bt, cs, scale, dtype, device, stream
+    "sbl_fused_decoder_layer": [_P] * 15 + [_I] * 10 + [_F, _I, _I, _P],
 }
 # shared-memory sizing helpers: plain ints in, bytes out
 _SIZERS = {
     # C, S, Bt, BH, elem
     "sbl_resblock_smem_bytes": [_I] * 5,
+    # C, S, Bt, BH
+    "sbl_resblock_mma_smem_bytes": [_I] * 4,
     # Bt, L, D, dk, Tk, elem
     "sbl_decoder_layer_smem_bytes": [_I] * 6,
+    # Bt, L, D, H, dk, Tk, cs
+    "sbl_decoder_layer_mma_smem_bytes": [_I] * 7,
 }
 # dynamic shared memory a block may ask for on sm_90 (227 KB)
 MAX_SMEM_BYTES = 232448

@@ -12,7 +12,10 @@ The JAX decoder vmaps the kernel over its two directions; the port's decoder
 stacks the directions on a leading axis, and so do these functions: x is
 (dirs, B, L, D), every weight (dirs, out, in) as ``Dense`` stores it, every
 vector (dirs, n), the cached cross K/V (dirs, B, Tk, H*d) flat as ``CrossKV``
-returns them.  One launch covers both directions.
+returns them.  One launch covers both directions: on the bf16 route as a
+grid of thread-block clusters, each CTA of a cluster owning a quarter of
+every GEMM's columns (``pick_mma_tile``), on the f32 route one block per
+tile (``pick_tile``).
 
 Rounding points are the TPU kernel's, not the module path's: q, k, v, both
 attention contexts, the ReLU output and the LayerNorm outputs that feed a
@@ -38,7 +41,8 @@ from . import _build
 from .ingest import _DTYPE_CODES
 
 LN_EPS = 1e-6
-MAX_ROWS = 64   # rows (samples x positions) of a thread block's tile
+MAX_ROWS = 64   # rows (samples x positions) of a tile
+MAX_CLUSTER = 4  # CTAs of the bf16 route's cluster
 # the packed (13, D) f32 vector input, in the TPU kernel's order
 _VEC_ROWS = ("bq", "bk", "bv", "fc_b", "ln1_s", "ln1_b",
              "bq2", "fc2_b", "ln2_s", "ln2_b", "b2", "ln3_s", "ln3_b")
@@ -165,9 +169,30 @@ def decoder_layer_fits(L: int, D: int, DI: int) -> bool:
     return L <= MAX_ROWS and DI % D == 0
 
 
+def cluster_size(n_head: int) -> int:
+    """CTAs of a cluster on the bf16 route: MAX_CLUSTER, or the largest
+    smaller power of two dividing n_head (each CTA owns whole heads)."""
+    return next(cs for cs in (MAX_CLUSTER, 2, 1) if n_head % cs == 0)
+
+
+def pick_mma_tile(lib, B: int, L: int, D: int, H: int, dk: int,
+                  Tk: int) -> Tuple[int, int]:
+    """(samples per tile, CTAs per cluster) on the bf16 route: the cluster
+    of ``cluster_size(H)`` CTAs, and the most samples whose rows (at most
+    MAX_ROWS) fit each CTA's shared memory, as the source's sizer counts it."""
+    cs = cluster_size(H)
+    for bt in range(min(B, MAX_ROWS // L), 0, -1):
+        if lib.sbl_decoder_layer_mma_smem_bytes(bt, L, D, H, dk, Tk, cs) \
+                <= _build.MAX_SMEM_BYTES:
+            return bt, cs
+    raise ValueError(f"fused_decoder_layer: one sample of {L} positions at "
+                     f"width {D} with {Tk} cross keys does not fit the "
+                     f"kernel's shared memory")
+
+
 def pick_tile(lib, B: int, L: int, D: int, dk: int, Tk: int, elem: int) -> int:
-    """Samples per thread block: the most whose rows (at most MAX_ROWS) and
-    buffers fit the block's shared memory."""
+    """Samples per thread block on the f32 route: the most whose rows (at
+    most MAX_ROWS) and buffers fit the block's shared memory."""
     for bt in range(min(B, MAX_ROWS // L), 0, -1):
         if lib.sbl_decoder_layer_smem_bytes(bt, L, D, dk, Tk, elem) \
                 <= _build.MAX_SMEM_BYTES:
@@ -222,12 +247,15 @@ def fused_decoder_layer(x, wq, bq, wk, bk, wv, bv, fc_w, fc_b, ln1_s, ln1_b,
     if scale is None:
         scale = 1.0 / math.sqrt(dk)
     lib = _build.library()
-    bt = pick_tile(lib, B, L, D, dk, Tk, x.element_size())
+    if x.dtype == torch.bfloat16:
+        bt, cs = pick_mma_tile(lib, B, L, D, n_head, dk, Tk)
+    else:
+        bt, cs = pick_tile(lib, B, L, D, dk, Tk, x.element_size()), 1
     err = lib.sbl_fused_decoder_layer(
         x.data_ptr(), *(w.data_ptr() for w in weights), vecs.data_ptr(),
         b1v.data_ptr(), ck.data_ptr(), cv.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        dirs, B, L, D, n_head, dk, DI, Tk, bt, float(scale),
+        dirs, B, L, D, n_head, dk, DI, Tk, bt, cs, float(scale),
         _DTYPE_CODES[x.dtype], x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_decoder_layer")

@@ -31,8 +31,11 @@ import torch.nn.functional as F
 from . import _build
 from .ingest import _DTYPE_CODES
 
-MAX_TILE = 8    # samples a thread block takes at most
-WHOLE_PLANE = 11  # planes up to this side are never cut into row bands
+MAX_TILE = 8    # samples a thread block takes at most (f32 route)
+WHOLE_PLANE = 11  # planes up to this side are never cut into row bands (f32)
+# pixels one pass of the bf16 route's GEMM covers (two warpgroups of 4
+# tiles of 64 rows, csrc/resblock.cu's kConvMaxMB)
+PASS_PIXELS = 512
 
 
 def fold_bn(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
@@ -77,8 +80,33 @@ def fused_resblock_plain(x: torch.Tensor, w1: torch.Tensor, a1: torch.Tensor,
     return torch.relu(y).to(x.dtype)
 
 
+def pick_mma_tile(lib, C: int, S: int) -> Tuple[int, int]:
+    """(samples, output rows) a block takes on the bf16 route: whole
+    planes, as many samples as one GEMM pass (PASS_PIXELS pixels) and the
+    shared memory take; else one sample in the fewest equal row bands
+    whose conv1 rows fit a pass and the shared memory; else the tallest
+    band the shared memory takes (its GEMMs then take several passes).
+    The shared memory is the source's sizer's count."""
+    def fits(bt, bh):
+        return lib.sbl_resblock_mma_smem_bytes(C, S, bt, bh) <= _build.MAX_SMEM_BYTES
+    if S * S <= PASS_PIXELS and fits(1, S):
+        bt = 1
+        while (bt + 1) * S * S <= PASS_PIXELS and fits(bt + 1, S):
+            bt += 1
+        return bt, S
+    for bands in range(2, S + 1):
+        bh = -(-S // bands)
+        if min(bh + 2, S) * S <= PASS_PIXELS and fits(1, bh):
+            return 1, bh
+    for bh in range(S, 0, -1):
+        if fits(1, bh):
+            return 1, bh
+    raise ValueError(f"fused_resblock: a {C}-channel row of width {S} does "
+                     f"not fit the kernel's shared memory")
+
+
 def pick_tile(lib, C: int, S: int, elem: int) -> Tuple[int, int]:
-    """(samples, output rows) a thread block takes: whole planes, as many
+    """(samples, output rows) a thread block takes on the f32 route: whole planes, as many
     samples as fit (at most MAX_TILE), for planes up to WHOLE_PLANE wide;
     one sample in the tallest row band that fits for larger ones."""
     def fits(bt, bh):
@@ -124,7 +152,10 @@ def fused_resblock(x: torch.Tensor, w1: torch.Tensor, a1: torch.Tensor,
     w1k = w1.permute(0, 2, 3, 1).contiguous()
     w2k = w2.permute(0, 2, 3, 1).contiguous()
     lib = _build.library()
-    bt, bh = pick_tile(lib, C, S, x.element_size())
+    if x.dtype == torch.bfloat16:
+        bt, bh = pick_mma_tile(lib, C, S)
+    else:
+        bt, bh = pick_tile(lib, C, S, x.element_size())
     err = lib.sbl_fused_resblock(
         x.data_ptr(), w1k.data_ptr(), w2k.data_ptr(), aff.data_ptr(),
         out.data_ptr(), N, C, S, bt, bh, _DTYPE_CODES[x.dtype], x.device.index,

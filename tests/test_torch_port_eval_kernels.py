@@ -459,7 +459,7 @@ def test_new_wrappers_raise_on_the_card_path_without_a_toolkit(monkeypatch, tmp_
     for name in ("sbl_stack_frames_u8", "sbl_fused_resblock",
                  "sbl_fused_decoder_layer"):
         assert name in _build._SIGNATURES
-    assert len(_build._SIGNATURES["sbl_fused_decoder_layer"]) == 28
+    assert len(_build._SIGNATURES["sbl_fused_decoder_layer"]) == 29
     x = torch.zeros((1, 4, 3, 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ops.fused_resblock(x, torch.zeros((4, 4, 3, 3), device="meta"),

@@ -13,6 +13,11 @@ wrappers' card branch, with a stand-in library that records the launches.
 The card itself runs the tiny preset (d_k = 16) through recognize and a
 train step in ``chip_smoke.py`` phase 4b.
 
+The bf16 routes of K10/K11 pick their tiles with the library's shared-
+memory sizers; with no library here, ``SourceSizers`` stands in for them
+(the layouts of the sources, on the sources' constants), so the pickers
+are checked at every path-A shape and tiny preset.
+
 The ctypes argument lists in ``ops/_build.py`` must match the ``extern
 "C"`` declarations of ``csrc/*.cu`` one for one: a mismatch (a pointer
 passed as an int, a missing argument) would otherwise show only on the
@@ -29,7 +34,8 @@ from sbl_for_multilingual_lip_reading_tpu_torch import config as port_config
 from sbl_for_multilingual_lip_reading_tpu_torch import models, ops
 from sbl_for_multilingual_lip_reading_tpu_torch.models import layers
 from sbl_for_multilingual_lip_reading_tpu_torch.models.layers import DropoutRNG
-from sbl_for_multilingual_lip_reading_tpu_torch.ops import _build, attention
+from sbl_for_multilingual_lip_reading_tpu_torch.ops import (
+    _build, attention, decoder_layer, resblock)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -131,6 +137,164 @@ def test_decoder_layer_fits_segment_and_ffn(L, D, DI, fits):
     """K11: a segment of at most 64 positions, d_inner a multiple of
     d_model, any head width."""
     assert ops.decoder_layer_fits(L, D, DI) is fits
+
+
+def _constant(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);",
+                         (_build.CSRC / src).read_text()).group(1))
+
+
+def _up16(v):
+    return (v + 15) // 16 * 16
+
+
+class SourceSizers:
+    """The library's two bf16-route sizers, for the tile pickers where no
+    library is built: ``make_mma_layout`` (csrc/decoder_layer.cu) and
+    ``make_conv_layout`` (csrc/resblock.cu) in Python, each buffer 16-byte
+    aligned, on the sources' own constants (the ring: kRingStages stages of
+    BN rows of kRingBK bf16, + 2 KB of barriers and alignment).  The
+    wrappers call the library's sizers; only these tests use this copy."""
+
+    def __init__(self):
+        self.ring_stages = _constant("gemm_ring.cuh", "kRingStages")
+        self.ring_bk = _constant("gemm_ring.cuh", "kRingBK")
+        self.layer_bn = _constant("decoder_layer.cu", "kLayerBN")
+        self.max_cluster = _constant("decoder_layer.cu", "kMaxCluster")
+        self.conv_bn = _constant("resblock.cu", "kConvBN")
+
+    def _ring(self, bn):
+        return self.ring_stages * bn * self.ring_bk * 2 + 2048
+
+    def sbl_decoder_layer_mma_smem_bytes(self, bt, L, D, H, dk, Tk, cs):
+        """A and U as bf16 rows of the padded width, the CTA's f32
+        residual columns, the LayerNorm partials, the ring or a sample's
+        cross K/V."""
+        hc = H // cs
+        dp, mp, dkp, tkp = _up16(D), _up16(bt * L), _up16(dk), _up16(Tk)
+        lda, ldu, ldr = dp + 8, max(dp, 3 * hc * dkp) + 8, hc * dk + 8
+        kv = 2 * (2 * hc * tkp * (dkp + 8))
+        off = 0
+        for size in (2 * mp * lda, 2 * mp * ldu, 4 * mp * ldr,
+                     8 * self.max_cluster * mp, max(self._ring(self.layer_bn), kv)):
+            off = _up16(off + size)
+        return off
+
+    def sbl_resblock_mma_smem_bytes(self, C, S, bt, bh):
+        """The x and h bands channels last (pixels of C rounded up to 16
+        plus 8 channels), a zero row, the four f32 affine vectors, the
+        ring."""
+        cp = _up16(C) + 8
+        off = 0
+        for size in (2 * bt * min(bh + 4, S) * S * cp,
+                     2 * bt * min(bh + 2, S) * S * cp, 2 * cp, 16 * C):
+            off = _up16(off + size)
+        return off + self._ring(self.conv_bn)
+
+
+SIZERS = SourceSizers()
+
+
+def test_the_bf16_layouts_mirror_the_sources_constants():
+    """The constants ``ops/decoder_layer.py`` and ``ops/resblock.py`` keep
+    are the tensor-core bodies' (decoder_layer.cu's tile and cluster,
+    resblock.cu's pass, gemm_ring.cuh's block), and the sizers' copy reads
+    a ring of 3 stages of k 64."""
+    assert _constant("decoder_layer.cu", "kMaxCluster") == decoder_layer.MAX_CLUSTER
+    assert _constant("decoder_layer.cu", "kMmaRows") == decoder_layer.MAX_ROWS
+    # a pass: two warpgroups of kConvMaxMB tiles of 64 rows
+    assert 2 * _constant("resblock.cu", "kConvMaxMB") * 64 == resblock.PASS_PIXELS
+    assert _constant("gemm_ring.cuh", "kRingThreads") == 256
+    assert (SIZERS.ring_stages, SIZERS.ring_bk, SIZERS.layer_bn, SIZERS.conv_bn) == (
+        3, 64, 128, 64)
+
+
+@pytest.mark.parametrize("n_head,cs", [(8, 4), (4, 4), (16, 4), (2, 2), (6, 2),
+                                       (1, 1), (3, 1)])
+def test_decoder_layer_cluster_size(n_head, cs):
+    """Each CTA of a cluster owns whole heads: 4 CTAs where n_head allows."""
+    assert decoder_layer.cluster_size(n_head) == cs
+
+
+def test_decoder_layer_mma_smem_counts_the_buffers():
+    """Path A's widest segment, 3 samples of 17 rows (64 rows padded): A
+    and U as 64 bf16 rows of 520, the f32 residual of 128 columns (+8),
+    the (sum, sum of squares) of 4 CTAs, a ring of 3 stages of 128 x 64
+    bf16 with its barriers and alignment slack (2 KB), more than one
+    sample's K and V of 2 heads (2 x 2 x 32 x 72)."""
+    assert SIZERS.sbl_decoder_layer_mma_smem_bytes(3, 17, 512, 8, 64, 30, 4) == (
+        2 * 64 * 520 + 2 * 64 * 520 + 4 * 64 * 136 + 8 * 4 * 64 + 3 * 128 * 64 * 2 + 2048)
+    # 100 cross keys at d_k = 128, one head a CTA: a sample's K and V (112
+    # rows of 136 each) outgrow the ring
+    assert SIZERS.sbl_decoder_layer_mma_smem_bytes(1, 17, 512, 4, 128, 100, 4) == (
+        2 * 32 * 520 + 2 * 32 * 520 + 4 * 32 * 136 + 8 * 4 * 32 + 2 * 112 * 136 * 2)
+
+
+@pytest.mark.parametrize("B,L,D,H,dk,Tk,want", [
+    (512, 17, 512, 8, 64, 30, (3, 4)),    # path A, widest segment
+    (512, 3, 512, 8, 64, 30, (21, 4)),    # path A, narrowest
+    (512, 1, 512, 8, 64, 30, (64, 4)),
+    (64, 17, 512, 4, 128, 30, (3, 4)),    # d_k = 128 (phase 3d)
+    (8, 9, 64, 4, 16, 30, (7, 4)),        # the tiny preset
+    (2, 9, 64, 4, 16, 30, (2, 4)),        # fewer samples than a tile takes
+    (512, 64, 512, 8, 64, 30, (1, 4))])   # the longest segment K11 takes
+def test_decoder_layer_mma_tiles(B, L, D, H, dk, Tk, want):
+    assert decoder_layer.pick_mma_tile(SIZERS, B, L, D, H, dk, Tk) == want
+    bt, cs = want
+    assert SIZERS.sbl_decoder_layer_mma_smem_bytes(bt, L, D, H, dk, Tk, cs) <= _build.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("preset", ["sbl", "tiny"])
+def test_every_admitted_segment_has_a_bf16_tile(preset):
+    """Every segment length ``decoder_layer_fits`` admits at the preset's
+    widths gets a tile within the shared memory: the bf16 route takes all
+    that the check admits, up to 64 rows at d_model 512."""
+    cfg = port_config.sbl() if preset == "sbl" else port_config.tiny_test("sbl")
+    d, frames = cfg.dims, cfg.data.frames
+    for L in range(1, decoder_layer.MAX_ROWS + 1):
+        assert ops.decoder_layer_fits(L, d.d_model, d.d_inner)
+        bt, cs = decoder_layer.pick_mma_tile(SIZERS, 512, L, d.d_model, d.n_head, d.d_k, frames)
+        assert bt * L <= decoder_layer.MAX_ROWS and cs == 4
+
+
+def test_resblock_mma_smem_counts_the_buffers():
+    """layer1: one 22 x 22 plane, x and h bands of 22 rows of 22 pixels of
+    64 + 8 channels, a zero row, the four f32 affine vectors, a ring of 3
+    stages of 64 x 64 bf16, its barriers and the slack that aligns it (2 KB)."""
+    assert SIZERS.sbl_resblock_mma_smem_bytes(64, 22, 1, 22) == (
+        2 * 22 * 22 * 72 * 2 + 2 * 72 + 16 * 64 + 3 * 64 * 64 * 2 + 2048)
+    # a band of 15 rows of a 30-wide plane: 19 x rows, 17 h rows (the zero
+    # row of 48 bytes padded to 16 bytes)
+    assert SIZERS.sbl_resblock_mma_smem_bytes(8, 30, 1, 15) == (
+        2 * 19 * 30 * 24 + 2 * 17 * 30 * 24 + 48 + 16 * 8 + 3 * 64 * 64 * 2 + 2048)
+
+
+@pytest.mark.parametrize("C,S,want", [
+    (64, 22, (1, 22)),    # layer1: one whole plane a block
+    (128, 11, (3, 11)),   # layer2
+    (256, 6, (5, 6)),     # layer3
+    (512, 3, (10, 3)),    # layer4
+    (8, 8, (8, 8)),       # the tiny preset's block
+    (8, 30, (1, 15)),     # past one pass: two bands
+    (16, 40, (1, 10))])   # four bands
+def test_resblock_mma_tiles(C, S, want):
+    assert resblock.pick_mma_tile(SIZERS, C, S) == want
+    assert SIZERS.sbl_resblock_mma_smem_bytes(C, S, *want) <= _build.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("preset", ["sbl", "tiny"])
+def test_every_eligible_block_has_a_bf16_tile(preset):
+    """Every stride-1 block of equal widths the frontend sends to K10 (the
+    first block of each stage after the first has stride 2) gets a tile."""
+    cfg = port_config.sbl() if preset == "sbl" else port_config.tiny_test("sbl")
+    f = cfg.frontend
+    side = cfg.data.crop_size // 4   # the stem's stride 2 and the max pool's
+    for i, (c, n) in enumerate(zip(f.resnet_channels, f.resnet_blocks)):
+        if i:
+            side = (side + 1) // 2
+        if n > (1 if i else 0):
+            bt, bh = resblock.pick_mma_tile(SIZERS, c, side)
+            assert SIZERS.sbl_resblock_mma_smem_bytes(c, side, bt, bh) <= _build.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("preset", sorted(port_config.PRESETS))
