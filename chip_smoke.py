@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compare-eval PARENT_DIR
+    python3 chip_smoke.py --compare-bn PARENT_DIR
 
 Run from the repository root on a machine with one NVIDIA card and the CUDA
 toolkit (nvcc on PATH or under /usr/local/cuda).  It needs no network, and
@@ -15,7 +16,8 @@ line (phase 2 adds nvcc's per-kernel register report):
      tensor-core bodies of K1/K12 and K3/K4 and of K3/K4's f32 scalar
      bodies, and those of K11's and K10's bodies (the warpgroup-MMA ones,
      K10's per number of 64-row tiles a warpgroup holds, and the f32
-     ones), and fails if a tensor-core body spills;
+     ones), and fails if a tensor-core body spills; and those of K7/K8's
+     bodies (per dtype and route), failing on a spill;
   3. kernels vs plain versions on the card, at the recognize path's shapes:
      K2 stack_frames bit-exact; K1 small_mha_flat within K1_TOL, f32 and
      bf16, at d = 64 and at the other head widths it is built for (16, 32,
@@ -44,8 +46,11 @@ line (phase 2 adds nvcc's per-kernel register report):
      shapes, f32 and bf16: K6 ingest_train at (240,30,96,96) -> 88 with
      attach_plans plans and n_frames padding, bit-exact; K7 channel_sums and
      K8 channel_sums_pair on the frontend's five BatchNorm shapes at
-     B*T = 7200 frames and on the B=16 check's layer4 shape, within
-     STAT_TOL of the sum of magnitudes and bit-identical over two calls;
+     B*T = 7200 frames and on the B=16 check's layer4 shape (the 16-byte
+     route), and on BN_SCALAR_CASES (rows of odd length, rows at an odd
+     element offset: the scalar route), within STAT_TOL of the sum of
+     magnitudes and bit-identical over two calls; each shape's time, share
+     of its bound, plain and library times, and the bf16 sums per step;
   5. train slice at the full config.sbl() width: kernel path vs plain path
      for one step at B=TRAIN_CHECK_BATCH, f32 and bf16 (loss, every
      gradient, BN running statistics); the bf16 step at B=240 through
@@ -130,12 +135,17 @@ package is not beside it.
 
 With --compare-eval it runs instead phase 3d and phase 7 (the eval-side
 kernels K9-K11 against their plain versions, with their device times, and
-path A) in the checkout PARENT_DIR and in this one, in turns (parent,
-change, change, parent), each in a process of its own with that checkout
-first on sys.path and by that checkout's own chip_smoke.py, so one card and
-one host serve both trees; each turn's lines go to
-chiprun_out/compare_eval_<label><turn>.log, and the K10/K11 times and path
-A's rates of every turn to chiprun_out/compare_eval.json.
+path A), with --compare-bn phase 3c and phase 6 (K6-K8 against their plain
+versions, with their device times, and the training entry point with
+PALLAS_INGEST=1 PALLAS_BN=1), in the checkout PARENT_DIR and in this one, in
+turns (parent, change, change, parent), each in a process of its own with
+that checkout first on sys.path and by that checkout's own chip_smoke.py,
+so one card and one host serve both trees; each turn's lines go to
+chiprun_out/compare_<set>_<label><turn>.log (set: eval or bn), and every
+turn's numbers with a summary (--compare-eval: the K10/K11 times and path
+A's rates; --compare-bn: the K7/K8 times per shape and per bf16 step, and
+the entry point's B=240 ms/step with the switches off and on) and the
+card's nvidia-smi name and power limit to chiprun_out/compare_<set>.json.
 """
 from __future__ import annotations
 
@@ -191,15 +201,22 @@ TRAIN_TIMED = 5
 TRAIN_LOSS_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TRAIN_GRAD_TOL = {"float32": 1e-3, "bfloat16": 0.1}
 TRAIN_BN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
-# K7/K8 against their plain versions: both sum in f32 in another order, so
-# each channel's sum may move by a few f32 roundings of its partial sums,
-# bounded here relative to the sum of the magnitudes of its terms
+# K7/K8 against their plain versions: both form each term in f32 and sum
+# in double, in another order, so each channel's result is its exact sum
+# rounded once to f32 on both sides; the bound leaves room for a few f32
+# roundings, relative to the sum of the magnitudes of its terms
 STAT_TOL = 1e-5
 BN_FRAMES = 7200            # B * T at B=240
 # the frontend's BatchNorms at B=240: (name, (C, H, W), launches per step)
 BN_SHAPES = (("stem", (64, 44, 44), 1), ("layer1", (64, 22, 22), 4),
              ("layer2", (128, 11, 11), 5), ("layer3", (256, 6, 6), 5),
              ("layer4", (512, 3, 3), 5))
+# K7/K8 off the 16-byte route (checked, not on a path): rows that are no
+# whole number of 16-byte pieces, and layer4's rows at an odd element
+# offset; (name, (N, C, H, W), element offset)
+BN_SCALAR_CASES = (("unaligned 45x45", (3, 1, 45, 45), 0),
+                   ("unaligned 5x11x11", (480, 5, 11, 11), 0),
+                   ("offset layer4", (480, 512, 3, 3), 1))
 ENTRY_STEPS = 2
 TURN_STEPS = 3
 # K10 against its plain version.  f32: both sum K = 9C products in f32 in
@@ -385,6 +402,16 @@ def phase_build():
                 print(f"phase 2 {kernel}{variant}: {used}; {spill}")
                 if tensor_cores and "0 bytes spill stores, 0 bytes spill loads" not in spill:
                     spills.append(f"{kernel}{variant}: {spill}")
+        # K7/K8: one body per dtype, kernel and route (16-byte pieces, or
+        # single elements)
+        found = ptxas_report(text, r"channel_sums_kernelI(f|13__nv_bfloat16)Lb(\d)ELi(\d+)E")
+        check(len(found) == 8, f"ptxas report of channel_sums_kernel: {sorted(found)}")
+        for (dt, pair, epv), (used, spill) in sorted(found.items()):
+            variant = (f"{'K8' if pair == '1' else 'K7'} {'f32' if dt == 'f' else 'bf16'}"
+                       f" {'scalar' if epv == '1' else epv + '-element pieces'}")
+            print(f"phase 2 channel_sums_kernel ({variant}): {used}; {spill}")
+            if "0 bytes spill stores, 0 bytes spill loads" not in spill:
+                spills.append(f"channel_sums_kernel ({variant}): {spill}")
         check(not spills, f"kernels spill: {spills}")
     return seconds
 
@@ -1347,15 +1374,32 @@ def phase_ingest_bn_kernels(torch, np, dev):
 
     g = torch.Generator(device=dev).manual_seed(5)
     stats = []
-    cases = [(name, (BN_FRAMES,) + shape, per_step)
+    cases = [(name, (BN_FRAMES,) + shape, per_step, 0)
              for name, shape, per_step in BN_SHAPES]
-    cases.append(("check layer4", (30 * TRAIN_CHECK_BATCH, 512, 3, 3), 0))
+    cases.append(("check layer4", (30 * TRAIN_CHECK_BATCH, 512, 3, 3), 0, 0))
+    cases += [(name, shape, 0, offset) for name, shape, offset in BN_SCALAR_CASES]
+    scalar = {name for name, _, _ in BN_SCALAR_CASES}
+
+    def at_offset(t, offset):
+        """t's values in a contiguous tensor starting ``offset`` elements
+        into its buffer."""
+        if not offset:
+            return t
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+        out = buf[offset:].view(t.shape)
+        out.copy_(t)
+        return out
+
     for dt in (torch.float32, torch.bfloat16):
-        for name, shape, per_step in cases:
+        for name, shape, per_step, offset in cases:
             C_ = shape[1]
             shift = torch.randn(C_, 1, 1, generator=g, device=dev)
-            x = (torch.randn(shape, generator=g, device=dev) * 2 + shift).to(dt)
-            dy = torch.randn(shape, generator=g, device=dev).to(dt)
+            x = at_offset((torch.randn(shape, generator=g, device=dev) * 2
+                           + shift).to(dt), offset)
+            dy = at_offset(torch.randn(shape, generator=g, device=dev).to(dt), offset)
+            route = "vector" if ops.batchnorm.route(dy, x) > 1 else "scalar"
+            check(route == ("scalar" if name in scalar else "vector"),
+                  f"K7/K8 {name} {dt}: {route} route")
             n = x.numel() // C_
             s, q = ops.channel_sums(x)
             s2, q2 = ops.channel_sums(x)
@@ -1393,7 +1437,7 @@ def phase_ingest_bn_kernels(torch, np, dev):
                 "grad weight, grad bias)")
             size = x.numel() * x.element_size()
             stats.append(dict(
-                case=f"{name} {tuple(shape)}", dtype=dtype_name(x),
+                case=f"{name} {tuple(shape)}", dtype=dtype_name(x), route=route,
                 per_step=per_step, k7_err=k7_err, k8_err=k8_err,
                 k7_ms=cuda_ms(torch, lambda: ops.channel_sums(x)),
                 k7_plain_ms=cuda_ms(torch, lambda: ops.channel_sums_plain(x)),
@@ -1407,12 +1451,14 @@ def phase_ingest_bn_kernels(torch, np, dev):
             del x, dy
             torch.cuda.empty_cache()
     for r in stats:
-        print(f"phase 3c BN {r['case']} {r['dtype']}: K7 rel err {r['k7_err']:.3g}, "
-              f"{r['k7_ms']:.4f} ms (plain {r['k7_plain_ms']:.4f}, library "
-              f"{r['k7_lib_ms']}, bound {r['k7_bound'][0]:.4f}); K8 rel err "
+        print(f"phase 3c BN {r['case']} {r['dtype']} ({r['route']} route): K7 rel err "
+              f"{r['k7_err']:.3g}, {r['k7_ms']:.4f} ms (plain {r['k7_plain_ms']:.4f}, "
+              f"library {r['k7_lib_ms']}, bound {r['k7_bound'][0]:.4f}, "
+              f"{r['k7_bound'][0] / r['k7_ms']:.0%} of it); K8 rel err "
               f"{r['k8_err']:.3g}, {r['k8_ms']:.4f} ms (plain "
               f"{r['k8_plain_ms']:.4f}, library {r['k8_lib_ms']}, bound "
-              f"{r['k8_bound'][0]:.4f}); both bit-identical over two calls")
+              f"{r['k8_bound'][0]:.4f}, {r['k8_bound'][0] / r['k8_ms']:.0%} of it); "
+              f"both bit-identical over two calls")
     for dt in ("float32", "bfloat16"):
         rows = [r for r in stats if r["dtype"] == dt]
         print(f"phase 3c BN {dt} per B=240 step ({sum(r['per_step'] for r in rows)}"
@@ -2199,8 +2245,76 @@ def phase_path_d(torch, np, dev):
                           recipe=summary, **timing)
 
 
-def eval_child(tree: str) -> dict:
-    """One checkout's phase 3d and phase 7, by its own chip_smoke.py (in a
+def _bf16_rows(rows):
+    return {r["case"]: {k: r[k] for k in ("ms", "plain_ms", "module_ms", "bound_ms",
+                                          "max_abs_err")}
+            for r in rows if r["dtype"] == "bfloat16"}
+
+
+def _eval_turn(target, torch, np, dev) -> dict:
+    """Phase 3d and phase 7: K9-K11 checked and timed, path A's rates."""
+    _, k10, k11 = target.phase_eval_kernels(torch, np, dev)
+    _, path_a = target.phase_path_a(torch, np, dev)
+    return dict(fused_resblock=_bf16_rows(k10), fused_decoder_layer=_bf16_rows(k11),
+                path_a=path_a)
+
+
+def _bn_turn(target, torch, np, dev) -> dict:
+    """Phase 3c and phase 6: K6-K8 checked and timed at the entry point's
+    shapes, the entry point run, its B=240 step with the switches off and
+    on."""
+    _, stats = target.phase_ingest_bn_kernels(torch, np, dev)
+    _, entry = target.phase_entry(torch, np, dev)
+    keys = ("k7_ms", "k8_ms", "k7_bound", "k8_bound", "k7_lib_ms", "k8_lib_ms",
+            "k7_err", "k8_err", "per_step")
+    return dict(bn={f"{r['case']} {r['dtype']}": {k: r[k] for k in keys} for r in stats},
+                entry=entry["turns"])
+
+
+# phase sets of the A/B turns: (the turn's phases, the summary of its runs)
+def _eval_summary(runs):
+    summary = {f"{kernel} {case}": {lab: [r[kernel][case]["ms"] for r in runs
+                                          if r["label"] == lab]
+                                    for lab in ("parent", "change")}
+               for kernel in ("fused_resblock", "fused_decoder_layer")
+               for case in runs[0][kernel]}
+    for key in ("clips_per_s_on", "clips_per_s_off"):
+        summary[f"path_a {key}"] = {lab: [r["path_a"][key] for r in runs if r["label"] == lab]
+                                    for lab in ("parent", "change")}
+    return summary
+
+
+def _bn_summary(runs):
+    """Each kernel's ms per case both trees time (bf16 and f32), the bf16
+    sums per B=240 step, and the entry point's ms/step."""
+    def side(lab, fn):
+        return [fn(r) for r in runs if r["label"] == lab]
+    summary = {}
+    cases = [c for c in runs[0]["bn"] if all(c in r["bn"] for r in runs)]
+    for kernel in ("k7", "k8"):
+        for case in cases:
+            summary[f"{kernel} {case}"] = {
+                lab: side(lab, lambda r: r["bn"][case][f"{kernel}_ms"])
+                for lab in ("parent", "change")}
+            summary[f"{kernel} {case}"]["bound_ms"] = runs[0]["bn"][case][f"{kernel}_bound"][0]
+        summary[f"{kernel} per B=240 step bfloat16"] = {
+            lab: side(lab, lambda r: sum(v[f"{kernel}_ms"] * v["per_step"]
+                                         for c, v in r["bn"].items()
+                                         if c.endswith("bfloat16")))
+            for lab in ("parent", "change")}
+    for on in (False, True):
+        summary[f"entry B=240 ms/step switches {'on' if on else 'off'}"] = {
+            lab: side(lab, lambda r: next(t["ms_per_step"] for t in r["entry"]
+                                          if t["switches"] == on))
+            for lab in ("parent", "change")}
+    return summary
+
+
+PHASE_SETS = {"eval": (_eval_turn, _eval_summary), "bn": (_bn_turn, _bn_summary)}
+
+
+def turn_child(phase_set: str, tree: str) -> dict:
+    """One checkout's phases of a set, by its own chip_smoke.py (in a
     process of its own, with the checkout first on sys.path)."""
     sys.path.insert(0, tree)
     import numpy as np
@@ -2212,19 +2326,12 @@ def eval_child(tree: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     target.phase_build()
-    _, k10, k11 = target.phase_eval_kernels(torch, np, dev)
-    _, path_a = target.phase_path_a(torch, np, dev)
-
-    def bf16(rows):
-        return {r["case"]: {k: r[k] for k in ("ms", "plain_ms", "module_ms", "bound_ms",
-                                              "max_abs_err")}
-                for r in rows if r["dtype"] == "bfloat16"}
-    return dict(tree=tree, fused_resblock=bf16(k10), fused_decoder_layer=bf16(k11),
-                path_a=path_a)
+    return dict(tree=tree, **PHASE_SETS[phase_set][0](target, torch, np, dev))
 
 
-def compare_eval(parent: str) -> int:
-    """Phase 3d and phase 7 in PARENT_DIR and in this checkout, in turns."""
+def compare_turns(phase_set: str, parent: str) -> int:
+    """A phase set in PARENT_DIR and in this checkout, in turns (parent,
+    change, change, parent); logs and JSON in chiprun_out/compare_<set>*."""
     change = str(Path(__file__).resolve().parent)
     out = Path(change) / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -2232,9 +2339,9 @@ def compare_eval(parent: str) -> int:
     for turn, (label, tree) in enumerate((("parent", parent), ("change", change),
                                           ("change", change), ("parent", parent))):
         res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                              "--eval-child", tree], cwd=tree, capture_output=True,
-                             text=True, timeout=900, check=False)
-        (out / f"compare_eval_{label}{turn}.log").write_text(res.stdout + res.stderr)
+                              "--turn-child", phase_set, tree], cwd=tree,
+                             capture_output=True, text=True, timeout=900, check=False)
+        (out / f"compare_{phase_set}_{label}{turn}.log").write_text(res.stdout + res.stderr)
         check(res.returncode == 0, f"{label} turn in {tree} failed:\n{res.stderr[-2000:]}")
         run = dict(json.loads(res.stdout.strip().splitlines()[-1]), label=label)
         print(json.dumps(run), flush=True)
@@ -2242,24 +2349,16 @@ def compare_eval(parent: str) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=False).stdout.strip()
-    summary = {f"{kernel} {case}": {lab: [r[kernel][case]["ms"] for r in runs
-                                          if r["label"] == lab]
-                                    for lab in ("parent", "change")}
-               for kernel in ("fused_resblock", "fused_decoder_layer")
-               for case in runs[0][kernel]}
-    for key in ("clips_per_s_on", "clips_per_s_off"):
-        summary[f"path_a {key}"] = {lab: [r["path_a"][key] for r in runs if r["label"] == lab]
-                                    for lab in ("parent", "change")}
-    summary["card"] = smi
-    (out / "compare_eval.json").write_text(json.dumps(dict(runs=runs, summary=summary)))
+    summary = dict(PHASE_SETS[phase_set][1](runs), card=smi)
+    (out / f"compare_{phase_set}.json").write_text(json.dumps(dict(runs=runs, summary=summary)))
     print(smi)
     print(json.dumps(summary))
     return 0
 
 
 def main() -> int:
-    if sys.argv[1:2] == ["--eval-child"]:
-        print(json.dumps(eval_child(sys.argv[2])), flush=True)
+    if sys.argv[1:2] == ["--turn-child"]:
+        print(json.dumps(turn_child(sys.argv[2], sys.argv[3])), flush=True)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -2271,8 +2370,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    if sys.argv[1:2] == ["--compare-eval"]:
-        return compare_eval(str(Path(sys.argv[2]).resolve()))
+    compare = {"--compare-eval": "eval", "--compare-bn": "bn"}
+    if sys.argv[1:2] and sys.argv[1] in compare:
+        return compare_turns(compare[sys.argv[1]], str(Path(sys.argv[2]).resolve()))
     _set_switches(False)
 
     t_start = time.perf_counter()

@@ -64,12 +64,12 @@ _SIGNATURES = {
     # inv_std, shift, dtype, device, stream
     "sbl_ingest_train": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                          _I, _I, _P],
-    # x, part, out, N, C, HW, cg, chunk, chunks, dtype, device, stream
-    "sbl_channel_sums": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # dy, x, mean, inv, part, out, N, C, HW, cg, chunk, chunks, dtype,
-    # device, stream
-    "sbl_channel_sums_pair": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _P],
+    # x, part, arrivals, out, N, C, HW, cg, chunks, vec, dtype, device,
+    # stream
+    "sbl_channel_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dy, x, mean, inv, part, arrivals, out, N, C, HW, cg, chunks, vec,
+    # dtype, device, stream
+    "sbl_channel_sums_pair": [_P] * 7 + [_I] * 8 + [_P],
     # clips, out, B, T, H, W, crop, c0, kt, inv_std, shift, dtype, device,
     # stream
     "sbl_stack_frames_u8": [_P, _P, _LL, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
@@ -80,7 +80,7 @@ _SIGNATURES = {
     # B, L, D, H, dk, DI, Tk, Bt, cs, scale, dtype, device, stream
     "sbl_fused_decoder_layer": [_P] * 15 + [_I] * 10 + [_F, _I, _I, _P],
 }
-# shared-memory sizing helpers: plain ints in, bytes out
+# sizing helpers: plain ints in, bytes (or blocks) out
 _SIZERS = {
     # C, S, Bt, BH, elem
     "sbl_resblock_smem_bytes": [_I] * 5,
@@ -90,6 +90,8 @@ _SIZERS = {
     "sbl_decoder_layer_smem_bytes": [_I] * 6,
     # Bt, L, D, H, dk, Tk, cs
     "sbl_decoder_layer_mma_smem_bytes": [_I] * 7,
+    # pair, vec, dtype, device: K7/K8 blocks one SM holds
+    "sbl_channel_sums_blocks_per_sm": [_I] * 4,
 }
 # dynamic shared memory a block may ask for on sm_90 (227 KB)
 MAX_SMEM_BYTES = 232448

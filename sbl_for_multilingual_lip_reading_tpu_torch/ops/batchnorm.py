@@ -8,9 +8,10 @@ behind ``PALLAS_BN=1`` or ``use_pallas_bn``, ``models/frontend.py``):
   read of x;
 * K8 ``channel_sums_pair``: (dy, x, mean, inv) -> f32 (C,) sum dy and
   sum dy * (x - mean) * inv, one read of each, which are d_bias and d_scale;
-  both form each term in f32 and sum in double, so both give the exact sum
-  rounded once to f32 (JAX sums in f32): an ulp of difference in a mean
-  would flip ReLU and max-pool routing downstream;
+  both form each term in f32 and sum in double (the kernel K7's sum of
+  squares per position as a compensated f32 pair, folded into double), so
+  both give the exact sum rounded once to f32 (JAX sums in f32): an ulp of
+  difference in a mean would flip ReLU and max-pool routing downstream;
 * ``bn_train``: a ``torch.autograd.Function`` mirroring the JAX custom VJP:
   y = (x * a + b) cast to x's dtype with a = inv * scale and
   b = bias - mean * a, the biased variance q/n - mean^2 (no clamp), and dx
@@ -19,8 +20,16 @@ behind ``PALLAS_BN=1`` or ``use_pallas_bn``, ``models/frontend.py``):
 
 The JAX kernels reduce (N, HW, C) blocks; the port keeps activations NCHW,
 so K7 and K8 reduce over (N, H, W) for each C of an NCHW tensor: the same
-sums in another memory order.  The CUDA kernels are ``csrc/batchnorm.cu``;
-their design note is there.
+sums in another memory order.  The CUDA kernels are ``csrc/batchnorm.cu``,
+one launch a call, and their design note is there.  This module picks
+their geometry: ``route`` (16-byte pieces when the row C*H*W is a multiple
+of 16 bytes' worth of elements and the pointers are 16-byte aligned, else
+single elements), ``tiling`` (cg adjacent channels a block, whose run of
+cg*H*W positions is a whole number of pieces, as many sample phases as fit
+the block's 2048 position slots, and as many chunks of samples per group
+as fill the card once: ``capacity``, the blocks it holds at a time), and
+keeps the kernels' integer arrival counters (``_arrivals``, one buffer a
+device and stream, 0 between calls).
 
 On CPU tensors the wrappers run the plain versions; on CUDA tensors they
 launch the kernels or raise.  ``channel_sums.launches`` and
@@ -28,15 +37,23 @@ launch the kernels or raise.  ``channel_sums.launches`` and
 """
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
 
-MAX_RUN = 2048         # positions one block sums per sample (8 per thread)
-TARGET_BLOCKS = 2048   # blocks per launch the tiling aims at (132 SMs)
+MAX_RUN = 2048         # position slots of a block (256 threads x 8)
+PIECE_BYTES = 16       # one load of the vector route
+MAX_CHUNKS = 65535     # blocks along N (the grid's y)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class Tiling(NamedTuple):
+    cg: int        # adjacent channels a block sums (the last group may hold fewer)
+    phases: int    # sample phases a block's slots hold: MAX_RUN // (cg * HW)
+    chunks: int    # blocks along N, each over N / chunks samples
 
 
 def _as3(x: torch.Tensor) -> torch.Tensor:
@@ -45,17 +62,41 @@ def _as3(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], x.shape[1], -1)
 
 
-def tiling(N: int, C: int, HW: int) -> Tuple[int, int, int]:
-    """(channels per block, samples per block, blocks along N) of a K7/K8
-    launch: as many adjacent channels as fit MAX_RUN positions, balanced
-    over the groups, and N cut into about TARGET_BLOCKS / groups chunks,
-    none of them empty."""
-    cg = max(1, min(C, MAX_RUN // HW))
-    groups = -(-C // cg)
-    cg = -(-C // groups)
-    chunks = max(1, min(N, -(-TARGET_BLOCKS // groups), 65535))
-    chunk = -(-N // chunks)
-    return cg, chunk, -(-N // chunk)
+@functools.lru_cache(maxsize=None)
+def tiling(N: int, C: int, HW: int, epv: int, capacity: int) -> Optional[Tiling]:
+    """The launch geometry of K7/K8 over (N, C, HW) in pieces of ``epv``
+    elements, on a card that holds ``capacity`` blocks at a time.  For each
+    group whose run cg * HW fits MAX_RUN and is a whole number of pieces:
+    as many chunks per group as fill the card once (none shorter than the
+    block's sample phases); of those, the one whose blocks take the fewest
+    sample iterations (times the waves of blocks, where the groups alone
+    overfill the card), ties to the longer run.  None when no group
+    qualifies."""
+    best = None
+    for cg in range(1, min(C, MAX_RUN // HW) + 1):
+        if cg * HW % epv:
+            continue
+        groups, phases = -(-C // cg), MAX_RUN // (cg * HW)
+        chunks = max(1, min(capacity // groups, -(-N // phases), MAX_CHUNKS))
+        waves = -(-groups * chunks // capacity)
+        iters = waves * -(-(-(-N // chunks)) // phases)
+        if best is None or iters <= best[0]:
+            best = (iters, Tiling(cg, phases, chunks))
+    return None if best is None else best[1]
+
+
+def route(*tensors: torch.Tensor) -> int:
+    """Elements a piece of K7/K8 holds for these (N, C, ...) inputs: 16
+    bytes' worth (8 bf16, 4 f32) on the vector route, where the row C*H*W
+    is a whole number of pieces, a group's run can be, and every pointer is
+    16-byte aligned; else 1 (the scalar route)."""
+    x = tensors[-1]
+    N, C, HW = _as3(x).shape
+    epv = PIECE_BYTES // x.element_size()
+    if (C * HW % epv == 0 and all(t.data_ptr() % PIECE_BYTES == 0 for t in tensors)
+            and tiling(N, C, HW, epv, 1) is not None):
+        return epv
+    return 1
 
 
 def channel_sums_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -96,18 +137,51 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
                          f"positions; got {HW}")
 
 
-def _launch(name, fn, inputs, extra, x):
+@functools.lru_cache(maxsize=None)
+def capacity(device: int, pair: bool, vec: bool, dtype_code: int) -> int:
+    """Blocks of the K7 (K8 with ``pair``) kernel of a route and dtype that
+    card ``device`` holds at a time: the library's occupancy query times
+    the card's SMs."""
+    blocks = _build.library().sbl_channel_sums_blocks_per_sm(
+        int(pair), int(vec), dtype_code, device)
+    if blocks <= 0:
+        raise RuntimeError(f"channel_sums: occupancy query failed (CUDA error "
+                           f"{-blocks})")
+    return blocks * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_ARRIVALS = {}
+
+
+def _arrivals(device: torch.device, stream: int, groups: int) -> torch.Tensor:
+    """The arrival counters of the kernels launched on (device, stream):
+    zeros, which every launch leaves at 0 again (launches on one stream run
+    in order, so they may share them)."""
+    buf = _ARRIVALS.get((device.index, stream))
+    if buf is None or buf.numel() < groups:
+        buf = torch.zeros(max(groups, 1024), dtype=torch.int32, device=device)
+        _ARRIVALS[(device.index, stream)] = buf
+    return buf
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launch(name, fn, inputs, extra, x, pair):
     N, C, HW = _as3(x).shape
     if x.numel() == 0:
         out = torch.zeros((2, C), dtype=torch.float32, device=x.device)
         return out[0], out[1]
+    epv, code = route(*inputs), _DTYPE_CODES[x.dtype]
+    geo = tiling(N, C, HW, epv, capacity(x.device.index, pair, epv > 1, code))
+    stream = _stream(x.device)
     out = torch.empty((2, C), dtype=torch.float32, device=x.device)
-    cg, chunk, chunks = tiling(N, C, HW)
-    part = torch.empty((2, chunks, C), dtype=torch.float64, device=x.device)
+    part = torch.empty((2, geo.chunks, C), dtype=torch.float64, device=x.device)
+    arrivals = _arrivals(x.device, stream, -(-C // geo.cg))
     err = fn(*[t.data_ptr() for t in inputs], *[t.data_ptr() for t in extra],
-             part.data_ptr(), out.data_ptr(), N, C, HW, cg, chunk, chunks,
-             _DTYPE_CODES[x.dtype], x.device.index,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             part.data_ptr(), arrivals.data_ptr(), out.data_ptr(), N, C, HW, geo.cg,
+             geo.chunks, int(epv > 1), code, x.device.index, stream)
     _build.check(err, name)
     return out[0], out[1]
 
@@ -120,7 +194,7 @@ def channel_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         return channel_sums_plain(x)
     _check_cuda("channel_sums", x)
     s, q = _launch("channel_sums", _build.library().sbl_channel_sums, (x,),
-                   (), x)
+                   (), x, False)
     channel_sums.launches += 1
     return s, q
 
@@ -142,7 +216,7 @@ def channel_sums_pair(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
     if any(tuple(t.shape) != (C,) for t in stats):
         raise ValueError(f"channel_sums_pair: mean and inv must be ({C},)")
     s, q = _launch("channel_sums_pair", _build.library().sbl_channel_sums_pair,
-                   (dy, x), stats, x)
+                   (dy, x), stats, x, True)
     channel_sums_pair.launches += 1
     return s, q
 

@@ -198,19 +198,33 @@ def test_channel_sums_plain_versions():
                                    (7200, 512, 3, 3), (16, 512, 3, 3),
                                    (3, 1, 45, 45)])
 def test_channel_sums_tiling_covers_every_channel_once(shape):
-    """The launch geometry of K7/K8 at the train path's BN shapes: each
-    block's run of channels fits its 2048 positions, the groups cover the
-    channels, and the chunks cover the samples."""
+    """The launch geometry of K7/K8 at the train path's BN shapes, on a
+    card of 132 SMs holding 3 blocks each: each block's run of channels
+    fits its 2048 position slots and is a whole number of 16-byte pieces
+    where the row is (so every piece starts 16-byte aligned), the groups
+    cover the channels, the chunks cover the samples, none empty, and one
+    wave of blocks fills the card where the shape has the samples for it."""
     N, C_, H, W = shape
-    HW = H * W
-    cg, chunk, chunks = batchnorm.tiling(N, C_, HW)
-    groups = -(-C_ // cg)
-    assert cg * HW <= batchnorm.MAX_RUN or cg == 1
-    assert (groups - 1) * cg < C_ <= groups * cg
-    assert (chunks - 1) * chunk < N <= chunks * chunk
-    assert chunks <= 65535
-    if N >= batchnorm.TARGET_BLOCKS:
-        assert groups * chunks >= batchnorm.TARGET_BLOCKS // 2
+    HW, capacity = H * W, 132 * 3
+    for dtype in (torch.float32, torch.bfloat16):
+        epv = batchnorm.PIECE_BYTES // dtype.itemsize
+        if C_ * HW % epv:      # rows of odd length: the scalar route
+            epv = 1
+        cg, phases, chunks = batchnorm.tiling(N, C_, HW, epv, capacity)
+        groups = -(-C_ // cg)
+        assert cg * HW * phases <= batchnorm.MAX_RUN < cg * HW * (phases + 1)
+        assert cg * HW % epv == 0 and C_ * HW % epv == 0
+        # every run (sample n, group g) starts on a whole piece: 16 bytes
+        starts = {(n * C_ * HW + g * cg * HW) * dtype.itemsize
+                  for n in range(min(N, 9)) for g in range(groups)}
+        assert all(a % (epv * dtype.itemsize) == 0 for a in starts)
+        assert (groups - 1) * cg < C_ <= groups * cg
+        assert 1 <= chunks <= min(N, batchnorm.MAX_CHUNKS)
+        sizes = [(k + 1) * N // chunks - k * N // chunks for k in range(chunks)]
+        assert sum(sizes) == N and min(sizes) >= 1
+        assert groups * chunks <= max(capacity, groups)
+        if N >= capacity * phases:
+            assert groups * chunks > capacity - groups
 
 
 def _jax_frontend_pair(use_pallas_bn):
