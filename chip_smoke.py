@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --compare-eval PARENT_DIR
     python3 chip_smoke.py --compare-bn PARENT_DIR
+    python3 chip_smoke.py --compare-ingest-mask PARENT_DIR
 
 Run from the repository root on a machine with one NVIDIA card and the CUDA
 toolkit (nvcc on PATH or under /usr/local/cuda).  It needs no network, and
@@ -17,7 +18,9 @@ line (phase 2 adds nvcc's per-kernel register report):
      bodies, and those of K11's and K10's bodies (the warpgroup-MMA ones,
      K10's per number of 64-row tiles a warpgroup holds, and the f32
      ones), and fails if a tensor-core body spills; and those of K7/K8's
-     bodies (per dtype and route), failing on a spill;
+     bodies (per dtype and route), of K5's body and of K6's four (per
+     dtype and route), failing on a spill, with K5's and K6's static SASS
+     counts (``cuobjdump -sass``) by pipe;
   3. kernels vs plain versions on the card, at the recognize path's shapes:
      K2 stack_frames bit-exact; K1 small_mha_flat within K1_TOL, f32 and
      bf16, at d = 64 and at the other head widths it is built for (16, 32,
@@ -28,7 +31,11 @@ line (phase 2 adds nvcc's per-kernel register report):
      small_mha_dropout_fwd_flat and K4 small_mha_dropout_bwd_flat within
      TRAIN_TOL given K5's mask; K3 at rate 0 against K1; times of all
      three, their plain versions and scaled_dot_product_attention's
-     forward and backward, with their bounds; then K3/K4 at the other head
+     forward and backward, with their bounds (K5's on the integer pipes);
+     K5 bit-exact at MASK_SHAPES (one element, n not a multiple of 16, one
+     key, one head, one query row, the grid-stride loop); K5's time queued
+     back to back, and the launch floor split (launch_floor);
+     then K3/K4 at the other head
      widths they are built for (16, 32, 128) and at lengths past one tile
      of 32 keys (70, 150, one query row against 300 keys, and the longest
      each width takes: 153, 139, 116, 84 at d = 16, 32, 64, 128);
@@ -44,7 +51,11 @@ line (phase 2 adds nvcc's per-kernel register report):
      K4, as counted;
   3c. the training entry point's kernels vs their plain versions at its
      shapes, f32 and bf16: K6 ingest_train at (240,30,96,96) -> 88 with
-     attach_plans plans and n_frames padding, bit-exact; K7 channel_sums and
+     attach_plans plans and n_frames padding, bit-exact on its vector route
+     (16-byte pieces), and at INGEST_CASES (the tiny preset's crop on the
+     vector route; a crop of no whole pieces, rows of no whole words,
+     clips at an odd byte offset and, through the C entry, an output at an
+     element offset on the scalar route); K7 channel_sums and
      K8 channel_sums_pair on the frontend's five BatchNorm shapes at
      B*T = 7200 frames and on the B=16 check's layer4 shape (the 16-byte
      route), and on BN_SCALAR_CASES (rows of odd length, rows at an odd
@@ -127,7 +138,9 @@ them back to back (the device time, not the wrappers' host time); every
 bound is the larger of the bytes the function must move over HBM_BYTES_S
 and its operations over the card's peak rate for their type (H100 SXM data
 sheet: HBM3 3.35 TB/s, bf16 dense 989 TFLOP/s, f32 67 TFLOP/s outside the
-tensor cores, which also stands for 32-bit integer work).
+tensor cores; 32-bit integer work, K5's, on INT32_OPS: 64 lanes a clock an
+SM on each of the FMA and ALU pipes, for the instructions an element of
+the function needs, K5_IMAD and K5_ALU).
 
 Any failed phase raises, so the script exits non-zero without the result
 line; so it does when torch sees no CUDA device, and when the port's
@@ -137,14 +150,19 @@ With --compare-eval it runs instead phase 3d and phase 7 (the eval-side
 kernels K9-K11 against their plain versions, with their device times, and
 path A), with --compare-bn phase 3c and phase 6 (K6-K8 against their plain
 versions, with their device times, and the training entry point with
-PALLAS_INGEST=1 PALLAS_BN=1), in the checkout PARENT_DIR and in this one, in
+PALLAS_INGEST=1 PALLAS_BN=1), with --compare-ingest-mask phase 3b and
+phase 3c's K6 rows (K3-K6 checked and timed: K5's and K6's times, K3's and
+K4's beside them), in the checkout PARENT_DIR and in this one, in
 turns (parent, change, change, parent), each in a process of its own with
 that checkout first on sys.path and by that checkout's own chip_smoke.py,
 so one card and one host serve both trees; each turn's lines go to
-chiprun_out/compare_<set>_<label><turn>.log (set: eval or bn), and every
-turn's numbers with a summary (--compare-eval: the K10/K11 times and path
-A's rates; --compare-bn: the K7/K8 times per shape and per bf16 step, and
-the entry point's B=240 ms/step with the switches off and on) and the
+chiprun_out/compare_<set>_<label><turn>.log (set: eval, bn or
+ingest_mask), and every turn's numbers with a summary (--compare-eval: the
+K10/K11 times and path A's rates; --compare-bn: the K7/K8 times per shape
+and per bf16 step, and the entry point's B=240 ms/step with the switches
+off and on; --compare-ingest-mask: K6's times per dtype and K5's, K3's and
+K4's per train-step case with this tree's bounds, K5 queued back to back
+and the launch floor split, both trees by this file's timers) and the
 card's nvidia-smi name and power limit to chiprun_out/compare_<set>.json.
 """
 from __future__ import annotations
@@ -190,6 +208,15 @@ TRAIN_TOL = {"float32": {"fwd": 1e-5, "grad": 1e-4},
              "bfloat16": {"rel": 2.0 ** -7, "floor": 2.0 ** -12}}
 DROPOUT_RATE = 0.1
 KEEP_FRACTION = (0.895, 0.905)
+# K5 off the train step's shapes (B, H, Tq, Tk), checked bit-exact: one
+# element, n not a multiple of 16, one key, one head, one query row, and
+# more runs of 16 than one wave of threads holds (the grid-stride loop)
+MASK_SHAPES = ((1, 1, 1, 1), (3, 5, 7, 11), (4, 3, 5, 1), (7, 1, 9, 13), (2, 3, 1, 17),
+               (960, 8, 31, 31))
+# the train step's three mask shapes (B, H, Tq, Tk), K5's headline rows
+MASK_TIMED = {"encoder (240,30,512)": (240, 8, 30, 30),
+              "decoder self (480,17,512) causal": (480, 8, 17, 17),
+              "cross (480,17)x(480,30)": (480, 8, 17, 30)}
 TRAIN_BATCH = 240
 TRAIN_CHECK_BATCH = 16
 TRAIN_WARMUP = 2
@@ -207,6 +234,13 @@ TRAIN_BN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # roundings, relative to the sum of the magnitudes of its terms
 STAT_TOL = 1e-5
 BN_FRAMES = 7200            # B * T at B=240
+# K6 off the train step's shape, checked bit-exact: (name, (B, T, raw,
+# crop), clips' byte offset, output's element offset, the route expected)
+INGEST_CASES = (("tiny preset 40 -> 32", (16, 30, 40, 32), 0, 0, "vector"),
+                ("crop of no whole pieces", (16, 30, 96, 90), 0, 0, "scalar"),
+                ("rows of no whole words", (16, 30, 94, 88), 0, 0, "scalar"),
+                ("clips at an odd byte offset", (16, 30, 96, 88), 1, 0, "scalar"),
+                ("output at an element offset", (16, 30, 96, 88), 0, 1, "scalar"))
 # the frontend's BatchNorms at B=240: (name, (C, H, W), launches per step)
 BN_SHAPES = (("stem", (64, 44, 44), 1), ("layer1", (64, 22, 22), 4),
              ("layer2", (128, 11, 11), 5), ("layer3", (256, 6, 6), 5),
@@ -250,6 +284,33 @@ CKPT_DIR = Path(__file__).resolve().parent / "checkpoints" / "chip_smoke"
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_OPS = 67e12
+# 32-bit integer instructions a second on one pipe: compute capability 9.0
+# runs 32-bit integer multiply (IMAD, on the FMA pipe) and add, logic,
+# shift and compare (on the ALU pipe) each on 64 lanes a clock an SM
+# (CUDA C++ Programming Guide, arithmetic instruction throughput), so 64
+# lanes x 132 SMs x the 1.98 GHz top SM clock = 16.7 T; NVIDIA's 33.5
+# INT32 TOPS counts a multiply-add as two.  The two pipes run side by side,
+# and a scheduler issues one warp instruction a clock (128 lanes an SM), so
+# integer work takes at least max(IMAD, ALU, all / 2) / INT32_OPS.
+INT32_OPS = 64 * 132 * 1.98e9
+# The integer instructions an element of K5's function needs, whatever the
+# kernel: word 0 of Philox4x32-10 at the element's counter.  A round is two
+# 32 x 32 -> 64-bit products (IMAD.WIDE.U32 / IMAD.HI, the FMA pipe) and
+# two three-way XORs (LOP3, the ALU pipe).  Working back from word 0 after
+# round 10: round 10 needs one product's high half and one XOR (c0); round
+# 9 both products and one XOR (c2); rounds 1-8 both of each.  19 IMAD and
+# 18 LOP3.  The element adds three ALU instructions: the step of its
+# counter j, the compare with the threshold and the predicated OR of its
+# bit into the packed word.  The round keys depend on the seed alone, and
+# the carries into i, h and b come once a row, so neither counts an
+# element.  The kernel's own SASS (phase 2) is a diagnostic beside these.
+K5_IMAD = 19
+K5_ALU = 18 + 3
+# K5's elements a thread (csrc/attention_train.cu kMaskRun), over which
+# phase 2 counts its SASS per element
+K5_RUN = 16
+# launches back to back for queued_ms
+FLOOR_QUEUE = 200
 
 
 def check(ok: bool, msg: str) -> None:
@@ -305,6 +366,121 @@ def bound(n_bytes: float, n_ops: float, ops_rate: float):
     """(least ms on the card, "bytes" or "operations")."""
     by_bytes, by_ops = n_bytes / HBM_BYTES_S * 1e3, n_ops / ops_rate * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+_SASS = {}
+
+
+def sass_counts(pattern: str) -> dict:
+    """{the groups of ``pattern`` in a kernel's mangled name: {pipe: static
+    SASS instructions}} of the built library (``cuobjdump -sass``): "imad"
+    (IMAD/IMUL, the FMA pipe's integer work), "alu" (the other integer,
+    logic, compare and select instructions), "f32" (F* arithmetic), "issue"
+    (every instruction but NOP, uniform-datapath U* and the trailing
+    self-branch)."""
+    import re
+    from sbl_for_multilingual_lip_reading_tpu_torch.ops import _build
+    if "text" not in _SASS:
+        nvcc = _build.find_nvcc()
+        check(nvcc is not None, "cuobjdump: no CUDA toolkit")
+        res = subprocess.run([str(Path(nvcc).with_name("cuobjdump")), "-sass",
+                              str(_build.library_path())], capture_output=True,
+                             text=True, timeout=600, check=False)
+        check(res.returncode == 0, f"cuobjdump failed: {res.stderr[-2000:]}")
+        _SASS["text"] = res.stdout
+    alu = {"IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "PRMT", "ISETP",
+           "SEL", "LEA", "IABS", "IMNMX", "VIMNMX", "FLO", "POPC", "BMSK", "SGXT",
+           "PLOP3", "MOV", "BREV", "VIADD", "VIADDMNMX", "P2R", "R2P"}
+    out, counts, last = {}, None, ""
+    for line in _SASS["text"].splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            found = re.search(pattern, m.group(1))
+            counts = None
+            if found:
+                counts = out.setdefault(found.groups(), dict(imad=0, alu=0, f32=0, issue=0))
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if counts is None or not m:
+            continue
+        op, after_exit = m.group(2).split(".")[0], last
+        last = "EXIT" if op == "EXIT" and not m.group(1) else ""
+        if op == "NOP" or op.startswith("U") or (op == "BRA" and after_exit):
+            continue
+        counts["issue"] += 1
+        if op in ("IMAD", "IMUL"):
+            counts["imad"] += 1
+        elif op in alu:
+            counts["alu"] += 1
+        elif op.startswith("F") and op not in ("FENCE",):
+            counts["f32"] += 1
+    return out
+
+
+def k5_sass_per_element() -> dict:
+    """K5's static SASS counts per element, a diagnostic beside K5_IMAD and
+    K5_ALU (its kernel's instructions over the K5_RUN elements a thread
+    stores; the once-a-thread decomposition and the tail's stores
+    included), and the pipe-limited integer instructions an element:
+    max(IMAD, ALU, issue / 2)."""
+    if "k5" not in _SASS:
+        found = sass_counts(r"(dropout_keep_mask_kernel)")
+        check(len(found) == 1, f"SASS of dropout_keep_mask_kernel: {sorted(found)}")
+        per = {k: v / K5_RUN for k, v in next(iter(found.values())).items()}
+        per["pipe_limited"] = max(per["imad"], per["alu"], per["issue"] / 2)
+        _SASS["k5"] = per
+    return _SASS["k5"]
+
+
+def k5_bound(n: int):
+    """K5's bound over n elements: one byte written an element, and the
+    function's pipe-limited integer instructions an element, max(K5_IMAD,
+    K5_ALU, both / 2), over INT32_OPS."""
+    per = max(K5_IMAD, K5_ALU, (K5_IMAD + K5_ALU) / 2)
+    return bound(n, n * per, INT32_OPS)
+
+
+def queued_ms(torch, fn, reps: int = FLOOR_QUEUE) -> float:
+    """Device ms a call of fn() adds when ``reps`` calls run back to back:
+    CUDA events around them all, queued behind a spin kernel, nothing read
+    between them.  Beside cuda_ms's one call in a window, it leaves out what
+    a launch costs when nothing runs before it."""
+    for _ in range(TIMING_WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * (2 * host_s + 1e-3)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def launch_floor(torch, dev) -> dict:
+    """The smallest launch's time, split: "fill_ms", a one-element fill
+    under cuda_ms (the flush, then events around the one launch);
+    "empty_ms", the same window with no launch in it (the flush's tail and
+    the events' own time); "queued_fill_ms", a fill's share of FLOOR_QUEUE
+    fills back to back (what a launch costs the card with another queued
+    behind it)."""
+    one = torch.zeros(1, dtype=torch.uint8, device=dev)
+    return dict(fill_ms=cuda_ms(torch, lambda: one.fill_(1)),
+                empty_ms=cuda_ms(torch, lambda: None),
+                queued_fill_ms=queued_ms(torch, lambda: one.fill_(1)))
+
+
+def k5_queued_ms(torch, ops, dev, shape) -> float:
+    """K5's queued_ms at a (B, H, Tq, Tk) mask."""
+    B, H, Tq, Tk = shape
+    return queued_ms(torch, lambda: ops.dropout_keep_mask_flat(
+        B, Tq, Tk, H, 1000 + B * Tq + Tk, DROPOUT_RATE, dev))
 
 
 def library_time(torch, fn, call: str):
@@ -412,6 +588,32 @@ def phase_build():
             print(f"phase 2 channel_sums_kernel ({variant}): {used}; {spill}")
             if "0 bytes spill stores, 0 bytes spill loads" not in spill:
                 spills.append(f"channel_sums_kernel ({variant}): {spill}")
+        # K5 (one body) and K6 (per dtype and route: pieces of 8 bf16 or 4
+        # f32 outputs, or single outputs), with their static SASS counts
+        found = ptxas_report(text, r"(dropout_keep_mask_kernel)")
+        check(len(found) == 1, f"ptxas report of dropout_keep_mask_kernel: {sorted(found)}")
+        used, spill = next(iter(found.values()))
+        per = k5_sass_per_element()
+        print(f"phase 2 dropout_keep_mask_kernel (K5): {used}; {spill}; SASS an element "
+              f"(static, over {K5_RUN}): IMAD {per['imad']:.2f}, ALU {per['alu']:.2f}, "
+              f"issued {per['issue']:.2f}; pipe-limited {per['pipe_limited']:.2f}, "
+              f"against the function's IMAD {K5_IMAD}, ALU {K5_ALU}")
+        if "0 bytes spill stores, 0 bytes spill loads" not in spill:
+            spills.append(f"dropout_keep_mask_kernel: {spill}")
+        pattern = r"ingest_train_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E"
+        found, sass = ptxas_report(text, pattern), sass_counts(pattern)
+        check(len(found) == 4 and sorted(found) == sorted(sass),
+              f"ptxas / SASS of ingest_train_kernel: {sorted(found)}, {sorted(sass)}")
+        for (dt, epv, u), (used, spill) in sorted(found.items()):
+            n = sass[(dt, epv, u)]
+            outs = int(epv) * int(u)
+            variant = (f"K6 {'f32' if dt == 'f' else 'bf16'} "
+                       f"{'scalar' if epv == '1' else epv + '-output pieces'}, {u} a round")
+            print(f"phase 2 ingest_train_kernel ({variant}): {used}; {spill}; SASS "
+                  f"(static) {n['issue']} issued, {n['f32']} f32, {n['alu']} ALU, "
+                  f"{n['imad']} IMAD: {n['issue'] / outs:.2f} issued an output of a round")
+            if "0 bytes spill stores, 0 bytes spill loads" not in spill:
+                spills.append(f"ingest_train_kernel ({variant}): {spill}")
         check(not spills, f"kernels spill: {spills}")
     return seconds
 
@@ -648,9 +850,9 @@ def phase_train_kernels(torch, dev, timing=True):
                 attention_bound(N, Tq, Tk, H, 64, itemsize, bias, 0)[0]
                 * HBM_BYTES_S / 1e3 + (N * Tq + 2 * N * Tk) * H * 64 * itemsize,
                 5 * 2.0 * N * H * Tq * Tk * 64, BF16_FLOPS)
-            # K5 writes one byte per score; Philox4x32-10 costs ~80 32-bit
-            # integer operations per word
-            mask_bound = bound(N * H * Tq * Tk, 80.0 * N * H * Tq * Tk, F32_OPS)
+            # K5 writes one byte per score and draws one Philox4x32-10
+            # word (K5_IMAD, K5_ALU)
+            mask_bound = k5_bound(N * H * Tq * Tk)
             rows.append(dict(
                 fwd_bound=fwd_bound, bwd_bound=bwd_bound, mask_bound=mask_bound,
                 fwd_lib_ms=fwd_lib_ms, fwd_lib_call=fwd_lib_call,
@@ -676,6 +878,34 @@ def phase_train_kernels(torch, dev, timing=True):
               f"bit-exact, {r['mask_ms']:.4f} ms (plain {r['mask_plain_ms']:.4f}, "
               f"bound {r['mask_bound'][0]:.4f}); "
               f"K3 rate 0 vs K1 err {r['rate0_vs_k1_err']:.3g}")
+
+    # K5 off the train step's shapes, bit-exact against the plain Philox;
+    # at the train step's, its time queued back to back and the launch
+    # floor, split, beside its times and bounds
+    for B_, H_, Tq_, Tk_ in MASK_SHAPES:
+        seed = 3000 + B_ * H_ + Tq_ * Tk_
+        keep = ops.dropout_keep_mask_flat(B_, Tq_, Tk_, H_, seed, DROPOUT_RATE, dev)
+        check(torch.equal(keep, ops.dropout_keep_mask_flat_plain(
+            B_, Tq_, Tk_, H_, seed, DROPOUT_RATE, dev)),
+            f"K5 ({B_},{H_},{Tq_},{Tk_}): mask differs from the plain Philox")
+    floor = (launch_floor(torch, dev) if timing
+             else dict(fill_ms=float("nan"), empty_ms=float("nan"),
+                       queued_fill_ms=float("nan")))
+    print(f"phase 3b launch floor: a one-element fill {floor['fill_ms']:.4f} ms, "
+          f"the same window with no launch {floor['empty_ms']:.4f}, a fill queued "
+          f"behind another {floor['queued_fill_ms']:.4f}")
+    for r in rows:
+        r["launch_floor"] = floor
+        if r["dtype"] == "bfloat16" and r["case"] in MASK_TIMED:
+            r["mask_queued_ms"] = (k5_queued_ms(torch, ops, dev, MASK_TIMED[r["case"]])
+                                   if timing else float("nan"))
+            share = r["mask_bound"][0] / r["mask_ms"]
+            print(f"phase 3b K5 {r['case']}: {r['mask_ms']:.4f} ms ({share:.0%} of "
+                  f"its bound {r['mask_bound'][0]:.5f}, {r['mask_bound'][1]}), "
+                  f"{r['mask_ms'] - floor['fill_ms']:.4f} above the fill; queued "
+                  f"{r['mask_queued_ms']:.4f} ms "
+                  f"({r['mask_bound'][0] / r['mask_queued_ms']:.0%} of its bound)")
+    print(f"phase 3b K5 bit-exact at {', '.join(str(s) for s in MASK_SHAPES)}")
 
     # the other head widths K3/K4 are built for (the tiny presets' d_k = 16;
     # cli --d_model / --n_head), at the train step's shapes, and lengths
@@ -933,7 +1163,7 @@ def phase_twin_kernels(torch, dev, timing=True):
                                                         DROPOUT_RATE, dev)),
                     ms_of(lambda: ops.dropout_keep_mask_flat_plain(
                         B, T, T, H, seed, DROPOUT_RATE, dev)),
-                    bound(B * H * T * T, 80.0 * B * H * T * T, F32_OPS),
+                    k5_bound(B * H * T * T),
                     (None, "none: no PyTorch call draws this Philox mask"),
                     keep_fraction=frac)
             del q, k, v, dout, out, grads, flat_grads, wants, keep, plain_keep
@@ -1324,14 +1554,21 @@ def phase_train(torch, np, dev):
                                      TRAIN_BATCH, "phase 5")
 
 
-def phase_ingest_bn_kernels(torch, np, dev):
-    """K6 against its plain version at (240,30,96,96) -> 88; K7 and K8
-    against theirs on the frontend's BatchNorm shapes; times of kernel,
-    plain version and library call; the bounds."""
+def phase_ingest_kernels(torch, np, dev, timing=True):
+    """K6 against its plain version, bit for bit: at (240,30,96,96) -> 88
+    on the vector route, timed with its plain version and bound; and on
+    INGEST_CASES, each on the route it expects (``timing`` False: the
+    checks alone, every time NaN)."""
     from sbl_for_multilingual_lip_reading_tpu_torch import config as C
     from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.data.transforms import (
+        make_train_plans)
+    from sbl_for_multilingual_lip_reading_tpu_torch.ops import _build
     from sbl_for_multilingual_lip_reading_tpu_torch.training.trainer import (
         attach_plans)
+
+    def ms_of(fn):
+        return cuda_ms(torch, fn) if timing else float("nan")
     cfg = C.sbl()
     B, T, raw, crop = TRAIN_BATCH, cfg.data.frames, cfg.data.raw_size, \
         cfg.data.crop_size
@@ -1356,22 +1593,71 @@ def phase_ingest_bn_kernels(torch, np, dev):
         want = ops.ingest_train_plain(*args, crop, dt, n_frames=nf)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"K6 {dt} is not bit-exact")
+        route = ops.ingest.route(args[0], got, crop)
+        check(route > 1, f"K6 {dt} at the train step's shape: scalar route")
         n_bytes = len(sources) * crop * crop + plan_bytes + got.numel() * got.element_size()
         bound_ms, bound_by = bound(n_bytes, 2.0 * got.numel(), F32_OPS)
         ingest.append(dict(
             case=f"({B},{T},{raw},{raw}) -> {crop}", dtype=dtype_name(got),
-            max_abs_err=0.0, bound_ms=bound_ms, bound_by=bound_by,
-            ms=cuda_ms(torch, lambda: ops.ingest_train(*args, crop, dt, n_frames=nf)),
-            plain_ms=cuda_ms(torch, lambda: ops.ingest_train_plain(
+            route=f"{route}-output pieces", max_abs_err=0.0, bound_ms=bound_ms,
+            bound_by=bound_by,
+            ms=ms_of(lambda: ops.ingest_train(*args, crop, dt, n_frames=nf)),
+            plain_ms=ms_of(lambda: ops.ingest_train_plain(
                 *args, crop, dt, n_frames=nf)),
             library_ms=None, library_call="none: no single PyTorch call "
             "gathers, crops, flips and normalizes"))
         del got, want
     for r in ingest:
-        print(f"phase 3c ingest_train {r['case']} {r['dtype']}: bit-exact, kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        print(f"phase 3c ingest_train {r['case']} {r['dtype']} ({r['route']}): "
+              f"bit-exact, kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{r['bound_ms'] / r['ms']:.0%} of it)")
 
+    # the routes off the train step's shape, checked bit for bit; the
+    # output at an element offset goes through the C entry, since the
+    # wrapper allocates its own output
+    lib = _build.library()
+    for name, (B_, T_, raw_, crop_), offset, out_offset, expect in INGEST_CASES:
+        rng = np.random.default_rng(5 + crop_ + offset)
+        buf = torch.as_tensor(rng.integers(0, 256, B_ * T_ * raw_ * raw_ + offset,
+                                           dtype=np.uint8)).to(dev)
+        clips_ = buf[offset:].view(B_, T_, raw_, raw_)
+        plans = make_train_plans(rng, B_, T_, raw_, crop_, 0.3)
+        plans = [torch.as_tensor(np.asarray(a)).to(dev) for a in plans]
+        nf_ = torch.as_tensor(np.where(rng.random(B_) < 0.25, rng.integers(1, T_, B_), T_)
+                              .astype(np.int32)).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            want = ops.ingest_train_plain(clips_, *plans, crop_, dt, n_frames=nf_)
+            if out_offset:
+                out = torch.full((want.numel() + out_offset,), float("nan"), dtype=dt,
+                                 device=dev)[out_offset:].view(want.shape)
+                off32, fm32 = (plans[i].to(torch.int32).contiguous() for i in (0, 2))
+                fl8 = plans[1].to(torch.uint8).contiguous()
+                err = lib.sbl_ingest_train(
+                    clips_.data_ptr(), off32.data_ptr(), fl8.data_ptr(), fm32.data_ptr(),
+                    nf_.data_ptr(), out.data_ptr(), B_, T_, raw_, raw_, crop_,
+                    ops.ingest.INV_STD, ops.ingest.SHIFT, 0 if dt == torch.float32 else 1,
+                    dev.index, torch.cuda.current_stream(dev).cuda_stream)
+                _build.check(err, "ingest_train at an output offset")
+                got = out
+            else:
+                out = torch.empty_like(want)
+                got = ops.ingest_train(clips_, *plans, crop_, dt, n_frames=nf_)
+            route = "vector" if ops.ingest.route(clips_, out, crop_) > 1 else "scalar"
+            check(route == expect, f"K6 {name} {dt}: {route} route, not {expect}")
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"K6 {name} {dt} is not bit-exact")
+        print(f"phase 3c ingest_train {name} ({B_},{T_},{raw_},{raw_}) -> {crop_}: "
+              f"bit-exact in f32 and bf16, {expect} route")
+    return ingest
+
+
+def phase_ingest_bn_kernels(torch, np, dev):
+    """K6 against its plain version (``phase_ingest_kernels``); K7 and K8
+    against theirs on the frontend's BatchNorm shapes; times of kernel,
+    plain version and library call; the bounds."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    ingest = phase_ingest_kernels(torch, np, dev)
     g = torch.Generator(device=dev).manual_seed(5)
     stats = []
     cases = [(name, (BN_FRAMES,) + shape, per_step, 0)
@@ -2271,6 +2557,30 @@ def _bn_turn(target, torch, np, dev) -> dict:
                 entry=entry["turns"])
 
 
+def _ingest_mask_turn(target, torch, np, dev) -> dict:
+    """Phase 3b (K3-K5 checked and timed at the train step's shapes) and
+    phase 3c's K6 rows (a tree without ``phase_ingest_kernels`` runs its
+    whole phase 3c)."""
+    train = target.phase_train_kernels(torch, dev)
+    if hasattr(target, "phase_ingest_kernels"):
+        ingest = target.phase_ingest_kernels(torch, np, dev)
+    else:
+        ingest = target.phase_ingest_bn_kernels(torch, np, dev)[0]
+    # K5 queued and the launch floor by this file's timers, the same for
+    # both trees (the tree's package is the one its phases imported)
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    keys = ("mask_ms", "mask_bound", "fwd_ms", "bwd_ms")
+    rows = {}
+    for r in train:
+        rows[f"{r['case']} {r['dtype']}"] = row = {k: r.get(k) for k in keys}
+        if r["dtype"] == "bfloat16" and r["case"] in MASK_TIMED:
+            row["mask_queued_ms"] = k5_queued_ms(torch, ops, dev, MASK_TIMED[r["case"]])
+    return dict(train=rows, launch_floor=launch_floor(torch, dev),
+                ingest={f"{r['case']} {r['dtype']}": {k: r[k] for k in ("ms", "bound_ms",
+                                                                        "plain_ms")}
+                        for r in ingest})
+
+
 # phase sets of the A/B turns: (the turn's phases, the summary of its runs)
 def _eval_summary(runs):
     summary = {f"{kernel} {case}": {lab: [r[kernel][case]["ms"] for r in runs
@@ -2310,7 +2620,41 @@ def _bn_summary(runs):
     return summary
 
 
-PHASE_SETS = {"eval": (_eval_turn, _eval_summary), "bn": (_bn_turn, _bn_summary)}
+def _ingest_mask_summary(runs):
+    """K6's ms per dtype, and K5's, K3's and K4's ms per train-step case
+    and dtype, of each tree's turns, beside this tree's bounds."""
+    def side(lab, fn):
+        return [fn(r) for r in runs if r["label"] == lab]
+    change = next(r for r in runs if r["label"] == "change")
+    summary = {}
+    for case in change["ingest"]:
+        if all(case in r["ingest"] for r in runs):
+            summary[f"ingest_train {case}"] = dict(
+                {lab: side(lab, lambda r: r["ingest"][case]["ms"]) for lab in ("parent", "change")},
+                bound_ms=change["ingest"][case]["bound_ms"])
+    for key, kernel in (("mask_ms", "dropout_keep_mask_flat"),
+                        ("fwd_ms", "small_mha_dropout_fwd_flat"),
+                        ("bwd_ms", "small_mha_dropout_bwd_flat")):
+        for case in change["train"]:
+            if all(case in r["train"] for r in runs):
+                summary[f"{kernel} {case}"] = {
+                    lab: side(lab, lambda r: r["train"][case][key])
+                    for lab in ("parent", "change")}
+                if key == "mask_ms":
+                    summary[f"{kernel} {case}"]["bound_ms"] = (
+                        change["train"][case]["mask_bound"][0])
+                if key == "mask_ms" and "mask_queued_ms" in change["train"][case]:
+                    summary[f"{kernel} {case} queued"] = {
+                        lab: side(lab, lambda r: r["train"][case]["mask_queued_ms"])
+                        for lab in ("parent", "change")}
+    for part in ("fill_ms", "empty_ms", "queued_fill_ms"):
+        summary[f"launch floor {part}"] = {
+            lab: side(lab, lambda r: r["launch_floor"][part]) for lab in ("parent", "change")}
+    return summary
+
+
+PHASE_SETS = {"eval": (_eval_turn, _eval_summary), "bn": (_bn_turn, _bn_summary),
+              "ingest_mask": (_ingest_mask_turn, _ingest_mask_summary)}
 
 
 def turn_child(phase_set: str, tree: str) -> dict:
@@ -2370,7 +2714,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    compare = {"--compare-eval": "eval", "--compare-bn": "bn"}
+    compare = {"--compare-eval": "eval", "--compare-bn": "bn",
+               "--compare-ingest-mask": "ingest_mask"}
     if sys.argv[1:2] and sys.argv[1] in compare:
         return compare_turns(compare[sys.argv[1]], str(Path(sys.argv[2]).resolve()))
     _set_switches(False)
@@ -2463,7 +2808,9 @@ def main() -> int:
                         [{k: r[k] for k in ("case", "dtype", f"{key}_ms",
                                             f"{key}_plain_ms")}
                          for r in train_kernels],
-                        on_main_path=kernel != "dropout_keep_mask_flat"))
+                        on_main_path=kernel != "dropout_keep_mask_flat",
+                        **({"queued_ms": head["mask_queued_ms"],
+                            "launch_floor": head["launch_floor"]} if key == "mask" else {})))
     # K6 at its one shape; K7, K8: the headline row is the stem's BatchNorm
     # in bf16, and per_step_ms sums the frontend's 20 launches per step
     rows.append(row("ingest_train", "ingest.cu", "ingest.py:50",

@@ -129,7 +129,11 @@ constexpr uint32_t kPhiloxM1 = 0xCD9E8D57u;
 constexpr uint32_t kPhiloxW0 = 0x9E3779B9u;
 constexpr uint32_t kPhiloxW1 = 0xBB67AE85u;
 
-// word 0 of Philox4x32-10 at counter (j, i, h, b) under the 64-bit seed
+// word 0 of Philox4x32-10 at counter (j, i, h, b) under the 64-bit seed, as
+// K3 and K4 draw it.  The round is written out here and not through
+// philox_round (K5's), which computes the same words: routed through it,
+// K3's and K4's bodies compile to other SASS, and K4's f32 body runs 4-8%
+// and K3's bf16 body 2-3% slower (an ablation build timed on the card).
 __device__ __forceinline__ uint32_t dropout_bits(unsigned long long seed, uint32_t b,
                                                  uint32_t h, uint32_t i, uint32_t j) {
   uint32_t c0 = j, c1 = i, c2 = h, c3 = b;
@@ -840,20 +844,110 @@ dropout_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
 // ---------------------------------------------------------------------------
 // K5
 // ---------------------------------------------------------------------------
+//
+// What bounds it: the integer pipes.  Each element costs one Philox4x32-10
+// word (ten rounds of two 32 x 32 -> 64-bit products and two three-way
+// XORs: some 36 integer instructions once the last rounds' unused words
+// are dropped) and writes one byte, so at (480,8,17,17) its 1.1 MB take
+// 0.33 us of device-memory time against a few us of integer issue (32-bit
+// multiplies on the FMA pipe and logic on the ALU pipe, each 64 lanes a
+// clock an SM on compute capability 9.0).  What else it spends must stay
+// small beside the draw: three divisions of a 64-bit flat index an element
+// (a software routine each) would cost more than the draw itself.  Below
+// that, a launch costs about 5 us on the card (a one-element fill, timed
+// as the kernels are), more than the draws at the train step's shapes.
+//
+// The design:
+//   * a thread owns 16 consecutive flat elements and stores them with one
+//     16-byte st.global (a run that ends past n stores its elements
+//     singly); n < 2^31, so every index is 32-bit;
+//   * its first element's (b, h, i, j) comes from three divisions by
+//     multiply-high with the divisors' magic numbers (FastDiv, computed on
+//     the host), once a thread; the other 15 step j with a carry into i, h
+//     and b, by selects, so the body is one straight line and its static
+//     SASS is what a thread executes (chip_smoke.py bounds K5 by it);
+//     carries by branch time the same;
+//   * the ten round keys are computed once a thread (they depend on the
+//     seed alone), not once an element; the 16 draws of a thread are
+//     independent, so their multiplies interleave;
+//   * one wave: the grid is the smaller of n / 16 / kMaskThreads and the
+//     blocks the card holds at once (occupancy query), and a grid-stride
+//     loop takes the rest.
+// The bits are the ones dropout_bits gives K3 and K4: the same rounds on
+// the same counter and keys.
 
-// out: (B, H, Tq, Tk) bytes, 1 = keep.  A grid-stride loop over elements.
-__global__ void dropout_keep_mask_kernel(unsigned char* __restrict__ out, long long n, int H,
-                                         int Tq, int Tk, Dropout drop) {
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += (long long)gridDim.x * blockDim.x) {
-    long long t = idx;
-    const int j = (int)(t % Tk);
-    t /= Tk;
-    const int i = (int)(t % Tq);
-    t /= Tq;
-    const int h = (int)(t % H);
-    const int b = (int)(t / H);
-    out[idx] = drop.keep(b, h, i, j) ? 1 : 0;
+constexpr int kMaskThreads = 128;
+constexpr int kMaskRun = 16;  // elements a thread stores at once
+
+// one round of Philox4x32 on the counter c under the round key (k0, k1)
+__device__ __forceinline__ void philox_round(uint32_t& c0, uint32_t& c1, uint32_t& c2,
+                                             uint32_t& c3, uint32_t k0, uint32_t k1) {
+  const uint32_t hi0 = __umulhi(kPhiloxM0, c0), lo0 = kPhiloxM0 * c0;
+  const uint32_t hi1 = __umulhi(kPhiloxM1, c2), lo1 = kPhiloxM1 * c2;
+  c0 = hi1 ^ c1 ^ k0;
+  c1 = lo1;
+  c2 = hi0 ^ c3 ^ k1;
+  c3 = lo0;
+}
+
+// n / d for n < 2^31 by one multiply-high, an add and a shift: m and s are
+// the round-up magic number of d (Granlund and Montgomery), from the host.
+struct FastDiv {
+  uint32_t d, m, s;
+  explicit FastDiv(uint32_t divisor) : d(divisor), s(0) {
+    while (s < 31 && (1u << s) < d) ++s;
+    m = static_cast<uint32_t>(((1ull << 32) * ((1ull << s) - d)) / d + 1);
+  }
+  __device__ __forceinline__ uint32_t div(uint32_t n) const { return (__umulhi(n, m) + n) >> s; }
+};
+
+// out: (B, H, Tq, Tk) bytes, 1 = keep; n = B * H * Tq * Tk < 2^31.
+__global__ void __launch_bounds__(kMaskThreads)
+    dropout_keep_mask_kernel(unsigned char* __restrict__ out, uint32_t n, FastDiv by_tk,
+                             FastDiv by_tq, FastDiv by_h, unsigned long long seed,
+                             uint32_t thresh) {
+  uint32_t k0[10], k1[10];
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    k0[r] = static_cast<uint32_t>(seed) + r * kPhiloxW0;
+    k1[r] = static_cast<uint32_t>(seed >> 32) + r * kPhiloxW1;
+  }
+  const uint32_t Tk = by_tk.d, Tq = by_tq.d, H = by_h.d;
+  const uint32_t runs = (n + kMaskRun - 1) / kMaskRun;
+  for (uint32_t g = blockIdx.x * kMaskThreads + threadIdx.x; g < runs;
+       g += gridDim.x * kMaskThreads) {
+    const uint32_t e0 = g * kMaskRun;
+    const uint32_t row = by_tk.div(e0);  // (b, h, i)
+    const uint32_t head = by_tq.div(row);  // (b, h)
+    uint32_t j = e0 - row * Tk, i = row - head * Tq;
+    uint32_t b = by_h.div(head), h = head - b * H;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int u = 0; u < kMaskRun; ++u) {
+      uint32_t c0 = j, c1 = i, c2 = h, c3 = b;
+#pragma unroll
+      for (int r = 0; r < 10; ++r) philox_round(c0, c1, c2, c3, k0[r], k1[r]);
+      w[u / 4] |= static_cast<uint32_t>(c0 >= thresh) << (8 * (u % 4));
+      // the next element: carries by selects, so the 16 draws stay one
+      // straight line
+      const bool cj = ++j == Tk;
+      j = cj ? 0u : j;
+      i += cj;
+      const bool ci = i == Tq;
+      i = ci ? 0u : i;
+      h += ci;
+      const bool ch = h == H;
+      h = ch ? 0u : h;
+      b += ch;
+    }
+    if (e0 + kMaskRun <= n) {
+      *reinterpret_cast<uint4*>(out + e0) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < kMaskRun; ++u) {
+        if (e0 + u < n) out[e0 + u] = (w[u / 4] >> (8 * (u % 4))) & 0xffu;
+      }
+    }
   }
 }
 
@@ -1000,18 +1094,27 @@ extern "C" int sbl_small_mha_dropout_bwd_flat(const void* q, const void* k, cons
                      scale, drop, dtype, s)
 }
 
-// out: (B, H, Tq, Tk) torch.bool (one byte per element).
+// out: (B, H, Tq, Tk) torch.bool (one byte per element), 16-byte aligned;
+// B * H * Tq * Tk < 2^31.
 extern "C" int sbl_dropout_keep_mask_flat(void* out, int B, int H, int Tq, int Tk,
                                           unsigned long long seed, unsigned int thresh,
                                           int device, void* stream) {
-  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || !aligned16(out)) return (int)cudaErrorInvalidValue;
+  const long long n = (long long)B * H * Tq * Tk;
+  if (n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)B * H * Tq * Tk;
-  const int threads = 256;
-  const long long want = (n + threads - 1) / threads;
-  const unsigned blocks = (unsigned)(want < 4096 ? want : 4096);
-  dropout_keep_mask_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<unsigned char*>(out), n, H, Tq, Tk, make_dropout(seed, thresh, 0.f, 1));
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dropout_keep_mask_kernel,
+                                                      kMaskThreads, 0);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const long long per_block = (long long)kMaskRun * kMaskThreads;
+  const long long want = (n + per_block - 1) / per_block;
+  const long long resident = per_sm * sms > 0 ? (long long)per_sm * sms : 1;
+  const unsigned blocks = (unsigned)(want < resident ? want : resident);
+  dropout_keep_mask_kernel<<<blocks, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned char*>(out), (uint32_t)n, FastDiv(Tk), FastDiv(Tq), FastDiv(H), seed,
+      thresh);
   return (int)cudaGetLastError();
 }

@@ -248,6 +248,7 @@ def _k1(name, q, k, v, n_head, bias, scale):
 _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+MAX_MASK_ELEMENTS = 2 ** 31  # K5 indexes its elements in 32 bits
 
 
 def dropout_threshold(rate: float) -> int:
@@ -322,11 +323,17 @@ dropout_keep_mask_flat.launches = 0
 
 
 def _k5(name, B, Tq, Tk, H, seed, rate, device):
-    """Launch K5 on a CUDA device into a new (B, H, Tq, Tk) bool mask."""
+    """Launch K5 on a CUDA device into a new (B, H, Tq, Tk) bool mask.  K5
+    indexes its elements in 32 bits, so a mask of MAX_MASK_ELEMENTS or more
+    is refused before it is allocated (the plain version has no such
+    limit)."""
     seed = _check_seed(seed)
     thresh = dropout_threshold(rate)
     if device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {device}")
+    if B * H * Tq * Tk >= MAX_MASK_ELEMENTS:
+        raise ValueError(f"{name}: a mask of {B}x{H}x{Tq}x{Tk} elements exceeds "
+                         f"{MAX_MASK_ELEMENTS - 1}")
     out = torch.empty((B, H, Tq, Tk), dtype=torch.bool, device=device)
     if out.numel() == 0:
         return out

@@ -11,7 +11,11 @@ with the slots ``t >= n_frames[b]`` zeroed after the normalization.  The
 normalization is the TPU kernel's ``x * (1 / (255 STD)) - MEAN / STD``, two
 f32 roundings; ``data/ingest.py::device_ingest`` computes
 ``(x / 255 - MEAN) / STD``, which rounds differently.  The CUDA kernel is
-``csrc/ingest.cu``; its design note is there.
+``csrc/ingest.cu``; its design note is there.  It takes one of two routes,
+which ``route`` mirrors: 16-byte output pieces (8 bf16 or 4 f32 outputs a
+thread's load and store) where the crop and the source rows are whole
+pieces and words and both pointers are 16-byte aligned, else single
+outputs.
 
 ``ingest_train`` is the wrapper the train step calls.  On CPU tensors it runs
 ``ingest_train_plain``; on CUDA tensors it launches the kernel or raises.
@@ -28,6 +32,7 @@ from ..data.ingest import MEAN, STD, crop_frames
 from . import _build
 
 MAX_OFFSET = 8  # RandomCrop's offset range [0, 8], as the TPU kernel takes it
+PIECE_BYTES = 16  # one store of the kernel's vector route
 INV_STD = float(np.float32(1.0 / (255.0 * STD)))
 SHIFT = float(np.float32(MEAN / STD))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,6 +55,20 @@ def _check(clips_u8, offsets, flip, frame_map, crop, dtype, n_frames):
             raise ValueError(f"{name} must be {shape}; got {tuple(t.shape)}")
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"ingest_train writes f32 or bf16; got {dtype}")
+
+
+def route(clips_u8: torch.Tensor, out: torch.Tensor, crop: int) -> int:
+    """Outputs a piece of K6 holds for these tensors, as ``csrc/ingest.cu``
+    chooses: 16 bytes' worth of ``out`` (8 bf16, 4 f32) on the vector route,
+    where the crop is a whole number of pieces, a source row a whole number
+    of words of as many bytes, and both pointers are 16-byte aligned; else 1
+    (the scalar route)."""
+    epv = PIECE_BYTES // out.element_size()
+    W = clips_u8.shape[-1]
+    if (crop % epv == 0 and W % epv == 0 and clips_u8.data_ptr() % PIECE_BYTES == 0
+            and out.data_ptr() % PIECE_BYTES == 0):
+        return epv
+    return 1
 
 
 def ingest_train_plain(clips_u8: torch.Tensor, offsets: torch.Tensor,
