@@ -33,8 +33,12 @@ line (phase 2 adds nvcc's per-kernel register report):
      three, their plain versions and scaled_dot_product_attention's
      forward and backward, with their bounds (K5's on the integer pipes);
      K5 bit-exact at MASK_SHAPES (one element, n not a multiple of 16, one
-     key, one head, one query row, the grid-stride loop); K5's time queued
-     back to back, and the launch floor split (launch_floor);
+     key, one head, one query row, the grid-stride loop); the batch-row map
+     of a data-parallel process (process 1 of 2, the decoder's two
+     directions in one launch): K5 bit-exact against the plain Philox and
+     against its rows of the one-process mask, K3/K4 on it within
+     TRAIN_TOL; K5's time queued back to back, and the launch floor split
+     (launch_floor);
      then K3/K4 at the other head
      widths they are built for (16, 32, 128) and at lengths past one tile
      of 32 keys (70, 150, one query row against 300 keys, and the longest
@@ -126,6 +130,27 @@ line (phase 2 adds nvcc's per-kernel register report):
      one step per stage on seeded synthetic data: the frozen stages'
      frontend and encoder bit-identical, the transferred counts equal to the
      frontend and encoder parameters of the classify checkpoint;
+  E1-E6. path E, the data-parallel, rematerialised training path
+     (``sbl`` at the full width): E1 remat_frontend on vs off at
+     B=TRAIN_CHECK_BATCH with PALLAS_BN=1, f32 and bf16 (phase 5's
+     tolerances; the running statistics moved once; K7 launched once more
+     per recomputed BatchNorm, as counted), then the bf16 B=240 step with
+     remat on and off (ms/step, peak memory); E2 a step with grad_clip
+     against optax's rule applied by hand to the unclipped gradients; E3
+     the data-parallel step at W = 1 under NCCL against the plain step; E4
+     W = 2 processes on the one card over gloo (``--dp-worker``), each with
+     half of the B=240 batch, f32 (TF32 off), PALLAS_BN=1, remat on,
+     dropout on, gold fed at every decode step (DP_USE_GOLD), against the
+     one-process step on the whole batch, and with per-process
+     BatchNorm the kept running statistics against local BatchNorm on
+     process 0's half (ms/step printed as a check only); E5 `cli train
+     --mesh-data 1 --remat-frontend --profile-dir --tensorboard-dir`, two
+     steps with PALLAS_INGEST=1 PALLAS_BN=1 (launches as counted: path E's
+     column of the kernels line; the trace names K3's, K4's, K7's and K8's
+     kernels; train/loss logged at each step, in metrics.jsonl or, where
+     the tensorboard package is installed, its event file); E6
+     convergence_check's
+     default mode memorizes within MEMORIZE_STEPS;
   11. a JSON line of the seventeen kernels (each with its launches on every
      path, its error, its time, its plain version's, its bound on the card
      and a library call's time where one PyTorch call computes the same
@@ -253,6 +278,18 @@ BN_SCALAR_CASES = (("unaligned 45x45", (3, 1, 45, 45), 0),
                    ("offset layer4", (480, 512, 3, 3), 1))
 ENTRY_STEPS = 2
 TURN_STEPS = 3
+# path E: the data-parallel processes of the two-process check (on the one
+# card, over gloo), the batch of the traced `cli train` run, the timed steps
+# of a data-parallel process (a check that it runs, not a rate), and the
+# step budget of convergence_check's default mode here: twice the tool's
+# --steps default of 800, which the JAX tool itself misses at some seeds
+# (on the CPU JAX memorized at 450-900 steps over six seeds, the port at
+# 350-950 over five seeds and past 800 at three of five thread counts of
+# one seed; on the card one run stood at one clip off at step 800)
+DP_WORLD = 2
+TRACE_BATCH = TRAIN_CHECK_BATCH
+DP_TIMED = 2
+MEMORIZE_STEPS = 1600
 # K10 against its plain version.  f32: both sum K = 9C products in f32 in
 # another order.  bf16: both round one f32 result, so outputs may sit one
 # bf16 ulp apart (2^-7 relative); where the intermediate h flips one ulp in
@@ -424,9 +461,11 @@ def k5_sass_per_element() -> dict:
     included), and the pipe-limited integer instructions an element:
     max(IMAD, ALU, issue / 2)."""
     if "k5" not in _SASS:
-        found = sass_counts(r"(dropout_keep_mask_kernel)")
-        check(len(found) == 1, f"SASS of dropout_keep_mask_kernel: {sorted(found)}")
-        per = {k: v / K5_RUN for k, v in next(iter(found.values())).items()}
+        # the body without the batch-row map: the one the timed masks take
+        found = sass_counts(r"dropout_keep_mask_kernelILb(\d)E")
+        check(sorted(found) == [("0",), ("1",)],
+              f"SASS of dropout_keep_mask_kernel: {sorted(found)}")
+        per = {k: v / K5_RUN for k, v in found[("0",)].items()}
         per["pipe_limited"] = max(per["imad"], per["alu"], per["issue"] / 2)
         _SASS["k5"] = per
     return _SASS["k5"]
@@ -588,18 +627,23 @@ def phase_build():
             print(f"phase 2 channel_sums_kernel ({variant}): {used}; {spill}")
             if "0 bytes spill stores, 0 bytes spill loads" not in spill:
                 spills.append(f"channel_sums_kernel ({variant}): {spill}")
-        # K5 (one body) and K6 (per dtype and route: pieces of 8 bf16 or 4
+        # K5 (two bodies: without and with a data-parallel process's
+        # batch-row map) and K6 (per dtype and route: pieces of 8 bf16 or 4
         # f32 outputs, or single outputs), with their static SASS counts
-        found = ptxas_report(text, r"(dropout_keep_mask_kernel)")
-        check(len(found) == 1, f"ptxas report of dropout_keep_mask_kernel: {sorted(found)}")
-        used, spill = next(iter(found.values()))
+        found = ptxas_report(text, r"dropout_keep_mask_kernelILb(\d)E")
+        check(sorted(found) == [("0",), ("1",)],
+              f"ptxas report of dropout_keep_mask_kernel: {sorted(found)}")
         per = k5_sass_per_element()
-        print(f"phase 2 dropout_keep_mask_kernel (K5): {used}; {spill}; SASS an element "
-              f"(static, over {K5_RUN}): IMAD {per['imad']:.2f}, ALU {per['alu']:.2f}, "
-              f"issued {per['issue']:.2f}; pipe-limited {per['pipe_limited']:.2f}, "
-              f"against the function's IMAD {K5_IMAD}, ALU {K5_ALU}")
-        if "0 bytes spill stores, 0 bytes spill loads" not in spill:
-            spills.append(f"dropout_keep_mask_kernel: {spill}")
+        for (mapped,), (used, spill) in sorted(found.items()):
+            extra = ("" if mapped == "1" else
+                     f"; SASS an element (static, over {K5_RUN}): IMAD "
+                     f"{per['imad']:.2f}, ALU {per['alu']:.2f}, issued "
+                     f"{per['issue']:.2f}; pipe-limited {per['pipe_limited']:.2f}, "
+                     f"against the function's IMAD {K5_IMAD}, ALU {K5_ALU}")
+            print(f"phase 2 dropout_keep_mask_kernel (K5"
+                  f"{', batch-row map' if mapped == '1' else ''}): {used}; {spill}{extra}")
+            if "0 bytes spill stores, 0 bytes spill loads" not in spill:
+                spills.append(f"dropout_keep_mask_kernel<{mapped}>: {spill}")
         pattern = r"ingest_train_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E"
         found, sass = ptxas_report(text, pattern), sass_counts(pattern)
         check(len(found) == 4 and sorted(found) == sorted(sass),
@@ -888,6 +932,43 @@ def phase_train_kernels(torch, dev, timing=True):
         check(torch.equal(keep, ops.dropout_keep_mask_flat_plain(
             B_, Tq_, Tk_, H_, seed, DROPOUT_RATE, dev)),
             f"K5 ({B_},{H_},{Tq_},{Tk_}): mask differs from the plain Philox")
+    # the batch-row map of process 1 of 2 of a data-parallel step (its rows
+    # of the whole batch's masks; the decoder's two directions in one
+    # launch): K5 bit-exact against the plain Philox and against those rows
+    # of the one-process mask, and K3/K4 against their plain versions given
+    # that mask
+    half = TRAIN_BATCH // 2
+    rows_map = ops.BatchRows(half, half, TRAIN_BATCH)
+    seed = 4242
+    whole = ops.dropout_keep_mask_flat(2 * TRAIN_BATCH, L, L, H, seed,
+                                       DROPOUT_RATE, dev)
+    mine = ops.dropout_keep_mask_flat(2 * half, L, L, H, seed, DROPOUT_RATE, dev,
+                                      rows_map)
+    check(torch.equal(mine, ops.dropout_keep_mask_flat_plain(
+        2 * half, L, L, H, seed, DROPOUT_RATE, dev, rows_map)),
+        "K5 with a batch-row map differs from the plain Philox")
+    check(torch.equal(mine, torch.cat([whole[half:TRAIN_BATCH],
+                                       whole[TRAIN_BATCH + half:]])),
+          "K5 with a batch-row map is not its rows of the one-process mask")
+    map_errs = []
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, dout = (torch.randn((2 * half, L, H * 64), generator=g, device=dev,
+                                     dtype=dt) for _ in range(4))
+        args = (q, k, v, H, causal, seed, DROPOUT_RATE, None)
+        got = ops.small_mha_dropout_fwd_flat(*args, rows=rows_map)
+        err, ok = _train_close(got, ops.small_mha_dropout_flat_plain(
+            *args, keep=mine), "fwd")
+        check(ok, f"K3 with a batch-row map {dt}: {err}")
+        map_errs.append(err)
+        for which, a, b in zip("qkv", ops.small_mha_dropout_bwd_flat(
+                *args, dout, rows=rows_map), ops.small_mha_dropout_bwd_flat_plain(
+                *args, dout, keep=mine)):
+            err, ok = _train_close(a, b, "grad")
+            check(ok, f"K4 with a batch-row map {dt} d{which}: {err}")
+            map_errs.append(err)
+    print(f"phase 3b batch-row map {tuple(rows_map)} at ({2 * half},{L},{L}): K5 "
+          f"bit-exact, its rows of the one-process mask; K3/K4 max err "
+          f"{max(map_errs):.3g}")
     floor = (launch_floor(torch, dev) if timing
              else dict(fill_ms=float("nan"), empty_ms=float("nan"),
                        queued_fill_ms=float("nan")))
@@ -2531,6 +2612,420 @@ def phase_path_d(torch, np, dev):
                           recipe=summary, **timing)
 
 
+# ---------------------------------------------------------------------------
+# path E: the data-parallel, rematerialised training path
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _step_record(torch, step, batch, seed=5, **kw):
+    """One step: (loss, {name: gradient}, {name: running statistic}), the
+    tensors left on the card."""
+    model = step.state.model
+    loss = step(batch, torch.Generator().manual_seed(seed), **kw)["loss"].item()
+    return (loss, {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            {n: b.detach().clone() for n, b in model.named_buffers()
+             if "running" in n})
+
+
+def _compare_steps(label, dtype, got, want):
+    """Loss, gradients and running statistics of two steps within phase 5's
+    tolerances; returns the errors."""
+    (lg, gg, sg), (lw, gw, sw) = got, want
+    errs = _grad_errors(gg, gw)
+    worst = max(errs, key=errs.get)
+    bn_err = max((sg[n] - b).abs().max().item() for n, b in sw.items())
+    print(f"{label} {dtype}: loss {lg:.6f} vs {lw:.6f} (tol "
+          f"{TRAIN_LOSS_TOL[dtype]}); gradient rel err max {errs[worst]:.3g} at "
+          f"{worst} (tol {TRAIN_GRAD_TOL[dtype]}); BN running stats max abs diff "
+          f"{bn_err:.3g} (tol {TRAIN_BN_TOL[dtype]})")
+    check(abs(lg - lw) <= TRAIN_LOSS_TOL[dtype], f"{label} {dtype}: losses differ")
+    check(errs[worst] <= TRAIN_GRAD_TOL[dtype],
+          f"{label} {dtype}: gradient of {worst} differs by {errs[worst]}")
+    check(bn_err <= TRAIN_BN_TOL[dtype], f"{label} {dtype}: BN stats differ")
+    return dict(loss_err=abs(lg - lw), grad_err=errs[worst], bn_err=bn_err)
+
+
+def _path_e_setup(torch, np, dev, n):
+    """The sbl config, and the first shuffled batch of ``n`` with its plans
+    on the card."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch.data import SyntheticLipDataset
+    cfg = C.sbl()
+    data = SyntheticLipDataset(size=n, frames=cfg.data.frames,
+                               raw_size=cfg.data.raw_size, seed=4)
+    return cfg, train_batch(torch, np, dev, cfg, data, n, 6)
+
+
+def _new_step(torch, dev, cfg, mesh=None):
+    from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.schedule import (
+        make_optimizer)
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.steps import (
+        make_train_step)
+    model = build_model(cfg, dev, seed=0)
+    return make_train_step(model, make_optimizer(model, cfg.optim), cfg, mesh)
+
+
+def phase_remat(torch, np, dev):
+    """E1: remat_frontend on vs off at B=TRAIN_CHECK_BATCH with PALLAS_BN=1,
+    f32 and bf16 (loss, gradients, running statistics within phase 5's
+    tolerances; the statistics moved once; K7 launched once more per
+    recomputed BatchNorm); then the bf16 B=240 step, remat on and off."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.steps import (
+        expected_launches)
+    _set_switches(True)
+    cfg, small = _path_e_setup(torch, np, dev, TRAIN_CHECK_BATCH)
+    out, k7 = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        runs = []
+        for remat in (False, True):
+            c = dataclasses.replace(cfg, compute_dtype=dtype, remat_frontend=remat)
+            step = _new_step(torch, dev, c)
+            init = {n: b.clone() for n, b in step.state.model.named_buffers()
+                    if "running" in n}
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            rec = _step_record(torch, step, small)
+            torch.cuda.synchronize()
+            counts, want = ops.launch_counts(), expected_launches(c)
+            check(counts == want, f"E1 remat={remat} {dtype}: launches {counts} "
+                  f"!= {want}")
+            k7[remat] = (counts["channel_sums"], counts["channel_sums_pair"])
+            check(all(not torch.equal(rec[2][n], b) for n, b in init.items()
+                      if n.endswith("running_mean")),
+                  f"E1 remat={remat} {dtype}: running statistics did not move")
+            runs.append(rec)
+            del step
+        out[dtype] = _compare_steps("phase E1 remat on vs off", dtype, runs[1],
+                                    runs[0])
+        del runs
+        torch.cuda.empty_cache()
+    out["k7_k8_launches"] = {"remat_off": k7[False], "remat_on": k7[True]}
+    print(f"phase E1 (K7, K8) launches a step: remat off {k7[False]}, remat on "
+          f"{k7[True]}; the running statistics moved once in both")
+    cfg, batch = _path_e_setup(torch, np, dev, TRAIN_BATCH)
+    for remat in (False, True):
+        step = _new_step(torch, dev, dataclasses.replace(cfg, remat_frontend=remat))
+        out[f"b240_remat_{'on' if remat else 'off'}"] = time_train_step(
+            torch, np, step, batch, TRAIN_BATCH,
+            f"phase E1 PALLAS_BN=1 remat {'on' if remat else 'off'}")
+        del step
+        torch.cuda.empty_cache()
+    _set_switches(False)
+    return out
+
+
+def phase_grad_clip(torch, np, dev):
+    """E2: a step with grad_clip set against optax's clip_by_global_norm
+    applied by hand to the same step's unclipped gradients (f32)."""
+    cfg, small = _path_e_setup(torch, np, dev, TRAIN_CHECK_BATCH)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    _, raw, _ = _step_record(torch, _new_step(torch, dev, cfg), small)
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in raw.values())).item()
+    max_norm = 0.5 * norm
+    clipped = dataclasses.replace(cfg, optim=dataclasses.replace(
+        cfg.optim, grad_clip=max_norm))
+    _, got, _ = _step_record(torch, _new_step(torch, dev, clipped), small)
+    want = {n: g / norm * max_norm for n, g in raw.items()}
+    errs = _grad_errors(got, want)
+    worst = max(errs, key=errs.get)
+    print(f"phase E2 grad_clip {max_norm:.4g} (half the global norm {norm:.4g}): "
+          f"clipped gradients vs optax's rule by hand, rel err max "
+          f"{errs[worst]:.3g} at {worst} (tol {TRAIN_GRAD_TOL['float32']})")
+    check(errs[worst] <= TRAIN_GRAD_TOL["float32"], "E2: clipped gradients differ")
+    del raw, got, want
+    torch.cuda.empty_cache()
+    return dict(norm=norm, grad_err=errs[worst])
+
+
+def phase_dp_one(torch, np, dev):
+    """E3: the data-parallel step at W = 1 under NCCL (the all-reduces of
+    the gradients, of the BatchNorm sums of K7 and K8, and of the loss's
+    counts) against the plain step, f32, PALLAS_BN=1, remat on."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch.parallel import (
+        make_mesh, shutdown)
+    _set_switches(True)
+    cfg, small = _path_e_setup(torch, np, dev, TRAIN_CHECK_BATCH)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32", remat_frontend=True)
+    want = _step_record(torch, _new_step(torch, dev, cfg), small)
+    mesh = make_mesh(1, device=dev, init_method=f"tcp://localhost:{_free_port()}")
+    check(mesh.backend == "nccl", f"E3: backend {mesh.backend}")
+    try:
+        got = _step_record(torch, _new_step(
+            torch, dev, dataclasses.replace(cfg, mesh=C.MeshConfig(data=1)), mesh),
+            small)
+    finally:
+        shutdown()
+    out = _compare_steps("phase E3 W=1 NCCL dp step vs plain step", "float32",
+                         got, want)
+    _set_switches(False)
+    del got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_config(cfg):
+    """Phase E4's step: f32 (TF32 off), remat on, dropout on."""
+    return dataclasses.replace(cfg, compute_dtype="float32", remat_frontend=True)
+
+
+# phase E4's teacher forcing: gold at every decode step (the coins are the
+# same in every process anyway); a free-running step feeds the argmax of
+# logits that random weights leave nearly tied, and a tie broken otherwise by
+# the two runs' last bits changes the rest of that sample's decode
+DP_USE_GOLD = [True] * 16
+
+
+def dp_worker(torch, np, dev, rank: int, port: int, outdir: str) -> int:
+    """One process of phase E4: its half of the B=240 batch (``_dp_config``,
+    PALLAS_BN=1), synchronised BatchNorm then per process; one checked step
+    each, then DP_TIMED steps timed."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch.parallel import (
+        make_mesh, shutdown)
+    _set_switches(True)
+    mesh = make_mesh(DP_WORLD, device=dev, rank=rank, backend="gloo",
+                     init_method=f"tcp://localhost:{port}")
+    cfg, batch = _path_e_setup(torch, np, dev, TRAIN_BATCH)
+    n = TRAIN_BATCH // DP_WORLD
+    local = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+    out = {}
+    for sync in (True, False):
+        c = dataclasses.replace(_dp_config(cfg), mesh=C.MeshConfig(
+            data=DP_WORLD, sync_batchnorm=sync))
+        step = _new_step(torch, dev, c, mesh)
+        loss, grads, stats = _step_record(torch, step, local,
+                                          use_gold=DP_USE_GOLD)
+        gen = torch.Generator().manual_seed(9)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED):
+            step(local, gen, use_gold=DP_USE_GOLD)
+        torch.cuda.synchronize()
+        out[sync] = dict(
+            loss=loss, stats={k: v.cpu() for k, v in stats.items()},
+            grads=({k: v.cpu() for k, v in grads.items()} if rank == 0 and sync
+                   else None),
+            grad_norms={k: v.float().norm().item() for k, v in grads.items()},
+            ms_per_step=(time.perf_counter() - t0) / DP_TIMED * 1e3)
+        del step, grads
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+    shutdown()
+    return 0
+
+
+def phase_dp_two(torch, np, dev):
+    """E4: W = 2 processes on the one card over gloo: each its half of the
+    B=240 batch (f32, PALLAS_BN=1, remat on, dropout on, gold fed at every
+    decode step); the step against the one-process step on the whole batch
+    (loss, gradients, running statistics within phase 5's f32
+    tolerances), and with per-process BatchNorm the kept running
+    statistics against local BatchNorm on process 0's half."""
+    import tempfile
+
+    def on_host(rec):
+        return (rec[0], {k: v.cpu() for k, v in rec[1].items()},
+                {k: v.cpu() for k, v in rec[2].items()})
+    # the one-process step's own f32 rounding floor: the same step with the
+    # plain BatchNorm (torch's reductions in place of K7/K8)
+    _set_switches(False)
+    cfg, batch = _path_e_setup(torch, np, dev, TRAIN_BATCH)
+    cfg = _dp_config(cfg)
+    alt = on_host(_step_record(torch, _new_step(torch, dev, cfg), batch,
+                               use_gold=DP_USE_GOLD))
+    _set_switches(True)
+    want = on_host(_step_record(torch, _new_step(torch, dev, cfg), batch,
+                                use_gold=DP_USE_GOLD))
+    half = {k: v[:TRAIN_BATCH // DP_WORLD] for k, v in batch.items()}
+    local = _step_record(torch, _new_step(torch, dev, cfg), half,
+                         use_gold=DP_USE_GOLD)
+    local_stats = {k: v.cpu() for k, v in local[2].items()}
+    del local, batch, half
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dp-worker",
+             str(r), str(port), tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(DP_WORLD)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"E4 process {r} failed:\n{log[-3000:]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_WORLD)]
+    sync0 = ranks[0][True]
+    out = _compare_dp_step((sync0["loss"], sync0["grads"], sync0["stats"]),
+                           want, alt)
+    for r in ranks[1:]:
+        check(r[True]["loss"] == sync0["loss"], "E4: the processes' losses differ")
+        check(r[True]["grad_norms"] == sync0["grad_norms"],
+              "E4: the processes' averaged gradients differ")
+    for r in ranks:
+        err = max((r[False]["stats"][k] - v).abs().max().item()
+                  for k, v in local_stats.items())
+        check(err <= TRAIN_BN_TOL["float32"],
+              f"E4 no-sync: kept running statistics differ by {err}")
+    print(f"phase E4 no-sync: every process keeps process 0's running "
+          f"statistics, within {err:.3g} of local BatchNorm on its half; ms/step "
+          f"(a check that it runs, not a rate: two processes share the card "
+          f"and gloo copies through the host): sync "
+          f"{[round(r[True]['ms_per_step'], 1) for r in ranks]}, no-sync "
+          f"{[round(r[False]['ms_per_step'], 1) for r in ranks]}")
+    _set_switches(False)
+    out["ms_per_step_check"] = [r[True]["ms_per_step"] for r in ranks]
+    return out
+
+
+def _scalar_steps(log_dir: str, tag: str):
+    """The steps at which ``tag`` was logged: from metrics.jsonl, or from
+    the TensorBoard event file where the tensorboard package wrote one."""
+    path = os.path.join(log_dir, "metrics.jsonl")
+    if os.path.exists(path):
+        with open(path) as f:
+            return [r["step"] for r in map(json.loads, f) if r["tag"] == tag]
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator)
+    acc = EventAccumulator(log_dir)
+    acc.Reload()
+    return [e.step for e in acc.Scalars(tag)]
+
+
+def _compare_dp_step(got, want, alt):
+    """Phase E4's comparison, f32.  Loss and running statistics within phase
+    5's tolerances; the gradient as a whole (||got - want|| / ||want|| over
+    every parameter) within TRAIN_GRAD_TOL, and each parameter's within
+    TRAIN_GRAD_TOL or, where the one-process step itself moves by more
+    between two roundings of its BatchNorm statistics (``alt``: the plain
+    BatchNorm's), within twice that movement.  The processes' forwards
+    differ from the one process's in the last bits (their BatchNorm sums are
+    added in another order, cuDNN picks its algorithms by batch size), and
+    at B=240 some of the ~1e9 ReLU inputs of the frontend lie within that
+    of 0 and take the kink's other side: the scale and bias gradients of a
+    BatchNorm, sums that cancel, move by up to a few 1e-3 of their norm."""
+    (lg, gg, sg), (lw, gw, sw), (_, ga, _) = got, want, alt
+    errs, floor = _grad_errors(gg, gw), _grad_errors(ga, gw)
+    whole = (_norm_sq(gg, gw) / _norm_sq(gw)) ** 0.5
+    worst = max(errs, key=errs.get)
+    over = {n: (e, floor[n]) for n, e in errs.items() if e > TRAIN_GRAD_TOL["float32"]}
+    bn_err = max((sg[n] - b).abs().max().item() for n, b in sw.items())
+    print(f"phase E4 W=2 (gloo, one card) vs one process on the whole batch "
+          f"float32: loss {lg:.6f} vs {lw:.6f} (tol {TRAIN_LOSS_TOL['float32']}); "
+          f"gradient rel err {whole:.3g} as a whole (tol "
+          f"{TRAIN_GRAD_TOL['float32']}), per parameter max {errs[worst]:.3g} at "
+          f"{worst}, median {statistics.median(errs.values()):.3g}; above the "
+          f"tolerance {len(over)} of {len(errs)}, each against the one-process "
+          f"step's own movement (plain vs kernel BatchNorm, max "
+          f"{max(floor.values()):.3g}): "
+          + ", ".join(f"{n} {e:.3g} / {f:.3g}" for n, (e, f) in sorted(over.items()))
+          + f"; BN running stats max abs diff {bn_err:.3g} (tol "
+          f"{TRAIN_BN_TOL['float32']})")
+    check(abs(lg - lw) <= TRAIN_LOSS_TOL["float32"], "E4: losses differ")
+    check(whole <= TRAIN_GRAD_TOL["float32"], f"E4: gradients differ by {whole}")
+    for n, (e, f) in over.items():
+        check(e <= 2 * f, f"E4: gradient of {n} differs by {e}, the one-process "
+              f"step's own rounding moves it by {f}")
+    check(bn_err <= TRAIN_BN_TOL["float32"], "E4: BN stats differ")
+    return dict(loss_err=abs(lg - lw), grad_err=whole, grad_err_max=errs[worst],
+                over=over, bn_err=bn_err)
+
+
+def _norm_sq(a, b=None):
+    """The squared norm of every tensor of ``a`` (less ``b``) together."""
+    return sum(float(((t - b[n]) if b is not None else t).double().pow(2).sum())
+               for n, t in a.items())
+
+
+def _kernel_names(trace_path: str):
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
+def phase_path_e_cli(torch, np, dev):
+    """E5: `cli train --mesh-data 1 --remat-frontend --profile-dir D
+    --tensorboard-dir T`, two steps, PALLAS_INGEST=1 PALLAS_BN=1: launches
+    as counted, the trace names K3's, K4's, K7's and K8's kernels, and the
+    scalar log has train/loss at each step."""
+    import re
+    import tempfile
+    from sbl_for_multilingual_lip_reading_tpu_torch import cli
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.recognize import (
+        expected_launches as recognize_launches)
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.steps import (
+        expected_launches)
+    _set_switches(True)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_dir, log_dir = os.path.join(tmp, "trace"), os.path.join(tmp, "tb")
+        tr, out, launches, seconds = _cli_train(torch, cli, ops, [
+            "--workload", "sbl", "--synthetic", "--synthetic-size",
+            str(ENTRY_STEPS * TRACE_BATCH), "--batch-size", str(TRACE_BATCH),
+            "--epochs", "1", "--max-steps-per-epoch", str(ENTRY_STEPS),
+            "--max-eval-batches", "1", "--mesh-data", "1", "--remat-frontend",
+            "--profile-dir", trace_dir, "--tensorboard-dir", log_dir,
+            "--save-dir", os.path.join(tmp, "ckpt")])
+        cfg = dataclasses.replace(C.sbl(), remat_frontend=True)
+        per_step = expected_launches(cfg)
+        expected = {k: ENTRY_STEPS * per_step[k] + len(tr.valid_datasets) * v
+                    for k, v in recognize_launches(cfg).items()}
+        check(launches == expected, f"E5 launches {launches} != {expected}")
+        names = _kernel_names(os.path.join(trace_dir, "trace.json"))
+        found = {
+            "K3": any("dropout_attention_fwd" in n for n in names),
+            "K4": any("dropout_attention_bwd" in n for n in names),
+            "K7": any("channel_sums_kernel" in n and re.search(r"(false|Lb0E)", n)
+                      for n in names),
+            "K8": any("channel_sums_kernel" in n and re.search(r"(true|Lb1E)", n)
+                      for n in names)}
+        check(all(found.values()), f"E5 trace lacks kernels: {found}; "
+              f"{sorted(n for n in names if 'kernel' in n)[:20]}")
+        loss_steps = _scalar_steps(log_dir, "train/loss")
+        check(loss_steps == list(range(1, ENTRY_STEPS + 1)),
+              f"E5 train/loss at steps {loss_steps}")
+        size = os.path.getsize(os.path.join(trace_dir, "trace.json"))
+    print(f"phase E5 cli train --mesh-data 1 --remat-frontend --profile-dir: "
+          f"{ENTRY_STEPS} steps of B={TRACE_BATCH} in {seconds:.1f} s, launches "
+          f"{launches} (expected {expected}); trace of {size / 1e6:.1f} MB with "
+          f"{len(names)} kernel names, K3/K4/K7/K8 among them; train/loss at "
+          f"steps {loss_steps}; loss {out['train_loss']:.4f}")
+    _set_switches(False)
+    del tr
+    torch.cuda.empty_cache()
+    return launches, dict(seconds=seconds, loss=out["train_loss"])
+
+
+def phase_memorize(torch, np, dev):
+    """E6: convergence_check's default mode on the card, within its budget."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import convergence_check
+    t0 = time.perf_counter()
+    out = convergence_check.memorize(MEMORIZE_STEPS, dev,
+                                     log=lambda s: print(f"phase E6 {s}"))
+    seconds = time.perf_counter() - t0
+    print(f"phase E6 convergence_check default mode: "
+          f"{'MEMORIZED' if out['memorized'] else 'NOT memorized'} at step "
+          f"{out['step']} of {MEMORIZE_STEPS} ({seconds:.1f} s)")
+    check(out["memorized"], "E6: the default mode did not memorize")
+    return dict(step=out["step"], seconds=seconds)
+
+
 def _bf16_rows(rows):
     return {r["case"]: {k: r[k] for k in ("ms", "plain_ms", "module_ms", "bound_ms",
                                           "max_abs_err")}
@@ -2714,6 +3209,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(torch, np, dev, int(sys.argv[2]), int(sys.argv[3]),
+                         sys.argv[4])
     compare = {"--compare-eval": "eval", "--compare-bn": "bn",
                "--compare-ingest-mask": "ingest_mask"}
     if sys.argv[1:2] and sys.argv[1] in compare:
@@ -2744,7 +3242,13 @@ def main() -> int:
     b_launches, path_b = timed("8", phase_path_b, torch, np, dev)
     c_launches, path_c = timed("9", phase_path_c, torch, np, dev)
     d_launches, path_d = timed("10", phase_path_d, torch, np, dev)
-    print(f"phases 1-10 took {time.perf_counter() - t_start:.1f} s")
+    path_e = dict(remat=timed("E1", phase_remat, torch, np, dev),
+                  grad_clip=timed("E2", phase_grad_clip, torch, np, dev),
+                  dp_one=timed("E3", phase_dp_one, torch, np, dev),
+                  dp_two=timed("E4", phase_dp_two, torch, np, dev))
+    e_launches, path_e["cli"] = timed("E5", phase_path_e_cli, torch, np, dev)
+    path_e["memorize"] = timed("E6", phase_memorize, torch, np, dev)
+    print(f"phases 1-10 and E1-E6 took {time.perf_counter() - t_start:.1f} s")
     # every kernel of the eval and training paths was launched on its path
     for kernel in ("stack_frames_u8", "fused_resblock", "fused_decoder_layer",
                    "small_mha_flat"):
@@ -2756,10 +3260,14 @@ def main() -> int:
     for kernel in ("small_mha_flat", "stack_frames", "small_mha_dropout_fwd_flat",
                    "small_mha_dropout_bwd_flat"):
         check(d_launches[kernel] > 0, f"path D never launched {kernel}")
+    for kernel in ("stack_frames", "small_mha_dropout_fwd_flat",
+                   "small_mha_dropout_bwd_flat", "ingest_train", "channel_sums",
+                   "channel_sums_pair", "small_mha_flat"):
+        check(e_launches[kernel] > 0, f"path E never launched {kernel}")
     by_path = {"recognize": launches, "train_step": train_launches,
                "entry_point": entry_launches, "eval_switches": a_launches,
                "uni_eval": b_launches, "uni_train": c_launches,
-               "classify": d_launches}
+               "classify": d_launches, "path_e": e_launches}
 
     csrc = "sbl_for_multilingual_lip_reading_tpu_torch/csrc/"
     jax_ops = "sbl_for_multilingual_lip_reading_tpu/ops/"
@@ -2882,7 +3390,8 @@ def main() -> int:
     print(json.dumps({"kernels": rows, "card": smi,
                       "recognize_clips_per_s": rate, "train": train,
                       "entry_point": entry, "path_a": path_a, "path_b": path_b,
-                      "path_c": path_c, "path_d": path_d, "tiny": tiny}))
+                      "path_c": path_c, "path_d": path_d, "path_e": path_e,
+                      "tiny": tiny}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

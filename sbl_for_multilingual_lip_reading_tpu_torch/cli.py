@@ -12,10 +12,20 @@ LRW-1000 protocol; ``sbl`` uses the paired bidirectional beam), and scores
 
 It runs on the card; ``--cpu`` runs it on the CPU, and without a card and
 without ``--cpu`` it refuses.  ``--synthetic`` (or no dataset path) uses the
-synthetic dataset.  Flags whose path is not ported yet raise, naming the
-ROADMAP item; ``--compile-cache`` is XLA's and is accepted and ignored.
-``PALLAS_INGEST=1`` and ``PALLAS_BN=1`` in the environment turn on the
-kernel ingest (K6) and the kernel BatchNorm statistics (K7, K8), as in JAX.
+synthetic dataset.  ``--mesh-model`` > 1 (tensor parallelism) is not ported
+and raises, naming its ROADMAP item; ``--compile-cache`` is XLA's and is
+accepted and ignored.  ``PALLAS_INGEST=1`` and ``PALLAS_BN=1`` in the
+environment turn on the kernel ingest (K6) and the kernel BatchNorm
+statistics (K7, K8), as in JAX.
+
+``train --mesh-data W`` trains data-parallel on W cards, one process each
+(NCCL; ``--cpu``: W processes on the CPU over gloo): under torchrun
+(``torchrun --nproc_per_node W -m ...cli train --mesh-data W ...``) each
+process joins the group torchrun describes; started alone, the command
+starts the W processes itself on a free localhost port.  The batch size is
+global.  ``--no-sync-batchnorm`` keeps BatchNorm statistics per process.
+``--profile-dir D`` writes a Chrome trace of steps 1-3 into D and
+``--tensorboard-dir`` logs the scalars JAX logs.
 """
 from __future__ import annotations
 
@@ -28,14 +38,6 @@ from typing import Dict, Optional
 from . import config as C
 
 WORKLOADS = ("sbl", "sbl_stage2", "lrw", "lrw1000", "classify")
-NOT_PORTED = {
-    "mesh": "ROADMAP.md queue A item 12 (data parallel)",
-    "no_sync_batchnorm": "ROADMAP.md queue A item 12 (data parallel)",
-    "remat_frontend": "ROADMAP.md queue A item 8 (remat_frontend)",
-    "profile_dir": "ROADMAP.md queue A item 13 (profiler)",
-}
-
-
 def build_argparser() -> argparse.ArgumentParser:
     """The JAX CLI's flags, so one argv configures either package."""
     p = argparse.ArgumentParser(description="SBL multilingual lip reading "
@@ -78,7 +80,12 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="fixed LRW-1000 samples per batch "
                         "(TwoStreamBatchSampler)")
     p.add_argument("--profile-dir", type=str, default=None,
-                   help="not ported yet (ROADMAP.md queue A item 13)")
+                   help="write a torch.profiler Chrome trace of steps 1-3 of "
+                        "the first epoch into this directory")
+    p.add_argument("--tensorboard-dir", type=str, default=None,
+                   help="log train/loss and the validation metrics here "
+                        "(TensorBoard events, or metrics.jsonl without "
+                        "tensorboard)")
     p.add_argument("--cache-on-device", action="store_true",
                    help="upload the whole training set to the card once and "
                         "gather batches there by index (for datasets that "
@@ -88,10 +95,16 @@ def build_argparser() -> argparse.ArgumentParser:
                         "card, and refuses to run without one)")
     p.add_argument("--data-fraction", type=float, default=None,
                    help="reference config.py `p`")
-    # parallelism: not ported yet
-    p.add_argument("--mesh-data", type=int, default=1)
+    # parallelism: --mesh-data processes, one card each (tensor parallelism,
+    # --mesh-model > 1, is not ported)
+    p.add_argument("--mesh-data", type=int, default=1,
+                   help="data-parallel processes, one card each; the batch "
+                        "size stays global")
     p.add_argument("--mesh-model", type=int, default=1)
-    p.add_argument("--no-sync-batchnorm", action="store_true")
+    p.add_argument("--no-sync-batchnorm", action="store_true",
+                   help="BatchNorm statistics per process (process 0's "
+                        "running statistics kept) instead of over the "
+                        "global batch")
     p.add_argument("--compute-dtype", type=str, default=None)
     p.add_argument("--max-steps-per-epoch", type=int, default=None)
     p.add_argument("--max-eval-batches", type=int, default=None)
@@ -107,8 +120,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "train labels (LRW-1000 protocol)")
     p.add_argument("--remat-frontend", default=None,
                    action=argparse.BooleanOptionalAction,
-                   help="not ported yet: the frontend is never "
-                        "rematerialized")
+                   help="recompute the frontend's ResNet blocks in the "
+                        "backward (on by default with --cache-on-device)")
     p.add_argument("--compile-cache", type=str, default=None,
                    help="XLA's persistent compilation cache in the JAX "
                         "package; accepted and ignored here (the CUDA "
@@ -117,15 +130,11 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def check_ported(args) -> None:
-    """Raise for the first flag whose path the port does not have yet."""
-    for flag, key, on in (
-            ("--mesh-data/--mesh-model", "mesh",
-             args.mesh_data > 1 or args.mesh_model > 1),
-            ("--no-sync-batchnorm", "no_sync_batchnorm", args.no_sync_batchnorm),
-            ("--remat-frontend", "remat_frontend", bool(args.remat_frontend)),
-            ("--profile-dir", "profile_dir", args.profile_dir is not None)):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet: {NOT_PORTED[key]}")
+    """Raise for a flag whose path the port does not have."""
+    if args.mesh_model > 1:
+        from .parallel import TENSOR_PARALLEL
+        raise NotImplementedError(
+            f"--mesh-model > 1 is not ported yet: {TENSOR_PARALLEL}")
 
 
 def config_from_args(args) -> C.WorkloadConfig:
@@ -168,7 +177,9 @@ def config_from_args(args) -> C.WorkloadConfig:
     if args.data_fraction is not None:
         data_over["data_fraction"] = args.data_fraction
     data = dataclasses.replace(cfg.data, **data_over)
-    over = dict(dims=dims, optim=optim, decoder=decoder, data=data)
+    over = dict(dims=dims, optim=optim, decoder=decoder, data=data,
+                mesh=C.MeshConfig(data=args.mesh_data, model=args.mesh_model,
+                                  sync_batchnorm=not args.no_sync_batchnorm))
     if args.secondary_batch_size is not None:
         over["secondary_batch_size"] = args.secondary_batch_size
     if args.freeze:
@@ -178,6 +189,12 @@ def config_from_args(args) -> C.WorkloadConfig:
         over["batch_size"] = args.batch_size
     if args.compute_dtype is not None:
         over["compute_dtype"] = args.compute_dtype
+    if args.remat_frontend is not None:
+        over["remat_frontend"] = args.remat_frontend
+    elif args.cache_on_device:
+        # a device-resident dataset shares the card's memory with the
+        # activations: keep the memory-saving setting unless told otherwise
+        over["remat_frontend"] = True
     return dataclasses.replace(cfg, **over)
 
 
@@ -234,19 +251,50 @@ def _setup(argv):
     return args, config_from_args(args), device
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _train_process(rank: int, argv, world: int, port: int) -> None:
+    """One process of a data-parallel ``train`` started by ``run_train``."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    run_train(argv)
+
+
 def run_train(argv=None):
     """``train``: fit for ``--epochs``, checkpointing to ``--save-dir``
     (and ``<save-dir>_best``).  ``--transfer-from`` merges a checkpoint's
     matching weights into the fresh model and starts a fresh optimizer;
     ``--checkpoint`` resumes (model, optimizer, update count, random
     number states) at the epoch after the saved one.  Returns the
-    ``Trainer`` and the last epoch's results (``Trainer.fit``)."""
+    ``Trainer`` and the last epoch's results (``Trainer.fit``).  With
+    ``--mesh-data W`` > 1 and no RANK in the environment it starts W
+    processes, waits for them and returns (None, None)."""
     args, cfg, device = _setup(argv)
+    if cfg.mesh.data > 1 and "RANK" not in os.environ:
+        import torch.multiprocessing as mp
+        mp.start_processes(_train_process, nprocs=cfg.mesh.data,
+                           args=(argv, cfg.mesh.data, _free_port()),
+                           start_method="spawn")
+        return None, None
     from .training import checkpoint as ckpt
     from .training.trainer import Trainer
     train_ds, valid_ds = make_datasets(cfg, args)
+    mesh = None
+    if cfg.mesh.data > 1:
+        from .parallel import make_mesh
+        # each process on its own card (LOCAL_RANK), or on the CPU
+        mesh = make_mesh(cfg.mesh.data, cfg.mesh.model,
+                         "cpu" if args.cpu else None)
     tr = Trainer(cfg, train_ds, valid_ds, checkpoint_dir=args.save_dir,
-                 device=device, cache_on_device=args.cache_on_device)
+                 device=device, cache_on_device=args.cache_on_device,
+                 mesh=mesh, tensorboard_dir=args.tensorboard_dir,
+                 profile_dir=args.profile_dir)
     start = 0
     if args.transfer_from:
         loaded = ckpt.restore_for_transfer(args.transfer_from, tr.model)
@@ -257,6 +305,11 @@ def run_train(argv=None):
         start = tr.restore(args.checkpoint) + 1
     out = tr.fit(args.epochs, max_steps_per_epoch=args.max_steps_per_epoch,
                  max_eval_batches=args.max_eval_batches, start_epoch=start)
+    if tr.writer is not None:
+        tr.writer.close()
+    if mesh is not None:
+        from .parallel import shutdown
+        shutdown()
     return tr, out
 
 

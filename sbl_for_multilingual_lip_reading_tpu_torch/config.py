@@ -86,7 +86,20 @@ class OptimConfig:
     adam_b2: float = 0.98
     adam_eps: float = 1e-9
     label_smoothing: float = 0.1
-    grad_clip: Optional[float] = None
+    grad_clip: Optional[float] = None   # max global gradient norm; None = off
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The process layout of a training run: ``data`` processes, each
+    driving one card on its stripe of every global batch
+    (``parallel/mesh.py``); ``model`` > 1 (tensor parallelism) is not
+    ported.  ``sync_batchnorm`` takes the frontend's BatchNorm statistics
+    over the global batch; False keeps them per process, with process 0's
+    running statistics kept (the reference's ``nn.DataParallel``)."""
+    data: int = 1
+    model: int = 1
+    sync_batchnorm: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +110,7 @@ class WorkloadConfig:
     decoder: Optional[DecoderConfig] = DecoderConfig()
     data: DataConfig = DataConfig()
     optim: OptimConfig = OptimConfig()
+    mesh: MeshConfig = MeshConfig()
     batch_size: int = 240
     seed: int = 7
     # the classify workload's heads and loss (reference classify
@@ -114,6 +128,9 @@ class WorkloadConfig:
     # the whole-decoder-layer kernel (K11, ops/decoder_layer.py) on
     # deterministic decode steps; training steps keep the module composition
     use_fused_decoder_layer: bool = False
+    # recompute each ResNet block of the frontend in the backward instead
+    # of keeping its activations (less memory, one more frontend forward)
+    remat_frontend: bool = False
     # checkpoint each decode step for the backward
     remat_decoder: bool = True
     # top-level parameter subtrees ("frontend", "encoder", "decoder") whose

@@ -25,6 +25,12 @@
 // mask by construction, and the plain Philox of ops/attention.py reproduces
 // it bit for bit.  The decoder folds its two directions into the batch (2B
 // rows), so the batch row in the counter gives each direction its own mask.
+// The counter's batch row is the row of the whole batch a data-parallel
+// process takes a stripe of: local row b counts as
+//   (b / rows) * row_stride + row0 + b % rows
+// (row0 = the process's first row, rows = its rows per direction,
+// row_stride = the whole batch), so every process draws the masks of its
+// rows of the one-process run; (row0, rows) = (0, B) is the identity.
 //
 // What bounds them.  At the train step's shapes (Tq, Tk <= 31, d = 64) a
 // head's products are a few hundred kFLOP, under a microsecond of the
@@ -160,9 +166,15 @@ struct Dropout {
   uint32_t thresh;   // uint32(rate * 2^32)
   float inv_keep;    // 1 / (1 - rate), rounded to f32 as JAX's weak-typed constant
   int on;            // rate > 0
+  int row0, rows, row_stride;  // the batch-row map (see the header)
 
-  __device__ __forceinline__ bool keep(int b, int h, int i, int j) const {
-    return dropout_bits(seed, b, h, i, j) >= thresh;
+  // the counter's batch row of the launch's row b
+  __device__ __forceinline__ int row(int b) const {
+    return (b / rows) * row_stride + row0 + b % rows;
+  }
+  // gb: the counter's batch row, row(b)
+  __device__ __forceinline__ bool keep(int gb, int h, int i, int j) const {
+    return dropout_bits(seed, gb, h, i, j) >= thresh;
   }
 };
 
@@ -240,6 +252,7 @@ dropout_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __res
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
+  const int gb = drop.row(b);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long rs = (long long)H * D;
@@ -261,7 +274,7 @@ dropout_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __res
     softmax_row<D>(qrow, ks, bb, row, Tk, scale, lane, prow);
     if (drop.on)
       for (int j = lane; j < Tk; j += 32)
-        prow[j] = drop.keep(b, h, row, j) ? prow[j] * drop.inv_keep : 0.f;
+        prow[j] = drop.keep(gb, h, row, j) ? prow[j] * drop.inv_keep : 0.f;
     __syncwarp();
     float acc[kCols];
 #pragma unroll
@@ -301,6 +314,7 @@ dropout_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
+  const int gb = drop.row(b);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long rs = (long long)H * D;
@@ -330,7 +344,7 @@ dropout_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
       const float p = prow[j];
       float pd = p, dp = dpd;
       if (drop.on) {
-        const bool keep = drop.keep(b, h, row, j);
+        const bool keep = drop.keep(gb, h, row, j);
         pd = keep ? p * drop.inv_keep : 0.f;
         dp = keep ? dpd * drop.inv_keep : 0.f;
       }
@@ -392,10 +406,10 @@ dropout_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
 // only for rows < Tq and keys < Tk, and inv_keep in the output's scale.
 struct HeadDropout {
   Dropout drop;
-  int b, h, Tq, Tk;
+  int gb, h, Tq, Tk;  // gb: the counter's batch row
 
   __device__ __forceinline__ float operator()(int row, int key, float p) const {
-    return drop.on && row < Tq && key < Tk && !drop.keep(b, h, row, key) ? 0.f : p;
+    return drop.on && row < Tq && key < Tk && !drop.keep(gb, h, row, key) ? 0.f : p;
   }
   __device__ __forceinline__ float scale(float inv_l) const {
     return drop.on ? inv_l * drop.inv_keep : inv_l;
@@ -419,7 +433,7 @@ dropout_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
   const float* bb = nullptr;
   if (bias != nullptr) bb = bias + (bias_per_batch ? (long long)b * Tq * Tk : 0LL);
   sbl::mha_fwd_block<D>(q + qoff, k + koff, v + koff, bb, out + qoff, rs, Tq, Tk, scale,
-                        HeadDropout{drop, b, h, Tq, Tk}, reinterpret_cast<bf16*>(smem_raw));
+                        HeadDropout{drop, drop.row(b), h, Tq, Tk}, reinterpret_cast<bf16*>(smem_raw));
 }
 
 // Whether K4's bf16 body keeps P_drop and dS of the whole head in shared
@@ -486,6 +500,7 @@ dropout_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
   const int t = lane & 3;
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
+  const int gb = drop.row(b);
   const long long rs = (long long)H * D;
   const long long qoff = (long long)b * Tq * rs + (long long)h * D;
   const long long koff = (long long)b * Tk * rs + (long long)h * D;
@@ -551,7 +566,7 @@ dropout_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
         const int row = row0 + g + (e >> 1) * 8;
         const int bit = j * 8 + 2 * t + (e & 1);
         const int key = kt * kKeyTile + bit;
-        if (row < Tq && key < Tk && drop.keep(b, h, row, key)) w[e >> 1] |= 1u << bit;
+        if (row < Tq && key < Tk && drop.keep(gb, h, row, key)) w[e >> 1] |= 1u << bit;
       }
     }
 #pragma unroll
@@ -902,10 +917,14 @@ struct FastDiv {
 };
 
 // out: (B, H, Tq, Tk) bytes, 1 = keep; n = B * H * Tq * Tk < 2^31.
+// kMapped: the counter's batch row goes through the batch-row map (row0,
+// rows, row_stride) of the header; otherwise it is the launch's row.
+template <bool kMapped>
 __global__ void __launch_bounds__(kMaskThreads)
     dropout_keep_mask_kernel(unsigned char* __restrict__ out, uint32_t n, FastDiv by_tk,
                              FastDiv by_tq, FastDiv by_h, unsigned long long seed,
-                             uint32_t thresh) {
+                             uint32_t thresh, uint32_t row0, uint32_t rows,
+                             uint32_t row_stride) {
   uint32_t k0[10], k1[10];
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
@@ -921,10 +940,12 @@ __global__ void __launch_bounds__(kMaskThreads)
     const uint32_t head = by_tq.div(row);  // (b, h)
     uint32_t j = e0 - row * Tk, i = row - head * Tq;
     uint32_t b = by_h.div(head), h = head - b * H;
+    // mapped: b's group and its place in it, carried with b
+    uint32_t bq = kMapped ? b / rows : 0u, br = kMapped ? b % rows : 0u;
     uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
     for (int u = 0; u < kMaskRun; ++u) {
-      uint32_t c0 = j, c1 = i, c2 = h, c3 = b;
+      uint32_t c0 = j, c1 = i, c2 = h, c3 = kMapped ? bq * row_stride + row0 + br : b;
 #pragma unroll
       for (int r = 0; r < 10; ++r) philox_round(c0, c1, c2, c3, k0[r], k1[r]);
       w[u / 4] |= static_cast<uint32_t>(c0 >= thresh) << (8 * (u % 4));
@@ -939,6 +960,12 @@ __global__ void __launch_bounds__(kMaskThreads)
       const bool ch = h == H;
       h = ch ? 0u : h;
       b += ch;
+      if (kMapped) {
+        br += ch;
+        const bool cb = br == rows;
+        br = cb ? 0u : br;
+        bq += cb;
+      }
     }
     if (e0 + kMaskRun <= n) {
       *reinterpret_cast<uint4*>(out + e0) = make_uint4(w[0], w[1], w[2], w[3]);
@@ -964,13 +991,24 @@ bool shape_ok(int B, int Tq, int Tk, int H, int D) {
          f32_smem_bytes(Tq, Tk, D, 0) <= kMaxSmem && f32_smem_bytes(Tq, Tk, D, 1) <= kMaxSmem;
 }
 
-Dropout make_dropout(unsigned long long seed, unsigned int thresh, float inv_keep, int on) {
+Dropout make_dropout(unsigned long long seed, unsigned int thresh, float inv_keep, int on,
+                     int row0, int rows, int row_stride) {
   Dropout d;
   d.seed = seed;
   d.thresh = thresh;
   d.inv_keep = inv_keep;
   d.on = on;
+  d.row0 = row0;
+  d.rows = rows;
+  d.row_stride = row_stride;
   return d;
+}
+
+// A batch-row map that keeps every counter row below 2^31.
+bool rows_ok(int B, int row0, int rows, int row_stride) {
+  if (row0 < 0 || rows <= 0 || row_stride < 0) return false;
+  const long long last = (long long)((B - 1) / rows) * row_stride + row0 + (B - 1) % rows;
+  return last < (1LL << 31);
 }
 
 int warps_for(int rows) {
@@ -1063,17 +1101,20 @@ int prepare(int B, int Tq, int Tk, int H, int D, int dtype, int device,
 // dtype: 0 = float32, 1 = bfloat16 (pointers 16-byte aligned); D in {16,
 // 32, 64, 128}; Tq, Tk such that f32_smem_bytes fits a block (kMaxSmem).
 // thresh = uint32(rate * 2^32), inv_keep = 1 / (1 - rate), dropout_on =
-// rate > 0.  Each returns the cudaError_t of its launch (0 on success).
+// rate > 0; (row0, rows, row_stride) the batch-row map of the header.
+// Each returns the cudaError_t of its launch (0 on success).
 extern "C" int sbl_small_mha_dropout_fwd_flat(const void* q, const void* k, const void* v,
                                               const void* bias, void* out, int B, int Tq,
                                               int Tk, int H, int D, int bias_per_batch,
                                               float scale, unsigned long long seed,
                                               unsigned int thresh, float inv_keep,
-                                              int dropout_on, int dtype, int device,
+                                              int dropout_on, int row0, int rows,
+                                              int row_stride, int dtype, int device,
                                               void* stream) {
+  if (!rows_ok(B, row0, rows, row_stride)) return (int)cudaErrorInvalidValue;
   const int err = prepare(B, Tq, Tk, H, D, dtype, device, {q, k, v, out});
   if (err != 0) return err;
-  const Dropout drop = make_dropout(seed, thresh, inv_keep, dropout_on);
+  const Dropout drop = make_dropout(seed, thresh, inv_keep, dropout_on, row0, rows, row_stride);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SBL_TRAIN_DISPATCH(launch_fwd, q, k, v, bias, out, B, Tq, Tk, H, bias_per_batch, scale, drop,
                      dtype, s)
@@ -1084,37 +1125,43 @@ extern "C" int sbl_small_mha_dropout_bwd_flat(const void* q, const void* k, cons
                                               void* dk, void* dv, int B, int Tq, int Tk, int H,
                                               int D, int bias_per_batch, float scale,
                                               unsigned long long seed, unsigned int thresh,
-                                              float inv_keep, int dropout_on, int dtype,
+                                              float inv_keep, int dropout_on, int row0,
+                                              int rows, int row_stride, int dtype,
                                               int device, void* stream) {
+  if (!rows_ok(B, row0, rows, row_stride)) return (int)cudaErrorInvalidValue;
   const int err = prepare(B, Tq, Tk, H, D, dtype, device, {q, k, v, dout, dq, dk, dv});
   if (err != 0) return err;
-  const Dropout drop = make_dropout(seed, thresh, inv_keep, dropout_on);
+  const Dropout drop = make_dropout(seed, thresh, inv_keep, dropout_on, row0, rows, row_stride);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SBL_TRAIN_DISPATCH(launch_bwd, q, k, v, bias, dout, dq, dk, dv, B, Tq, Tk, H, bias_per_batch,
                      scale, drop, dtype, s)
 }
 
 // out: (B, H, Tq, Tk) torch.bool (one byte per element), 16-byte aligned;
-// B * H * Tq * Tk < 2^31.
+// B * H * Tq * Tk < 2^31; (row0, rows, row_stride) the batch-row map of the
+// header (the identity (0, B, B) takes the unmapped kernel).
 extern "C" int sbl_dropout_keep_mask_flat(void* out, int B, int H, int Tq, int Tk,
                                           unsigned long long seed, unsigned int thresh,
-                                          int device, void* stream) {
+                                          int row0, int rows, int row_stride, int device,
+                                          void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || !aligned16(out)) return (int)cudaErrorInvalidValue;
+  if (!rows_ok(B, row0, rows, row_stride)) return (int)cudaErrorInvalidValue;
+  const bool mapped = !(row0 == 0 && rows >= B);
+  const auto kernel = mapped ? dropout_keep_mask_kernel<true> : dropout_keep_mask_kernel<false>;
   const long long n = (long long)B * H * Tq * Tk;
   if (n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dropout_keep_mask_kernel,
-                                                      kMaskThreads, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMaskThreads, 0);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   const long long per_block = (long long)kMaskRun * kMaskThreads;
   const long long want = (n + per_block - 1) / per_block;
   const long long resident = per_sm * sms > 0 ? (long long)per_sm * sms : 1;
   const unsigned blocks = (unsigned)(want < resident ? want : resident);
-  dropout_keep_mask_kernel<<<blocks, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<unsigned char*>(out), (uint32_t)n, FastDiv(Tk), FastDiv(Tq), FastDiv(H), seed,
-      thresh);
+      thresh, (uint32_t)row0, (uint32_t)rows, (uint32_t)row_stride);
   return (int)cudaGetLastError();
 }

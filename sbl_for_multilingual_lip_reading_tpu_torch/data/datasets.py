@@ -73,6 +73,10 @@ class LrwDataset:
         """Label ids without reading the clip."""
         return self._labels[self.samples[i][1]][0]
 
+    def lang_ids(self) -> np.ndarray:
+        """Every sample's lang_id (0) without reading a clip."""
+        return np.zeros(len(self), np.int32)
+
 
 class Lrw1000Dataset:
     """LRW-1000 clips as jpg frame directories + a (clean) manifest
@@ -130,6 +134,10 @@ class Lrw1000Dataset:
         return _pad_labels(encode_pinyin_ids(self.entries[i].pinyins, self.vocab),
                            self.pad_len)
 
+    def lang_ids(self) -> np.ndarray:
+        """Every sample's lang_id (1) without decoding a jpg."""
+        return np.ones(len(self), np.int32)
+
 
 class MixedBilingualDataset:
     """LRW + LRW-1000 concatenation (the SBL 'all' kind, data_gen.py:128)."""
@@ -150,6 +158,10 @@ class MixedBilingualDataset:
         if i < len(self.lrw):
             return self.lrw.labels_only(i)
         return self.lrw1000.labels_only(i - len(self.lrw))
+
+    def lang_ids(self) -> np.ndarray:
+        """Every sample's lang_id without reading a clip."""
+        return np.concatenate([self.lrw.lang_ids(), self.lrw1000.lang_ids()])
 
     def stream_indices(self):
         """(LRW indices, LRW-1000 indices) for ``TwoStreamBatchSampler``

@@ -54,10 +54,15 @@ class Batcher:
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[dict]:
+        for idx in self.index_batches():
+            yield self._collate([self.dataset[i] for i in self._local(idx)])
+
+    def index_batches(self) -> Iterator[np.ndarray]:
+        """The GLOBAL index batches ``__iter__`` collates (each process its
+        stripe of them), in the same order."""
         if self.sampler is not None:
             for idx_batch in self.sampler:
-                yield self._collate([self.dataset[i]
-                                     for i in self._local(idx_batch)])
+                yield np.asarray(idx_batch)
             return
         order = np.arange(len(self.dataset))
         if self.shuffle:
@@ -65,8 +70,7 @@ class Batcher:
         stop = (len(order) // self.batch_size * self.batch_size
                 if self.drop_last else len(order))
         for s in range(0, stop, self.batch_size):
-            idx = self._local(order[s:s + self.batch_size])
-            yield self._collate([self.dataset[i] for i in idx])
+            yield order[s:s + self.batch_size]
 
     def _local(self, global_idx):
         """This process's stripe of a global index batch: strided, so a

@@ -78,7 +78,8 @@ def build_model(cfg, device=None, seed: Optional[int] = None,
     both off by default as in JAX: ``cfg.use_fused_decoder_layer`` (K11 on
     the deterministic SBL decode) and ``use_pallas_resblock`` (K10 on the
     eligible ResNet blocks in eval mode; a field of the frontend modules in
-    JAX, which no config carries).  A bidirectional decoder config gives an
+    JAX, which no config carries).  ``cfg.remat_frontend`` checkpoints the
+    frontend's ResNet blocks in training.  A bidirectional decoder config gives an
     ``SBLTransformer``, a unidirectional one a ``UniTransformer``, and the
     ``classify`` workload (no decoder) a ``ClassifyTransformer`` whose
     language slot is the last frame.  On the card, a config whose shapes a
@@ -92,7 +93,8 @@ def build_model(cfg, device=None, seed: Optional[int] = None,
     dims, d = cfg.dims, cfg.decoder
     frontend = frontend_from_config(cfg.frontend, dtype=dtype,
                                     use_kernels=kernels,
-                                    use_pallas_resblock=use_pallas_resblock)
+                                    use_pallas_resblock=use_pallas_resblock,
+                                    remat=getattr(cfg, "remat_frontend", False))
     encoder = encoder_from_config(dims, d_input=cfg.frontend.feature_dim,
                                   dtype=dtype, use_kernels=kernels)
     if kind == "classify":

@@ -176,18 +176,19 @@ class _SBLStep(nn.Module):
         self.tgt_word_emb.weight.copy_(w)
 
     def forward(self, ys: torch.Tensor, enc_kv, step: int,
-                seed: Optional[int] = None) -> torch.Tensor:
+                seed: Optional[int] = None, rows=None) -> torch.Tensor:
         """ys: (2, B, L) token buffers; enc_kv: per layer (k2, v2), each
         (2, B, Tk, H*d); seed: None for a deterministic step, else the seed
-        of the step's random numbers.  Returns the (2, B, V) f32 logits at
-        ``step``."""
+        of the step's random numbers (``rows``: the ``DropoutRNG``'s batch
+        rows).  Returns the (2, B, V) f32 logits at ``step``."""
         L = ys.shape[-1]
         dev = ys.device
-        rng = None if seed is None else DropoutRNG(seed, dev)
+        rng = None if seed is None else DropoutRNG(seed, dev, rows)
         # the table is cast where it is used (flax Embed with dtype=); the
         # PE is added in the compute dtype (JAX decoder_sbl.py:217-219)
         emb = F.embedding(ys, self.tgt_word_emb.weight.to(self.dtype))
-        h = dropout(emb + self.pe[:L].to(self.dtype), self.dropout, rng)
+        h = dropout(emb + self.pe[:L].to(self.dtype), self.dropout, rng,
+                    batch_dim=1)
         beyond = (torch.arange(L, device=dev) > step)[None, None, :]
         first_bias = mask_to_bias(M.causal_mask(L, dev)[None] | beyond, L, L)
         stack_bias = mask_to_bias(beyond, L, L)
@@ -264,7 +265,8 @@ class SBLDecoder(nn.Module):
         for a, b in self._segments():
             for step in range(a, b):
                 args = (ys[:, :, :b + 1], enc_kv, step,
-                        None if rng is None else rng.seed())
+                        None if rng is None else rng.seed(),
+                        None if rng is None else rng.rows)
                 if self.remat and torch.is_grad_enabled():
                     lg = checkpoint(self.step, *args, use_reentrant=False,
                                     preserve_rng_state=False)

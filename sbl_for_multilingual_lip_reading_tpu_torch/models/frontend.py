@@ -29,16 +29,26 @@ BasicBlock in eval mode through kernel K10 (``ops/resblock.py``): stride 1
 and equal input and output widths, five of ResNet-18's eight blocks.
 ``forward_stacked`` takes the already stacked and normalized output of K9
 (``ops/stem.py::stack_frames_u8``) in place of a clip.
+
+``remat`` (the config's ``remat_frontend``, JAX ``nn.remat(BasicBlock)``)
+checkpoints each ResNet block in training: the backward runs the block's
+forward again (``torch.utils.checkpoint``, non-reentrant) instead of
+keeping its activations.  The recompute takes the same batch statistics
+(K7 launches again under ``PALLAS_BN``) but leaves the running statistics
+alone, so they move once a step, as in JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
+import threading
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.batchnorm import bn_train
 from ..ops.resblock import fold_bn, fused_resblock, fused_resblock_plain
@@ -58,6 +68,53 @@ def _he_normal_fan_out(w: torch.Tensor, g: torch.Generator) -> None:
                                              generator=g))
 
 
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    """Marks a checkpoint's recompute on this thread (the autograd engine
+    runs it on the thread doing the backward)."""
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = False
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), _recomputing()
+
+
+def _update_running(bn: "BatchNorm", mean: torch.Tensor,
+                    var: torch.Tensor) -> None:
+    """ra = momentum * ra + (1 - momentum) * batch, except in a recompute."""
+    if getattr(_RECOMPUTE, "on", False):
+        return
+    with torch.no_grad():
+        keep = bn.momentum
+        bn.running_mean.mul_(keep).add_((1.0 - keep) * mean)
+        bn.running_var.mul_(keep).add_((1.0 - keep) * var)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over the processes of a mesh whose backward sums the gradient
+    over them too: each process's sums feed every process's loss."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        out = x.clone()
+        mesh.all_reduce_(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        ctx.mesh.all_reduce_(g)
+        return g, None
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over NCHW channels, in f32, with its formula
     y = (x - mean) * (scale * rsqrt(var + eps)) + bias.
@@ -66,11 +123,19 @@ class BatchNorm(nn.Module):
     and the biased variance E[x^2] - E[x]^2 (flax's fast variance, clipped
     at 0), and updates ra = momentum * ra + (1 - momentum) * batch: flax's
     momentum 0.9 is the share KEPT, where ``torch.nn.BatchNorm2d`` keeps
-    1 - 0.1 and tracks the unbiased variance."""
+    1 - 0.1 and tracks the unbiased variance.
+
+    ``sync`` (a ``parallel.DataMesh``, set by ``parallel.set_sync_batchnorm``)
+    takes the train-mode statistics over the batch of every data-parallel
+    process: (sum x, sum x^2) summed over them, differentiably; the running
+    statistics then move the same way in each.  Without it they are this
+    process's own (``torch.nn.SyncBatchNorm`` is not used: it keeps the
+    unbiased variance and torch's momentum)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps, self.momentum = eps, momentum
+        self.sync = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -94,12 +159,18 @@ class BatchNorm(nn.Module):
 
     def _train(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.to(torch.float32)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            keep = self.momentum
-            self.running_mean.mul_(keep).add_((1.0 - keep) * mean)
-            self.running_var.mul_(keep).add_((1.0 - keep) * var)
+        if self.sync is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            sq = (xf * xf).mean(dim=(0, 2, 3))
+        else:
+            C = xf.shape[1]
+            sums = _AllReduceSum.apply(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                                  (xf * xf).sum(dim=(0, 2, 3))]),
+                                       self.sync)
+            n = xf.numel() // C * self.sync.size
+            mean, sq = sums[:C] / n, sums[C:] / n
+        var = torch.clamp(sq - mean * mean, min=0.0)
+        _update_running(self, mean, var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
@@ -120,11 +191,8 @@ class FastBatchNorm(BatchNorm):
 
     def _train(self, x: torch.Tensor) -> torch.Tensor:
         y, mean, var = bn_train(x, self.weight, self.bias, self.eps,
-                                self.use_kernels)
-        with torch.no_grad():
-            keep = self.momentum
-            self.running_mean.mul_(keep).add_((1.0 - keep) * mean)
-            self.running_var.mul_(keep).add_((1.0 - keep) * var)
+                                self.use_kernels, self.sync)
+        _update_running(self, mean, var)
         return y
 
 
@@ -215,15 +283,16 @@ class BasicBlock(nn.Module):
 class ResNetTrunk(nn.Module):
     """Stemless ResNet-18 trunk: four stages at strides 1/2/2/2, global
     average pool (in f32) to the feature dim.  Blocks are named
-    ``layer{stage}_block{b}`` as in JAX."""
+    ``layer{stage}_block{b}`` as in JAX.  ``remat`` checkpoints each block
+    in training."""
 
     def __init__(self, c_in: int, channels: Sequence[int] = (64, 128, 256, 512),
                  blocks: Sequence[int] = (2, 2, 2, 2), bn_epsilon: float = 1e-5,
                  dtype=torch.float32, bn_momentum: float = 0.9,
                  use_pallas_bn: bool = False, use_kernels: bool = True,
-                 use_pallas_resblock: bool = False):
+                 use_pallas_resblock: bool = False, remat: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         self.names = []
         for stage, (ch, nblocks) in enumerate(zip(channels, blocks)):
             for b in range(nblocks):
@@ -237,8 +306,15 @@ class ResNetTrunk(nn.Module):
                 c_in = ch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for name in self.names:
-            x = getattr(self, name)(x)
+            block = getattr(self, name)
+            if remat:
+                x = checkpoint(block, x, use_reentrant=False,
+                               preserve_rng_state=False,
+                               context_fn=_remat_contexts)
+            else:
+                x = block(x)
         return x.to(torch.float32).mean(dim=(2, 3)).to(self.dtype)
 
 
@@ -252,7 +328,7 @@ class VisualFrontend(nn.Module):
                  dtype=torch.float32, use_kernels: bool = True,
                  dropout: float = 0.5, bn_momentum: float = 0.9,
                  use_pallas_bn: bool = False,
-                 use_pallas_resblock: bool = False):
+                 use_pallas_resblock: bool = False, remat: bool = False):
         super().__init__()
         self.dtype, self.use_kernels = dtype, use_kernels
         self.feature_dim, self.dropout = feature_dim, dropout
@@ -263,7 +339,7 @@ class VisualFrontend(nn.Module):
         self.resnet = ResNetTrunk(conv3d_channels, resnet_channels,
                                   resnet_blocks, bn_epsilon, dtype, bn_momentum,
                                   use_pallas_bn, use_kernels,
-                                  use_pallas_resblock)
+                                  use_pallas_resblock, remat)
 
     def init_weights(self, g: torch.Generator) -> None:
         _he_normal_fan_out(self.conv3d_weight, g)
@@ -293,7 +369,8 @@ class VisualFrontend(nn.Module):
 
 
 def frontend_from_config(cfg, dtype=torch.float32, use_kernels: bool = True,
-                         use_pallas_resblock: bool = False) -> VisualFrontend:
+                         use_pallas_resblock: bool = False,
+                         remat: bool = False) -> VisualFrontend:
     return VisualFrontend(
         conv3d_channels=cfg.conv3d_channels,
         resnet_channels=tuple(cfg.resnet_channels),
@@ -305,4 +382,5 @@ def frontend_from_config(cfg, dtype=torch.float32, use_kernels: bool = True,
         dropout=cfg.dropout,
         bn_momentum=cfg.bn_momentum,
         use_pallas_resblock=use_pallas_resblock,
+        remat=remat,
     )

@@ -35,8 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import (MASK_FILL, small_mha_dropout_flat, small_mha_flat,
-                             small_mha_flat_plain)
+from ..ops.attention import (MASK_FILL, BatchRows, small_mha_dropout_flat,
+                             small_mha_flat, small_mha_flat_plain)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -47,12 +47,20 @@ class DropoutRNG:
     on the host, so drawing them never waits for the device; elementwise
     dropout masks on the device.  Built again from the same seed it draws
     the same numbers in the same order, which is what lets a checkpointed
-    decode step recompute its masks."""
+    decode step recompute its masks.
 
-    def __init__(self, seed: int, device):
+    ``rows`` (a ``BatchRows``) is set in a data-parallel process: its batch
+    is a stripe of the whole batch, and it draws the masks of its rows of
+    the one-process run.  Elementwise masks are drawn at the whole batch's
+    shape and cut to the stripe; the attention kernels map their batch rows
+    (``ops.attention.BatchRows``).  Seeds and coins are the same in every
+    process."""
+
+    def __init__(self, seed: int, device, rows: Optional[BatchRows] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
+        self.rows = rows
         self.host = torch.Generator().manual_seed(seed)
         self.dev = (self.host if self.device.type == "cpu" else
                     torch.Generator(device=self.device).manual_seed(seed))
@@ -64,19 +72,29 @@ class DropoutRNG:
         """n Bernoulli(p) draws."""
         return (torch.rand(n, generator=self.host) < p).tolist()
 
-    def keep(self, shape, rate: float) -> torch.Tensor:
-        """Bool mask, True with probability 1 - rate."""
-        return torch.rand(shape, generator=self.dev, device=self.device) >= rate
+    def keep(self, shape, rate: float, batch_dim: int = 0) -> torch.Tensor:
+        """Bool mask, True with probability 1 - rate.  ``batch_dim`` is the
+        axis that holds the batch (its rows may each span several entries:
+        the frontend folds frames into it)."""
+        if self.rows is None:
+            return torch.rand(shape, generator=self.dev,
+                              device=self.device) >= rate
+        first, local, total = self.rows
+        per = shape[batch_dim] // local
+        lead = math.prod(shape[:batch_dim])
+        u = torch.rand((lead, total * per, math.prod(shape[batch_dim + 1:])),
+                       generator=self.dev, device=self.device)
+        return u[:, first * per:(first + local) * per].reshape(shape) >= rate
 
 
-def dropout(x: torch.Tensor, rate: float,
-            rng: Optional[DropoutRNG]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRNG],
+            batch_dim: int = 0) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 - rate and
     scale it by 1 / (1 - rate) in x's dtype; the identity without an rng or
-    at rate 0."""
+    at rate 0.  ``batch_dim``: x's batch axis (``DropoutRNG.keep``)."""
     if rng is None or rate == 0.0:
         return x
-    return torch.where(rng.keep(x.shape, rate), x / (1.0 - rate), 0.0)
+    return torch.where(rng.keep(x.shape, rate, batch_dim), x / (1.0 - rate), 0.0)
 
 
 def sinusoid_position_encoding(max_len: int, d_model: int) -> torch.Tensor:
@@ -204,8 +222,14 @@ def attend(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor, n_head: int,
     else:
         seed = rng.seed() if rate > 0.0 else 0
         ctx = small_mha_dropout_flat(q3, k3, v3, n_head, bias, seed, rate,
-                                     scale, use_kernels)
+                                     scale, use_kernels, rng.rows)
     return ctx.reshape(*q2.shape[:-1], ctx.shape[-1])
+
+
+def _batch_dim(dense: Dense) -> int:
+    """The batch axis of a module's activations: 1 behind the decoder's
+    leading direction axis."""
+    return 0 if dense.dirs is None else 1
 
 
 def _post_ln(ln: LayerNorm, out: torch.Tensor, residual: torch.Tensor,
@@ -245,7 +269,7 @@ class MultiHeadAttention(nn.Module):
         """q/k/v: (..., T, d_model); bias: additive (1|B, Tq, Tk) f32."""
         ctx = attend(self.w_qs(q), self.w_ks(k), self.w_vs(v), self.n_head,
                      bias, self.scale, self.use_kernels, self.dropout, rng)
-        out = dropout(self.fc(ctx), self.dropout, rng)
+        out = dropout(self.fc(ctx), self.dropout, rng, _batch_dim(self.fc))
         return _post_ln(self.layer_norm, out, q, self.dtype)
 
     def decode_step(self, x: torch.Tensor, k_cache: torch.Tensor,
@@ -321,7 +345,7 @@ class CachedCrossAttention(nn.Module):
                 rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         ctx = attend(self.w_qs(q), k2, v2, self.n_head, bias, self.scale,
                      self.use_kernels, self.dropout, rng)
-        out = dropout(self.fc(ctx), self.dropout, rng)
+        out = dropout(self.fc(ctx), self.dropout, rng, _batch_dim(self.fc))
         return _post_ln(self.layer_norm, out, q, self.dtype)
 
 
@@ -338,7 +362,8 @@ class PositionwiseFeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 rng: Optional[DropoutRNG] = None) -> torch.Tensor:
-        h = dropout(self.w_2(F.relu(self.w_1(x))), self.dropout, rng)
+        h = dropout(self.w_2(F.relu(self.w_1(x))), self.dropout, rng,
+                    _batch_dim(self.w_2))
         return _post_ln(self.layer_norm, h, x, self.dtype)
 
 

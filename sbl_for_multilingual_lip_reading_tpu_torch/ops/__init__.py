@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version, plus the mask helpers.  Kernels build at first use (``_build``)."""
-from .attention import (MASK_FILL, dropout_keep_mask, dropout_keep_mask_flat,
+from .attention import (MASK_FILL, BatchRows, dropout_keep_mask, dropout_keep_mask_flat,
                         dropout_keep_mask_flat_plain,
                         fused_mha, fused_mha_plain, fused_small_mha,
                         fused_small_mha_plain, mask_to_bias, small_mha,

@@ -50,16 +50,20 @@ _SIGNATURES = {
     # in, out, B, T, plane_bytes, kt, device, stream
     "sbl_stack_frames": [_P, _P, _LL, _I, _LL, _I, _I, _P],
     # q, k, v, bias, out, B, Tq, Tk, H, D, bias_per_batch, scale, seed,
-    # thresh, inv_keep, dropout_on, dtype, device, stream
+    # thresh, inv_keep, dropout_on, row0, rows, row_stride, dtype, device,
+    # stream
     "sbl_small_mha_dropout_fwd_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _I, _F, _SEED, _U, _F, _I, _I, _I, _P],
+                                       _I, _F, _SEED, _U, _F, _I, _I, _I, _I,
+                                       _I, _I, _P],
     # q, k, v, bias, dout, dq, dk, dv, B, Tq, Tk, H, D, bias_per_batch,
-    # scale, seed, thresh, inv_keep, dropout_on, dtype, device, stream
+    # scale, seed, thresh, inv_keep, dropout_on, row0, rows, row_stride,
+    # dtype, device, stream
     "sbl_small_mha_dropout_bwd_flat": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                        _I, _I, _I, _I, _F, _SEED, _U, _F, _I,
-                                       _I, _I, _P],
-    # out, B, H, Tq, Tk, seed, thresh, device, stream
-    "sbl_dropout_keep_mask_flat": [_P, _I, _I, _I, _I, _SEED, _U, _I, _P],
+                                       _I, _I, _I, _I, _I, _P],
+    # out, B, H, Tq, Tk, seed, thresh, row0, rows, row_stride, device, stream
+    "sbl_dropout_keep_mask_flat": [_P, _I, _I, _I, _I, _SEED, _U, _I, _I, _I,
+                                   _I, _P],
     # clips, offsets, flip, frame_map, n_frames, out, B, T, H, W, crop,
     # inv_std, shift, dtype, device, stream
     "sbl_ingest_train": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,

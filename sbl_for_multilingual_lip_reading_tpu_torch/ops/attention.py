@@ -52,7 +52,7 @@ anything runs on the card; a wrapper given such a CUDA tensor raises.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -289,32 +289,63 @@ def philox4x32_10(counter, seed: int):
     return c0, c1, c2, c3
 
 
+class BatchRows(NamedTuple):
+    """Where a launch's batch rows sit in the batch whose masks they take:
+    local row b is row (b // local) * total + first + b % local of it.  A
+    data-parallel process has (its first row, its rows, the whole batch),
+    which also maps the decoder's (2 * local) rows, both directions in one
+    launch, onto the 2 * total of the one-process run."""
+    first: int
+    local: int
+    total: int
+
+
+def _row_args(B: int, rows: Optional[BatchRows]):
+    """(row0, rows, row_stride) of the kernels' batch-row map: the identity
+    without ``rows``."""
+    if rows is None:
+        return 0, B, B
+    first, local, total = (int(r) for r in rows)
+    if first < 0 or local <= 0 or total < first + local:
+        raise ValueError(f"batch rows {tuple(rows)} do not lie in their batch")
+    if ((B - 1) // local) * total + first + (B - 1) % local >= 2 ** 31:
+        raise ValueError(f"batch rows {tuple(rows)} pass 2^31")
+    return first, local, total
+
+
 def dropout_keep_mask_flat_plain(B: int, Tq: int, Tk: int, H: int, seed: int,
-                                 rate: float, device=None) -> torch.Tensor:
+                                 rate: float, device=None,
+                                 rows: Optional[BatchRows] = None
+                                 ) -> torch.Tensor:
     """Plain version of K5: the (B, H, Tq, Tk) bool keep mask, from word 0
-    of Philox4x32-10 at counter (key, query, head, batch row)."""
+    of Philox4x32-10 at counter (key, query, head, batch row), the batch
+    row mapped by ``rows`` where given."""
     seed = _check_seed(seed)
+    row0, local, stride = _row_args(B, rows)
 
     def axis(n, dim):
         shape = [1, 1, 1, 1]
         shape[dim] = n
         return torch.arange(n, dtype=torch.int64, device=device).view(shape)
 
-    bits = philox4x32_10((axis(Tk, 3), axis(Tq, 2), axis(H, 1), axis(B, 0)),
-                         seed)[0]
+    b = axis(B, 0)
+    b = (b // local) * stride + row0 + b % local
+    bits = philox4x32_10((axis(Tk, 3), axis(Tq, 2), axis(H, 1), b), seed)[0]
     return bits >= dropout_threshold(rate)
 
 
 def dropout_keep_mask_flat(B: int, Tq: int, Tk: int, H: int, seed: int,
-                           rate: float, device=None) -> torch.Tensor:
+                           rate: float, device=None,
+                           rows: Optional[BatchRows] = None) -> torch.Tensor:
     """K5: the (B, H, Tq, Tk) bool keep mask that K3 and K4 draw for
-    ``seed`` on a (B, Tq, H*d) x (B, Tk, H*d) launch.  On a CUDA device (the
-    default) it launches the kernel, and raises without a card; on the CPU
-    (``device="cpu"``) it takes the plain version."""
+    ``seed`` (and ``rows``) on a (B, Tq, H*d) x (B, Tk, H*d) launch.  On a
+    CUDA device (the default) it launches the kernel, and raises without a
+    card; on the CPU (``device="cpu"``) it takes the plain version."""
     device = resolve_device(device)
     if device.type == "cpu":
-        return dropout_keep_mask_flat_plain(B, Tq, Tk, H, seed, rate, device)
-    out = _k5("dropout_keep_mask_flat", B, Tq, Tk, H, seed, rate, device)
+        return dropout_keep_mask_flat_plain(B, Tq, Tk, H, seed, rate, device,
+                                            rows)
+    out = _k5("dropout_keep_mask_flat", B, Tq, Tk, H, seed, rate, device, rows)
     dropout_keep_mask_flat.launches += 1
     return out
 
@@ -322,13 +353,14 @@ def dropout_keep_mask_flat(B: int, Tq: int, Tk: int, H: int, seed: int,
 dropout_keep_mask_flat.launches = 0
 
 
-def _k5(name, B, Tq, Tk, H, seed, rate, device):
+def _k5(name, B, Tq, Tk, H, seed, rate, device, rows=None):
     """Launch K5 on a CUDA device into a new (B, H, Tq, Tk) bool mask.  K5
     indexes its elements in 32 bits, so a mask of MAX_MASK_ELEMENTS or more
     is refused before it is allocated (the plain version has no such
     limit)."""
     seed = _check_seed(seed)
     thresh = dropout_threshold(rate)
+    row_args = _row_args(B, rows)
     if device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {device}")
     if B * H * Tq * Tk >= MAX_MASK_ELEMENTS:
@@ -338,13 +370,13 @@ def _k5(name, B, Tq, Tk, H, seed, rate, device):
     if out.numel() == 0:
         return out
     err = _build.library().sbl_dropout_keep_mask_flat(
-        out.data_ptr(), B, H, Tq, Tk, seed, thresh, device.index,
+        out.data_ptr(), B, H, Tq, Tk, seed, thresh, *row_args, device.index,
         _stream(device))
     _build.check(err, name)
     return out
 
 
-def _train_probs(q, k, v, n_head, bias, seed, rate, scale, keep):
+def _train_probs(q, k, v, n_head, bias, seed, rate, scale, keep, rows=None):
     """Shared plain forward/backward recompute: heads (B, H, T, d), P and
     P after dropout (B, H, Tq, Tk) in at least f32, and the keep mask (None
     at rate 0, where nothing is drawn)."""
@@ -357,7 +389,7 @@ def _train_probs(q, k, v, n_head, bias, seed, rate, scale, keep):
         return qh, kh, vh, p, p, None
     if keep is None:
         keep = dropout_keep_mask_flat_plain(q.shape[0], q.shape[1], k.shape[1],
-                                            n_head, seed, rate, q.device)
+                                            n_head, seed, rate, q.device, rows)
     return qh, kh, vh, p, torch.where(keep, p, 0.0) * (1.0 / (1.0 - rate)), keep
 
 
@@ -366,14 +398,16 @@ def small_mha_dropout_flat_plain(q: torch.Tensor, k: torch.Tensor,
                                  bias: Optional[torch.Tensor] = None,
                                  seed: int = 0, rate: float = 0.0,
                                  scale: Optional[float] = None,
-                                 keep: Optional[torch.Tensor] = None
+                                 keep: Optional[torch.Tensor] = None,
+                                 rows: Optional[BatchRows] = None
                                  ) -> torch.Tensor:
     """Plain version of K3.  ``keep`` injects a (B, H, Tq, Tk) mask; by
-    default it is drawn from ``seed`` with the plain Philox (K5's bits)."""
+    default it is drawn from ``seed`` (and ``rows``) with the plain Philox
+    (K5's bits)."""
     B, Tq, Tk, D = _check(q, k, v, n_head, bias)
     dropout_threshold(rate)
     _, _, vh, _, pd, _ = _train_probs(q, k, v, n_head, bias, seed, rate,
-                                      _scale(scale, D, n_head), keep)
+                                      _scale(scale, D, n_head), keep, rows)
     return _merge(torch.matmul(pd, vh), q.dtype)
 
 
@@ -383,7 +417,8 @@ def small_mha_dropout_bwd_flat_plain(q: torch.Tensor, k: torch.Tensor,
                                      seed: int, rate: float,
                                      scale: Optional[float],
                                      dout: torch.Tensor,
-                                     keep: Optional[torch.Tensor] = None):
+                                     keep: Optional[torch.Tensor] = None,
+                                     rows: Optional[BatchRows] = None):
     """Plain version of K4: (dq, dk, dv) of K3 for the output gradient
     ``dout``, in the dtypes of q, k, v, by the JAX kernel's formulas."""
     B, Tq, Tk, D = _check(q, k, v, n_head, bias)
@@ -392,7 +427,7 @@ def small_mha_dropout_bwd_flat_plain(q: torch.Tensor, k: torch.Tensor,
     dropout_threshold(rate)
     scale = _scale(scale, D, n_head)
     qh, kh, vh, p, pd, keep = _train_probs(q, k, v, n_head, bias, seed, rate,
-                                           scale, keep)
+                                           scale, keep, rows)
     g = _heads(dout, n_head)
     dv = torch.matmul(pd.transpose(-1, -2), g)
     dp = torch.matmul(g, vh.transpose(-1, -2))
@@ -412,9 +447,10 @@ def small_mha_dropout_fwd_flat(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, n_head: int,
                                bias: Optional[torch.Tensor] = None,
                                seed: int = 0, rate: float = 0.0,
-                               scale: Optional[float] = None) -> torch.Tensor:
+                               scale: Optional[float] = None,
+                               rows: Optional[BatchRows] = None) -> torch.Tensor:
     """K3: flat attention with dropout ``rate`` on its probabilities, the
-    mask drawn from ``seed``.  CUDA tensors (``train_kernels_fit``: d in
+    mask drawn from ``seed`` (its batch rows mapped by ``rows``).  CUDA tensors (``train_kernels_fit``: d in
     HEAD_DIMS, Tq and Tk within its shared memory; f32 or bf16, contiguous)
     launch the kernel; CPU tensors take the plain version."""
     _check(q, k, v, n_head, bias)
@@ -422,9 +458,9 @@ def small_mha_dropout_fwd_flat(q: torch.Tensor, k: torch.Tensor,
     dropout_threshold(rate)
     if q.device.type == "cpu":
         return small_mha_dropout_flat_plain(q, k, v, n_head, bias, seed, rate,
-                                            scale)
+                                            scale, rows=rows)
     out = _k3("small_mha_dropout_fwd_flat", q, k, v, n_head, bias, seed, rate,
-              scale)
+              scale, rows)
     small_mha_dropout_fwd_flat.launches += 1
     return out
 
@@ -432,11 +468,12 @@ def small_mha_dropout_fwd_flat(q: torch.Tensor, k: torch.Tensor,
 small_mha_dropout_fwd_flat.launches = 0
 
 
-def _k3(name, q, k, v, n_head, bias, seed, rate, scale):
+def _k3(name, q, k, v, n_head, bias, seed, rate, scale, rows=None):
     """Launch K3 on flat CUDA operands (checked here) into a new tensor."""
     B, Tq, Tk, D = _check(q, k, v, n_head, bias)
     seed = _check_seed(seed)
     thresh, inv_keep, on = _dropout_launch_args(rate)
+    row_args = _row_args(B, rows)
     _check_cuda(name, (q, k, v), bias, D // n_head, train=True)
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -445,7 +482,7 @@ def _k3(name, q, k, v, n_head, bias, seed, rate, scale):
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         B, Tq, Tk, n_head, D // n_head, int(bias is not None and bias.shape[0] > 1),
-        float(_scale(scale, D, n_head)), seed, thresh, inv_keep, on,
+        float(_scale(scale, D, n_head)), seed, thresh, inv_keep, on, *row_args,
         _DTYPE_CODES[q.dtype], q.device.index, _stream(q.device))
     _build.check(err, name)
     return out
@@ -455,8 +492,10 @@ def small_mha_dropout_bwd_flat(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, n_head: int,
                                bias: Optional[torch.Tensor], seed: int,
                                rate: float, scale: Optional[float],
-                               dout: torch.Tensor):
-    """K4: (dq, dk, dv) of K3, regenerating its mask from ``seed``.  CUDA
+                               dout: torch.Tensor,
+                               rows: Optional[BatchRows] = None):
+    """K4: (dq, dk, dv) of K3, regenerating its mask from ``seed`` (and
+    ``rows``).  CUDA
     tensors launch the kernel (K3's conditions, dout like q); CPU tensors
     take the plain version."""
     _check(q, k, v, n_head, bias)
@@ -466,9 +505,9 @@ def small_mha_dropout_bwd_flat(q: torch.Tensor, k: torch.Tensor,
     dropout_threshold(rate)
     if q.device.type == "cpu":
         return small_mha_dropout_bwd_flat_plain(q, k, v, n_head, bias, seed,
-                                                rate, scale, dout)
+                                                rate, scale, dout, rows=rows)
     grads = _k4("small_mha_dropout_bwd_flat", q, k, v, n_head, bias, seed,
-                rate, scale, dout)
+                rate, scale, dout, rows)
     small_mha_dropout_bwd_flat.launches += 1
     return grads
 
@@ -476,7 +515,7 @@ def small_mha_dropout_bwd_flat(q: torch.Tensor, k: torch.Tensor,
 small_mha_dropout_bwd_flat.launches = 0
 
 
-def _k4(name, q, k, v, n_head, bias, seed, rate, scale, dout):
+def _k4(name, q, k, v, n_head, bias, seed, rate, scale, dout, rows=None):
     """Launch K4 on flat CUDA operands (checked here) into new tensors.  At
     rate 0 the kernel draws no mask and never reads ``inv_keep``, so its
     gradients are those of the plain backward without dropout."""
@@ -485,6 +524,7 @@ def _k4(name, q, k, v, n_head, bias, seed, rate, scale, dout):
         raise ValueError(f"dout {tuple(dout.shape)} does not match q")
     seed = _check_seed(seed)
     thresh, inv_keep, on = _dropout_launch_args(rate)
+    row_args = _row_args(B, rows)
     _check_cuda(name, (q, k, v, dout), bias, D // n_head, train=True)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
@@ -494,7 +534,7 @@ def _k4(name, q, k, v, n_head, bias, seed, rate, scale, dout):
         None if bias is None else bias.data_ptr(), dout.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, Tq, Tk, n_head, D // n_head, int(bias is not None and bias.shape[0] > 1),
-        float(_scale(scale, D, n_head)), seed, thresh, inv_keep, on,
+        float(_scale(scale, D, n_head)), seed, thresh, inv_keep, on, *row_args,
         _DTYPE_CODES[q.dtype], q.device.index, _stream(q.device))
     _build.check(err, name)
     return dq, dk, dv
@@ -523,18 +563,21 @@ def small_mha_dropout_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            n_head: int, bias: Optional[torch.Tensor] = None,
                            seed: int = 0, rate: float = 0.0,
                            scale: Optional[float] = None,
-                           use_kernels: bool = True) -> torch.Tensor:
+                           use_kernels: bool = True,
+                           rows: Optional[BatchRows] = None) -> torch.Tensor:
     """Differentiable training attention (JAX ``small_mha_dropout_grad_flat``):
     K3 forward and K4 backward through their wrappers (plain versions on CPU
     tensors), or with ``use_kernels=False`` the plain versions on any
-    device.  At rate 0 nothing is drawn and the forward is K1's math."""
+    device.  At rate 0 nothing is drawn and the forward is K1's math.
+    ``rows`` maps the batch rows of the masks (``BatchRows``)."""
     fwd = small_mha_dropout_fwd_flat if use_kernels else small_mha_dropout_flat_plain
     bwd = (small_mha_dropout_bwd_flat if use_kernels
            else small_mha_dropout_bwd_flat_plain)
     return _Attention.apply(
         q, k, v, bias,
-        lambda q, k, v, b: fwd(q, k, v, n_head, b, seed, rate, scale),
-        lambda q, k, v, b, g: bwd(q, k, v, n_head, b, seed, rate, scale, g))
+        lambda q, k, v, b: fwd(q, k, v, n_head, b, seed, rate, scale, rows=rows),
+        lambda q, k, v, b, g: bwd(q, k, v, n_head, b, seed, rate, scale, g,
+                                  rows=rows))
 
 
 # ---------------------------------------------------------------------------

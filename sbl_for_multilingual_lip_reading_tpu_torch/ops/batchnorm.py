@@ -228,14 +228,31 @@ def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return v.view(-1, *([1] * (x.dim() - 2)))
 
 
+def _all_reduce_pair(mesh, a: torch.Tensor, b: torch.Tensor):
+    """(a, b) summed over the processes of ``mesh``, in one collective."""
+    both = torch.cat([a, b])
+    mesh.all_reduce_(both)
+    return both[:a.shape[0]], both[a.shape[0]:]
+
+
 class _BNTrain(torch.autograd.Function):
     """Forward K7 (or its plain version), backward K8 (or its plain
-    version); saves x, scale, mean and inv, as the JAX custom VJP does."""
+    version); saves x, scale, mean and inv, as the JAX custom VJP does.
+
+    With a ``mesh`` (synchronised BatchNorm over data-parallel processes)
+    K7's sums are summed over the processes before the statistics are
+    taken, and K8's before dx: the statistics and dx are those of the whole
+    batch.  The scale and bias gradients stay this process's own sums;
+    the step's gradient all-reduce adds them up (returning the summed ones
+    there would count them once per process)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, eps, use_kernels):
+    def forward(ctx, x, scale, bias, eps, use_kernels, mesh=None):
         s, q = (channel_sums if use_kernels else channel_sums_plain)(x)
         n = x.numel() // x.shape[1]
+        if mesh is not None:
+            s, q = _all_reduce_pair(mesh, s, q)
+            n *= mesh.size
         mean = s / n
         var = q / n - mean * mean
         inv = torch.rsqrt(var + eps)
@@ -244,15 +261,19 @@ class _BNTrain(torch.autograd.Function):
         y = (x.to(torch.float32) * _per_channel(a, x)
              + _per_channel(b, x)).to(x.dtype)
         ctx.save_for_backward(x, scale, mean, inv)
-        ctx.use_kernels = use_kernels
+        ctx.use_kernels, ctx.mesh = use_kernels, mesh
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, dmean, dvar):
         x, scale, mean, inv = ctx.saved_tensors
         pair = channel_sums_pair if ctx.use_kernels else channel_sums_pair_plain
-        sum_dy, sum_dy_xhat = pair(dy.contiguous(), x, mean, inv)
+        own_dy, own_dy_xhat = pair(dy.contiguous(), x, mean, inv)
+        sum_dy, sum_dy_xhat = own_dy, own_dy_xhat
         n = x.numel() // x.shape[1]
+        if ctx.mesh is not None:
+            sum_dy, sum_dy_xhat = _all_reduce_pair(ctx.mesh, own_dy, own_dy_xhat)
+            n *= ctx.mesh.size
         # dx = g1 (dy - sum_dy/n - xhat sum_dy_xhat/n) + dmean/n
         #      + 2 dvar (x - mean)/n, with g1 = inv * scale, as affine in x
         g1 = inv * scale
@@ -261,14 +282,15 @@ class _BNTrain(torch.autograd.Function):
         dx = (_per_channel(g1, x) * dy.to(torch.float32)
               + _per_channel(A, x) * x.to(torch.float32)
               + _per_channel(B - A * mean, x)).to(x.dtype)
-        return dx, sum_dy_xhat, sum_dy, None, None
+        return dx, own_dy_xhat, own_dy, None, None, None
 
 
 def bn_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-             eps: float, use_kernels: bool = True):
+             eps: float, use_kernels: bool = True, mesh=None):
     """Train-mode BatchNorm over all but axis 1 of ``x`` (N, C, ...).
     Returns (y in x's dtype, f32 mean, f32 biased variance).  The forward
     takes K7 and the backward K8 through their wrappers (plain versions on
     CPU tensors), or with ``use_kernels=False`` the plain versions on any
-    device."""
-    return _BNTrain.apply(x, scale, bias, eps, use_kernels)
+    device.  ``mesh`` (a ``parallel.DataMesh``) takes the statistics over
+    the batch of every process (every process holds as many rows)."""
+    return _BNTrain.apply(x, scale, bias, eps, use_kernels, mesh)

@@ -42,6 +42,33 @@ def cal_performance(pred: torch.Tensor, gold: torch.Tensor,
     return loss, correct.sum()
 
 
+def token_count(gold: torch.Tensor) -> torch.Tensor:
+    """The tokens ``label_smoothed_ce`` averages over: gold's non-pad
+    entries."""
+    return (gold != IGNORE_ID).sum()
+
+
+def masked_ce(logits: torch.Tensor, labels: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean CE of (B, C) logits over the samples whose label is >= 0, the
+    count of those samples)."""
+    valid = labels >= 0
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, torch.where(valid, labels, 0).long()[:, None])[:, 0]
+    n = valid.sum()
+    return torch.where(valid, nll, 0.0).sum() / n.clamp(min=1), n
+
+
+def classify_terms(word_logits: torch.Tensor, word_labels: torch.Tensor,
+                   lang_logits: torch.Tensor, lang_labels: torch.Tensor):
+    """``classify_loss``'s parts: ((word CE, valid words), (language CE,
+    valid languages), word_correct, lang_correct)."""
+    w_ok = ((word_logits.argmax(dim=-1) == word_labels) & (word_labels >= 0)).sum()
+    l_ok = ((lang_logits.argmax(dim=-1) == lang_labels) & (lang_labels >= 0)).sum()
+    return (masked_ce(word_logits, word_labels), masked_ce(lang_logits, lang_labels),
+            w_ok, l_ok)
+
+
 def classify_loss(word_logits: torch.Tensor, word_labels: torch.Tensor,
                   lang_logits: torch.Tensor, lang_labels: torch.Tensor,
                   language_weight: float = 0.1
@@ -50,14 +77,6 @@ def classify_loss(word_logits: torch.Tensor, word_labels: torch.Tensor,
     valid samples (the reference's classify train.py:127-130).  Returns
     (loss, word_correct, lang_correct).  Samples with a label below 0 (the
     unknown-word sentinel) are left out of loss and accuracy, as in JAX."""
-    def ce(logits, labels):
-        valid = labels >= 0
-        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-        nll = -torch.gather(logp, -1, torch.where(valid, labels, 0).long()[:, None])[:, 0]
-        return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
-
-    loss = ce(word_logits, word_labels) + language_weight * ce(lang_logits,
-                                                               lang_labels)
-    w_ok = ((word_logits.argmax(dim=-1) == word_labels) & (word_labels >= 0)).sum()
-    l_ok = ((lang_logits.argmax(dim=-1) == lang_labels) & (lang_labels >= 0)).sum()
-    return loss, w_ok, l_ok
+    (word_ce, _), (lang_ce, _), w_ok, l_ok = classify_terms(
+        word_logits, word_labels, lang_logits, lang_labels)
+    return word_ce + language_weight * lang_ce, w_ok, l_ok

@@ -7,7 +7,7 @@ import dataclasses
 
 import torch
 
-from .schedule import noam_lr
+from .schedule import clip_by_global_norm_, noam_lr
 
 
 @dataclasses.dataclass
@@ -18,9 +18,12 @@ class TrainState:
     step: int = 0
 
     def apply_gradients(self) -> float:
-        """One optimizer update with the Noam lr of this step; returns the
-        lr used."""
+        """One optimizer update with the Noam lr of this step, after the
+        gradients are clipped by their global norm where ``grad_clip`` is
+        set; returns the lr used."""
         c = self.optim_cfg
+        if c.grad_clip is not None:
+            clip_by_global_norm_(self.model.parameters(), c.grad_clip)
         lr = noam_lr(self.step, c.k, c.warmup_steps, c.lr_base_dim)
         for group in self.optimizer.param_groups:
             group["lr"] = lr

@@ -22,6 +22,13 @@ as they do under optax (``torch.optim.Adam`` would skip a None gradient).
 The step's random numbers come from the ``torch.Generator`` the caller
 passes (a CPU one: drawing from it never waits for the device): one seed per
 step builds the forward's ``DropoutRNG``.
+
+With a ``mesh`` (``parallel.DataMesh``) the step is one data-parallel
+process's share of the step on the processes' batches put one after another
+(``parallel/mesh.py``): its loss terms are weighted by their share of the
+global count, the gradients averaged over the processes before the frozen
+subtrees are zeroed and the gradients clipped, and the metrics it returns
+are the global ones.
 """
 from __future__ import annotations
 
@@ -37,7 +44,7 @@ from ..models.frontend import pallas_bn_on
 from ..models.layers import DropoutRNG, cast_dense_weights
 from ..ops.ingest import MAX_OFFSET, ingest_train, ingest_train_plain
 from ..recognize import recognize_batch
-from .loss import cal_performance, classify_loss
+from .loss import cal_performance, classify_terms, token_count
 from .state import TrainState
 
 PLAN_KEYS = ("offsets", "flip", "frame_map")
@@ -97,7 +104,8 @@ def expected_launches(cfg) -> Dict[str, int]:
     no K1, K5 or layout twin; K6 once under ``PALLAS_INGEST``; K7 once per
     frontend BatchNorm in the forward and K8 once per BatchNorm in the
     backward under ``PALLAS_BN`` (as the environment stands when this is
-    called)."""
+    called); with ``remat_frontend`` K7 once more for each BatchNorm of the
+    ResNet blocks (every one but the stem's), in the recompute."""
     enc = cfg.dims.n_enc_layers
     d = cfg.decoder
     if d is None:
@@ -108,12 +116,13 @@ def expected_launches(cfg) -> Dict[str, int]:
     else:
         dec_fwd = dec_bwd = 2 * cfg.dims.n_dec_layers
     bns = frontend_bn_count(cfg.frontend) if pallas_bn_on(False) else 0
+    recomputed = bns - 1 if bns and getattr(cfg, "remat_frontend", False) else 0
     return dict(dict.fromkeys(ops.launch_counts(), 0), stack_frames=1,
                 small_mha_dropout_fwd_flat=enc + dec_fwd,
                 small_mha_dropout_bwd_flat=enc + dec_bwd,
                 ingest_train=int(kernel_ingest_on(cfg.data.raw_size,
                                                   cfg.data.crop_size)),
-                channel_sums=bns, channel_sums_pair=bns)
+                channel_sums=bns + recomputed, channel_sums_pair=bns)
 
 
 def _mark(marks: Optional[List], name: str) -> None:
@@ -123,32 +132,71 @@ def _mark(marks: Optional[List], name: str) -> None:
         marks.append((name, event))
 
 
+def _global_loss(mesh, terms, metrics):
+    """(the objective whose gradient, averaged over the processes, is the
+    global loss's; the global loss; the global metrics).  terms: (name or
+    None, weight, local mean, local count) per term of the loss; metrics:
+    the named terms' means and counts to sum.  One collective."""
+    k = len(terms)
+    counted = [key for key in metrics if key not in {t[0] for t in terms}]
+    local = torch.stack([m.detach().float() * n for _, _, m, n in terms]
+                        + [n.float() for *_, n in terms]
+                        + [metrics[key].float() for key in counted])
+    mesh.all_reduce_(local)
+    sums, counts = local[:k], local[k:2 * k].clamp(min=1)
+    objective = sum(w * m * (mesh.size * n / counts[i])
+                    for i, (_, w, m, n) in enumerate(terms))
+    loss = sum(w * sums[i] / counts[i] for i, (_, w, _, _) in enumerate(terms))
+    out = {name: sums[i] / counts[i] for i, (name, *_) in enumerate(terms)
+           if name is not None}
+    out.update({key: local[2 * k + j].to(metrics[key].dtype)
+                for j, key in enumerate(counted)})
+    return objective, loss, out
+
+
 def _make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                     cfg, forward_loss: Callable) -> Callable:
+                     cfg, forward_loss: Callable, mesh=None) -> Callable:
     """The step shared by the workloads around ``forward_loss(video, batch,
-    rng, **kw) -> (loss, metrics)``, the workload's forward and loss."""
+    rng, **kw) -> (loss, metrics, terms)``, the workload's forward and loss
+    (terms: ``_global_loss``'s).  ``mesh`` makes it a data-parallel
+    process's step and sets the BatchNorms' synchronisation from
+    ``cfg.mesh.sync_batchnorm``."""
+    from ..parallel import running_stats, set_sync_batchnorm
     freeze = tuple(cfg.freeze_prefixes)
     crop = cfg.data.crop_size
     dtype = getattr(torch, cfg.compute_dtype)
     kernels = cfg.use_pallas_attention
     device = next(model.parameters()).device
     state = TrainState(model, optimizer, cfg.optim)
+    sync_bn = mesh is not None and cfg.mesh.sync_batchnorm
+    set_sync_batchnorm(model, mesh if sync_bn else None)
 
     def step(batch, generator: torch.Generator, marks: Optional[List] = None,
              **kw) -> Dict[str, torch.Tensor]:
         model.train()
+        step.updating = False
         _mark(marks, "start")
         video = ingest_train_batch(batch, crop, dtype, kernels)
         _mark(marks, "ingest")
         rng = DropoutRNG(int(torch.randint(0, 2 ** 62, (1,), generator=generator)),
-                         device)
-        loss, metrics = forward_loss(video, batch, rng, **kw)
+                         device, None if mesh is None else mesh.rows(video.shape[0]))
+        loss, metrics, terms = forward_loss(video, batch, rng, **kw)
+        objective = loss
+        if mesh is not None:
+            objective, loss, metrics = _global_loss(mesh, terms, metrics)
         _mark(marks, "forward")
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        objective.backward()
+        if mesh is not None:
+            mesh.all_reduce_grads_(model.parameters())
         freeze_grads(model, freeze)
         _mark(marks, "backward")
+        step.updating = True   # for the memory guard: parameters now move
         state.apply_gradients()
+        step.updating = False
+        if mesh is not None and not sync_bn:
+            # per-process statistics: process 0's running ones are kept
+            mesh.broadcast_(running_stats(model))
         _mark(marks, "optimizer")
         return {"loss": loss.detach(), **metrics}
 
@@ -157,7 +205,7 @@ def _make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
 
 def make_sbl_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                        cfg) -> Callable:
+                        cfg, mesh=None) -> Callable:
     """``step(batch, generator, marks=None, use_gold=None) -> metrics``.
 
     batch: tensors on the model's device -- clip_u8 (B, T, H, W) uint8,
@@ -167,7 +215,8 @@ def make_sbl_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer
     marks: a list to receive (stage, CUDA event) pairs at the ingest,
     forward, backward and optimizer boundaries.  Returns f32 scalar tensors
     (loss, loss_l2r, loss_r2l) and counts (n_correct_l2r, n_correct_r2l),
-    left on the device.  ``step.state`` is the TrainState."""
+    left on the device.  ``step.state`` is the TrainState.  ``mesh``: a
+    data-parallel process's step (``_make_train_step``)."""
     smoothing = cfg.optim.label_smoothing
 
     def forward_loss(video, batch, rng, use_gold: Optional[Sequence[bool]] = None):
@@ -177,13 +226,15 @@ def make_sbl_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer
         loss_r2l, nc_r2l = cal_performance(p_r2l, g_r2l, smoothing)
         return 0.5 * (loss_l2r + loss_r2l), {
             "loss_l2r": loss_l2r.detach(), "loss_r2l": loss_r2l.detach(),
-            "n_correct_l2r": nc_l2r, "n_correct_r2l": nc_r2l}
+            "n_correct_l2r": nc_l2r, "n_correct_r2l": nc_r2l}, [
+            ("loss_l2r", 0.5, loss_l2r, token_count(g_l2r)),
+            ("loss_r2l", 0.5, loss_r2l, token_count(g_r2l))]
 
-    return _make_train_step(model, optimizer, cfg, forward_loss)
+    return _make_train_step(model, optimizer, cfg, forward_loss, mesh)
 
 
 def make_uni_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                        cfg) -> Callable:
+                        cfg, mesh=None) -> Callable:
     """``step(batch, generator, marks=None) -> metrics`` for a
     ``UniTransformer`` (JAX ``make_uni_train_body``): the batch of
     ``make_sbl_train_step`` without ``labels_reverse``; the teacher-forced
@@ -194,13 +245,15 @@ def make_uni_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer
     def forward_loss(video, batch, rng):
         pred, gold = model(video, batch["labels"], rng)
         loss, n_correct = cal_performance(pred, gold, smoothing)
-        return loss, {"n_correct": n_correct}
+        return loss, {"n_correct": n_correct}, [
+            (None, 1.0, loss, token_count(gold))]
 
-    return _make_train_step(model, optimizer, cfg, forward_loss)
+    return _make_train_step(model, optimizer, cfg, forward_loss, mesh)
 
 
 def make_classify_train_step(model: torch.nn.Module,
-                             optimizer: torch.optim.Optimizer, cfg) -> Callable:
+                             optimizer: torch.optim.Optimizer, cfg,
+                             mesh=None) -> Callable:
     """``step(batch, generator, marks=None) -> metrics`` for a
     ``ClassifyTransformer`` (JAX ``make_classify_train_body``): the batch
     carries word_id and lang_id (B,) instead of labels; the loss is the word
@@ -211,20 +264,22 @@ def make_classify_train_step(model: torch.nn.Module,
 
     def forward_loss(video, batch, rng):
         word_logits, lang_logits = model(video, rng)
-        loss, w_ok, l_ok = classify_loss(word_logits, batch["word_id"],
-                                         lang_logits, batch["lang_id"],
-                                         language_weight=lw)
-        return loss, {"word_correct": w_ok, "lang_correct": l_ok}
+        # classify_loss's terms, kept apart for the data-parallel weights
+        (word_ce, n_word), (lang_ce, n_lang), w_ok, l_ok = classify_terms(
+            word_logits, batch["word_id"], lang_logits, batch["lang_id"])
+        return word_ce + lw * lang_ce, {
+            "word_correct": w_ok, "lang_correct": l_ok}, [
+            (None, 1.0, word_ce, n_word), (None, lw, lang_ce, n_lang)]
 
-    return _make_train_step(model, optimizer, cfg, forward_loss)
+    return _make_train_step(model, optimizer, cfg, forward_loss, mesh)
 
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                    cfg) -> Callable:
+                    cfg, mesh=None) -> Callable:
     """The train step of ``cfg``'s workload (JAX ``Trainer``'s choice)."""
     make = {"classify": make_classify_train_step, "sbl": make_sbl_train_step,
             "uni": make_uni_train_step}[model_kind(cfg)]
-    return make(model, optimizer, cfg)
+    return make(model, optimizer, cfg, mesh)
 
 
 def make_uni_eval_step(model: torch.nn.Module, cfg) -> Callable:

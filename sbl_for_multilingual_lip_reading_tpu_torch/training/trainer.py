@@ -22,6 +22,17 @@ plans), both from ``cfg.seed``, as the JAX trainer holds its PRNG key and
 thread (``background_iter``) -> ``prefetch_to_device``; or, with
 ``cache_on_device``, from the uint8 dataset uploaded to the card once and
 gathered there by index, in the same order with the same plans.
+
+Data parallelism (``mesh``, or ``cfg.mesh.data`` > 1 under torchrun): one
+``Trainer`` a process, each on its card, with the same seeds.  A process
+takes its stripe ``idx[rank::W]`` of every global batch (from the
+``Batcher``, or gathered from the device cache); the plans are drawn for
+the global batch, its stripes put one after another, and cut to the
+process's rows, so every process crops as the one-process run on that
+batch would.  Only process 0 logs, evaluates and writes checkpoints; the
+others take its results.  ``tensorboard_dir`` logs JAX's tags;
+``profile_dir`` traces steps 1-3 of the first epoch.  The first train step
+runs under the memory guard (``memguard.GuardedTrainStep``).
 """
 from __future__ import annotations
 
@@ -43,12 +54,13 @@ from ..recognize import recognize_batch
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger
 from ..utils.metrics import AverageMeter, per_compute, wer_compute
-from ..utils.profiler import StepTimer
+from ..utils.profiler import StepTimer, Trace
 from ..vocab import EOS_ID, IGNORE_ID, SOS_ID, TOTAL_PHONEMES
 from . import checkpoint as ckpt
+from .memguard import GuardedTrainStep
 from .schedule import make_optimizer
 from .state import TrainState
-from .steps import make_eval_step, make_train_step
+from .steps import PLAN_KEYS, make_eval_step, make_train_step
 
 
 def attach_plans(batch: Dict, rng: np.random.Generator, cfg) -> Dict:
@@ -100,23 +112,51 @@ class _Scores:
                 per_compute(self.pred_ph, self.gold_ph))
 
 
+def _stripes(idx, world: int) -> List[np.ndarray]:
+    """The processes' stripes of a global index batch (``Batcher``'s)."""
+    idx = np.asarray(idx)
+    return [idx[p::world] for p in range(world)]
+
+
 class Trainer:
     """Config-driven trainer on one device: the card unless ``device`` (or
-    a given ``model``'s device) says otherwise.  It trains and evaluates
-    every workload: ``sbl`` / ``sbl_stage2``, ``lrw`` / ``lrw1000``
-    (``validate_seq2seq``) and ``classify`` (``validate_classify``)."""
+    a given ``model``'s device, or the ``mesh``'s) says otherwise.  It
+    trains and evaluates every workload: ``sbl`` / ``sbl_stage2``, ``lrw`` /
+    ``lrw1000`` (``validate_seq2seq``) and ``classify``
+    (``validate_classify``).  ``mesh`` (a ``parallel.DataMesh``) makes it
+    one process of a data-parallel run; without one, ``cfg.mesh.data`` > 1
+    joins the process group torchrun describes in the environment."""
 
     def __init__(self, cfg, train_dataset, valid_datasets: Optional[Dict] = None,
                  checkpoint_dir: Optional[str] = None, device=None,
                  cache_on_device: bool = False,
-                 model: Optional[torch.nn.Module] = None):
+                 model: Optional[torch.nn.Module] = None, mesh=None,
+                 tensorboard_dir: Optional[str] = None,
+                 profile_dir: Optional[str] = None):
         self.cfg = cfg
-        if device is None and model is not None:
+        mesh_cfg = getattr(cfg, "mesh", None)
+        if mesh is None and mesh_cfg is not None and (mesh_cfg.data > 1
+                                                      or mesh_cfg.model > 1):
+            from ..parallel import make_mesh
+            mesh = make_mesh(mesh_cfg.data, mesh_cfg.model, device)
+        self.mesh = mesh
+        self.is_lead = mesh is None or mesh.rank == 0
+        if mesh is not None:
+            device = mesh.device
+        elif device is None and model is not None:
             device = next(model.parameters()).device
         self.device = resolve_device(device)
         self.logger = get_logger()
         self.timer = StepTimer(batch_size=cfg.batch_size)
         self.model = model if model is not None else build_model(cfg, self.device)
+        if mesh is not None:
+            # every process starts from process 0's weights and statistics
+            mesh.broadcast_(list(self.model.state_dict().values()))
+        self.writer = None
+        if tensorboard_dir and self.is_lead:
+            from ..utils.tensorboard import SummaryWriter
+            self.writer = SummaryWriter(tensorboard_dir)
+        self.profile_dir = profile_dir
         self.generator = torch.Generator().manual_seed(cfg.seed)
         self.np_rng = np.random.default_rng(cfg.seed)
         self.reset_optimizer()
@@ -135,9 +175,21 @@ class Trainer:
         """A fresh Adam and train step at update 0 (after a transfer load,
         as the reference rebuilds its optimizer, train.py:106-109)."""
         self.optimizer = make_optimizer(self.model, self.cfg.optim)
-        self.train_step = make_train_step(self.model, self.optimizer, self.cfg)
-        self.state: TrainState = self.train_step.state
+        step = make_train_step(self.model, self.optimizer, self.cfg, self.mesh)
+        self.train_step = GuardedTrainStep(
+            step, rebuild=(None if self.cfg.remat_frontend
+                           else lambda: self._remat_rebuild(step)),
+            logger=self.logger)
+        self.state: TrainState = step.state
         self.eval_step = make_eval_step(self.model, self.cfg)
+
+    def _remat_rebuild(self, step):
+        """The memory guard's cheaper step (JAX ``_rebuild_with_remat``): the
+        same step, parameters and optimizer, with the frontend's blocks
+        recomputed in the backward."""
+        self.cfg = dataclasses.replace(self.cfg, remat_frontend=True)
+        self.model.frontend.resnet.remat = True
+        return step
 
     # ---------------------------------------------------------- checkpoints
     def rng_state(self) -> Dict:
@@ -145,13 +197,18 @@ class Trainer:
                 "torch": self.generator.get_state()}
 
     def save(self, path: str, epoch: int = 0, is_best: bool = False) -> None:
-        ckpt.save_checkpoint(path, self.state, epoch=epoch,
-                             best_metric=self.best_metric, is_best=is_best,
-                             rng_state=self.rng_state())
+        """Write the checkpoint (process 0 only; the others wait for it)."""
+        if self.is_lead:
+            ckpt.save_checkpoint(path, self.state, epoch=epoch,
+                                 best_metric=self.best_metric,
+                                 is_best=is_best, rng_state=self.rng_state())
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def restore(self, path: str) -> int:
         """Resume from a checkpoint: model, optimizer, update count, best
-        metric and the random number states.  Returns its epoch."""
+        metric and the random number states (every process reads the same
+        file).  Returns its epoch."""
         _, epoch, self.best_metric, rng = ckpt.restore_checkpoint(path,
                                                                   self.state)
         if rng:
@@ -190,22 +247,63 @@ class Trainer:
         self.logger.info(f"device cache: {len(ds)} clips "
                          f"({clips.nbytes / 1e9:.2f} GB) resident")
 
+    def _world(self) -> Tuple[int, int]:
+        """(processes, this one's rank): (1, 0) without a mesh."""
+        return (1, 0) if self.mesh is None else (self.mesh.size, self.mesh.rank)
+
     def _device_batches(self, epoch: int) -> Iterator[Dict]:
         """Batches gathered on the card from the resident dataset, in the
-        ``Batcher``'s shuffled order with the same plan draws."""
+        ``Batcher``'s shuffled order with the same plan draws (with a mesh,
+        the process's stripe of each, with its rows of the global plans)."""
         self._ensure_device_cache()
         B = self.cfg.batch_size
+        W, r = self._world()
         order = np.random.default_rng(self.cfg.seed + epoch).permutation(
             len(self.train_dataset))
-        stub = np.broadcast_to(np.uint8(0), (B,) + tuple(self._dev_clips.shape[1:]))
         for s in range(0, len(order) // B * B, B):
             idx = order[s:s + B]
-            batch = {k: v[idx] for k, v in self._host_small.items()}
-            batch = attach_plans({**batch, "clip_u8": stub}, self.np_rng,
-                                 self.cfg)
+            local = _stripes(idx, W)[r]
+            batch = self._with_plans(
+                {k: v[local] for k, v in self._host_small.items()}, idx,
+                self._host_small.get("lang_id"))
             batch["clip_u8"] = self._dev_clips.index_select(
-                0, torch.from_numpy(idx).to(self.device))
+                0, torch.from_numpy(local).to(self.device))
             yield batch
+
+    def _host_batches(self, batcher: Batcher) -> Iterator[Dict]:
+        """The ``Batcher``'s batches (a process's stripes of them) with
+        their plans."""
+        ds = self.train_dataset
+        # every sample's lang_id without loading it, where the dataset can
+        lang_ids = getattr(ds, "lang_ids", None)
+        lang_ids = None if lang_ids is None or self.mesh is None else lang_ids()
+        for idx in batcher.index_batches():
+            local = batcher._collate([ds[int(i)] for i in batcher._local(idx)])
+            yield self._with_plans(local, idx, lang_ids)
+
+    def _with_plans(self, local: Dict, idx, lang_ids) -> Dict:
+        """``local``, this process's stripe of the global index batch
+        ``idx``, with its rows of the plans drawn for the whole batch, the
+        stripes one after another (one process: the batch's plans, as
+        ``attach_plans`` draws them).  lang_ids: every sample's lang_id by
+        dataset index, or None to take it from ``local`` (one process) or
+        from the dataset."""
+        W, r = self._world()
+        concat = np.concatenate(_stripes(idx, W))
+        if lang_ids is not None:
+            small = {"lang_id": np.asarray(lang_ids)[concat]}
+        elif W == 1:
+            small = {k: local[k] for k in ("lang_id",) if k in local}
+        else:
+            small = {"lang_id": np.array(
+                [self.train_dataset[int(i)].get("lang_id", 0) for i in concat],
+                np.int32)}
+        frame = (local["clip_u8"].shape[1:] if self._dev_clips is None
+                 else self._dev_clips.shape[1:])
+        stub = np.broadcast_to(np.uint8(0), (len(concat),) + tuple(frame))
+        plans = attach_plans({**small, "clip_u8": stub}, self.np_rng, self.cfg)
+        n = len(concat) // W
+        return dict(local, **{k: plans[k][r * n:(r + 1) * n] for k in PLAN_KEYS})
 
     def train_epoch(self, epoch: int = 0, max_steps: Optional[int] = None,
                     history: Optional[List[Dict[str, float]]] = None) -> float:
@@ -223,11 +321,13 @@ class Trainer:
             n_batches = len(self.train_dataset) // self.cfg.batch_size
             it = self._device_batches(epoch)
         else:
+            W, r = self._world()
             batcher = Batcher(self.train_dataset, self.cfg.batch_size,
                               shuffle=True, seed=self.cfg.seed + epoch,
-                              sampler=self._make_sampler(epoch))
+                              sampler=self._make_sampler(epoch),
+                              process_index=r, process_count=W)
             n_batches = len(batcher)
-            it = (attach_plans(b, self.np_rng, self.cfg) for b in batcher)
+            it = self._host_batches(batcher)
         if max_steps is not None:
             # bound the source: the producer and the prefetch pull ahead,
             # and every pull draws plans from the shared np_rng
@@ -246,22 +346,43 @@ class Trainer:
             losses.update(loss)
             if history is not None:
                 history.append({k: float(v) for k, v in metrics.items()})
-            if i % 50 == 0:
+            if self.writer is not None:
+                self.writer.add_scalar("train/loss", loss, step_no)
+            if i % 50 == 0 and self.is_lead:
                 self.logger.info(
                     f"Epoch: [{epoch}][{i}/{n_batches}]\tLoss {losses.val:.5f} "
                     f"({losses.avg:.5f})\t{self.timer.clips_per_sec:.1f} clips/s")
 
-        pending = None
+        pending, trace = None, None
         base_step = self.state.step
-        for i, batch in enumerate(prefetch_to_device(it, self.device)):
-            with self.timer.step():
-                metrics = self.train_step(batch, self.generator)
-                if pending is not None:
-                    consume(pending)
-                pending = (i, base_step + i + 1, metrics)
-        if pending is not None:
-            consume(pending)
+        try:
+            for i, batch in enumerate(prefetch_to_device(it, self.device)):
+                if self.profile_dir is not None and epoch == 0 and i == 1:
+                    # step 0 builds kernels and picks cuDNN algorithms
+                    trace = Trace(self.profile_dir, self.device,
+                                  "trace.json" if self.mesh is None else
+                                  f"trace_rank{self.mesh.rank}.json")
+                with self.timer.step():
+                    metrics = self.train_step(batch, self.generator)
+                    if pending is not None:
+                        consume(pending)
+                    pending = (i, base_step + i + 1, metrics)
+                if trace is not None and i >= 3:
+                    self._stop_trace(trace)
+                    trace = None
+            if pending is not None:
+                consume(pending)
+        finally:
+            if trace is not None:
+                self._stop_trace(trace)
         return losses.avg
+
+    def _stop_trace(self, trace: Trace) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        path = trace.stop()
+        if self.is_lead:
+            self.logger.info(f"profiler trace written to {path}")
 
     # ----------------------------------------------------------------- eval
     def validate_seq2seq(self, dataset, max_batches: Optional[int] = None,
@@ -367,21 +488,37 @@ class Trainer:
         for epoch in range(start_epoch, epochs):
             t0 = time.time()
             loss = self.train_epoch(epoch, max_steps=max_steps_per_epoch)
-            self.logger.info(f"epoch {epoch} train_loss {loss:.4f} "
-                             f"({time.time() - t0:.1f}s)")
+            if self.is_lead:
+                self.logger.info(f"epoch {epoch} train_loss {loss:.4f} "
+                                 f"({time.time() - t0:.1f}s)")
             metric = loss
             if self.valid_datasets:
-                metric = 0.0
-                for name, ds in self.valid_datasets.items():
-                    last[name] = self.validate(ds, max_eval_batches)
-                    metric += self.score(last[name])
-                    self.logger.info(f"{name}: {last[name]}")
+                metric, results = self._validate_all(max_eval_batches)
+                last.update(results)
             is_best = metric < self.best_metric
             self.best_metric = min(metric, self.best_metric)
             if self.checkpoint_dir:
                 self.save(self.checkpoint_dir, epoch=epoch, is_best=is_best)
         last["train_loss"] = loss
         return last
+
+    def _validate_all(self, max_eval_batches: Optional[int]):
+        """(best-model metric, {name: metrics}) over the eval sets, from
+        process 0 (the model is the same in every process); logged there,
+        and written as JAX's ``{name}/{metric}`` scalars for the seq2seq
+        workloads."""
+        metric, results = 0.0, {}
+        if self.is_lead:
+            for name, ds in self.valid_datasets.items():
+                results[name] = self.validate(ds, max_eval_batches)
+                metric += self.score(results[name])
+                self.logger.info(f"{name}: {results[name]}")
+                if self.writer is not None and model_kind(self.cfg) != "classify":
+                    for k, v in results[name].items():
+                        self.writer.add_scalar(f"{name}/{k}", v, self.state.step)
+        if self.mesh is not None:
+            metric, results = self.mesh.broadcast_object((metric, results))
+        return metric, results
 
 
 class TrainResult(NamedTuple):

@@ -1,10 +1,44 @@
-"""Step-time tracker of the training loop (``StepTimer`` of the JAX
-package's ``utils/profiler.py``; its ``trace`` wraps ``jax.profiler`` and
-waits for the port's ``--profile-dir``, ROADMAP.md queue A item 13)."""
+"""Tracing and step timing of the training loop (counterpart of the JAX
+package's ``utils/profiler.py``).
+
+``Trace`` is ``--profile-dir``'s trace: ``torch.profiler`` over CPU and, on
+a card, CUDA activity (the kernels by symbol, with device times), written
+as a Chrome trace (``trace.json``, one ``trace_rank<r>.json`` a process in
+a data-parallel run) for chrome://tracing or ui.perfetto.dev; the trainer
+takes it over steps 1-3 of the first epoch, as JAX's ``jax.profiler`` trace
+(JAX ``training/trainer.py:492-506``).  ``StepTimer`` is the rolling
+step-time tracker."""
 from __future__ import annotations
 
 import contextlib
+import os
 import time
+from typing import Optional
+
+import torch
+
+
+class Trace:
+    """A ``torch.profiler`` trace written to ``<logdir>/<name>`` when it
+    stops."""
+
+    def __init__(self, logdir: str, device, name: str = "trace.json"):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.device(device).type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.path = os.path.join(logdir, name)
+        os.makedirs(logdir, exist_ok=True)
+        self._prof: Optional[torch.profiler.profile] = torch.profiler.profile(
+            activities=activities)
+        self._prof.start()
+
+    def stop(self) -> str:
+        """Stop (once) and write the trace; returns its path."""
+        if self._prof is not None:
+            self._prof.stop()
+            self._prof.export_chrome_trace(self.path)
+            self._prof = None
+        return self.path
 
 
 class StepTimer:

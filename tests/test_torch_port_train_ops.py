@@ -363,10 +363,28 @@ def test_adam_updates_match_optax():
 
 
 def test_grad_clip_is_not_ported():
+    # grad_clip is ported: the optimizer builds, and the clip is optax's
+    # clip_by_global_norm on the same gradients, both when it acts and when
+    # the norm is below the limit
     import dataclasses
     c = dataclasses.replace(port_config.sbl().optim, grad_clip=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        schedule.make_optimizer(torch.nn.Linear(2, 2), c)
+    layer = torch.nn.Linear(3, 2)
+    assert isinstance(schedule.make_optimizer(layer, c), torch.optim.Adam)
+    rng = np.random.default_rng(0)
+    for scale, max_norm in ((1.0, 0.5), (0.01, 0.5)):
+        grads = {"w": rng.standard_normal((2, 3)).astype(np.float32) * scale,
+                 "b": rng.standard_normal(2).astype(np.float32) * scale}
+        want, _ = optax.clip_by_global_norm(max_norm).update(
+            {k: jnp.asarray(v) for k, v in grads.items()}, None)
+        layer.weight.grad = torch.from_numpy(grads["w"].copy())
+        layer.bias.grad = torch.from_numpy(grads["b"].copy())
+        norm = schedule.clip_by_global_norm_(layer.parameters(), max_norm)
+        np.testing.assert_allclose(norm.item(), float(optax.global_norm(
+            {k: jnp.asarray(v) for k, v in grads.items()})), rtol=1e-6)
+        np.testing.assert_allclose(layer.weight.grad.numpy(), want["w"],
+                                   rtol=1e-6, atol=0)
+        np.testing.assert_allclose(layer.bias.grad.numpy(), want["b"],
+                                   rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("variant", ["sbl", "mixed", "random_drop"])

@@ -24,8 +24,9 @@ def _torch_batch(batch):
     return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
 
 
-def _step_grads(cfg, seed=0):
-    model = build_model(cfg, "cpu", seed=seed)
+def _step_grads(cfg, seed=0, model=None):
+    if model is None:
+        model = build_model(cfg, "cpu", seed=seed)
     step = make_sbl_train_step(model, make_optimizer(model, cfg.optim), cfg)
     rng = np.random.default_rng(4)
     T, raw = cfg.data.frames, cfg.data.raw_size

@@ -288,15 +288,17 @@ def test_train_steps_runs_on_the_trainer():
 
 
 def test_unported_paths_raise():
-    # every workload trains; grad_clip (which the reference never sets) is
-    # the optimizer option still to be ported, whatever the workload
+    # every workload trains, with grad_clip too (which the reference never
+    # sets); what the Trainer still refuses is tensor parallelism
     for name in ("sbl", "lrw", "classify"):
         cfg = JC.tiny_test(name)
         Trainer(cfg, [], device="cpu")
         clipped = dataclasses.replace(cfg, optim=dataclasses.replace(
             cfg.optim, grad_clip=1.0))
-        with pytest.raises(NotImplementedError, match="item 8"):
-            Trainer(clipped, [], device="cpu")
+        assert Trainer(clipped, [], device="cpu").state.optim_cfg.grad_clip == 1.0
+        sharded = dataclasses.replace(cfg, mesh=JC.MeshConfig(model=2))
+        with pytest.raises(NotImplementedError, match="item 17"):
+            Trainer(sharded, [], device="cpu")
 
 
 def test_decode_protocol_matches_jax():

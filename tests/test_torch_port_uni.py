@@ -430,7 +430,7 @@ def _variables(tr):
 def test_trainer_evaluates_and_refuses_to_train(jax_trainers):
     """The Trainer evaluates as JAX's does; it trains a unidirectional
     workload (the train step's parity is in test_torch_port_uni_train.py)
-    and refuses only the unported grad_clip."""
+    and with grad_clip set; it refuses tensor parallelism."""
     cfg, _, ds, jtr = jax_trainers["lrw"]
     want = jtr.validate_seq2seq(ds)
     tr = Trainer(cfg, ds, {"lrw": ds}, device="cpu",
@@ -442,8 +442,11 @@ def test_trainer_evaluates_and_refuses_to_train(jax_trainers):
     assert np.isfinite(out["train_loss"]) and tr.state.step == 1
     clipped = dataclasses.replace(cfg, optim=dataclasses.replace(
         cfg.optim, grad_clip=1.0))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Trainer(clipped, ds, device="cpu")
+    tr = Trainer(clipped, ds, device="cpu", model=_port(cfg, _variables(jtr)))
+    assert np.isfinite(tr.fit(1, max_steps_per_epoch=1)["train_loss"])
+    with pytest.raises(NotImplementedError, match="item 17"):
+        Trainer(dataclasses.replace(cfg, mesh=port_config.MeshConfig(model=2)),
+                ds, device="cpu")
 
 
 @pytest.mark.parametrize("name,extra", [
@@ -484,10 +487,10 @@ def test_cli_test_matches_jax_validate(jax_trainers, monkeypatch, tmp_path,
 
 def test_cli_train_refuses_a_unidirectional_workload():
     # `train --workload lrw1000` runs (test_torch_port_uni_train.py); what
-    # it still refuses are the unported flags, as for every workload
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # it still refuses is tensor parallelism, as for every workload
+    with pytest.raises(NotImplementedError, match="item 17"):
         cli.run_train(["--cpu", "--workload", "lrw1000", "--synthetic",
-                       "--mesh-data", "2"])
+                       "--mesh-model", "2"])
 
 
 def test_synthetic_dataset_vocabs_match_jax():

@@ -250,8 +250,8 @@ def test_decoder_dropout_is_drawn_as_in_jax():
     kept, seeds = [], []
     keep, seed = DropoutRNG.keep, DropoutRNG.seed
 
-    def spy_keep(self, shape, rate):
-        mask = keep(self, shape, rate)
+    def spy_keep(self, shape, rate, *batch_dim):
+        mask = keep(self, shape, rate, *batch_dim)
         kept.append((rate, mask.float().mean().item(), mask.numel()))
         return mask
 
@@ -387,9 +387,9 @@ def test_uni_train_forward_goes_through_the_dropout_layers(monkeypatch):
     real = layers.dropout
     from sbl_for_multilingual_lip_reading_tpu_torch.models import decoder_uni
 
-    def spy(x, rate, rng):
+    def spy(x, rate, rng, *batch_dim):
         calls.append(rng is not None)
-        return real(x, rate, rng)
+        return real(x, rate, rng, *batch_dim)
     monkeypatch.setattr(decoder_uni, "dropout", spy)
     monkeypatch.setattr(layers, "dropout", spy)
     batch = _torch_batch(_batches(cfg, "lrw", 1)[0])
