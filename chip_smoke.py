@@ -37,7 +37,13 @@ line (phase 2 adds nvcc's per-kernel register report):
      of a data-parallel process (process 1 of 2, the decoder's two
      directions in one launch): K5 bit-exact against the plain Philox and
      against its rows of the one-process mask, K3/K4 on it within
-     TRAIN_TOL; K5's time queued back to back, and the launch floor split
+     TRAIN_TOL; with it the head map of model process 1 of 2 of a
+     tensor-parallel step (heads 4-7 of 8, h0 = 4): K5 bit-exact against the
+     plain Philox and equal to those heads of the one-process mask, K3/K4
+     within TRAIN_TOL of their plain versions and equal, bit for bit, to
+     those heads' columns of the one-process launch; K3/K4/K5's times at
+     h0 = 0 beside the tree's before the head offset (H0_BEFORE_MS, a
+     record); K5's time queued back to back, and the launch floor split
      (launch_floor);
      then K3/K4 at the other head
      widths they are built for (16, 32, 128) and at lengths past one tile
@@ -151,8 +157,24 @@ line (phase 2 adds nvcc's per-kernel register report):
      the tensorboard package is installed, its event file); E6
      convergence_check's
      default mode memorizes within MEMORIZE_STEPS;
+  E7-E8. tensor parallelism (the mesh's model axis) on gloo grids of
+     processes sharing the one card (``--tp-worker``; NCCL cannot put two
+     ranks on one card, so NCCL with model > 1 waits for a machine with
+     several): E7 the full-width ``sbl`` step at B=240 global (remat on,
+     PALLAS_INGEST=1 PALLAS_BN=1, dropout on with its masks drawn, gold fed
+     at every decode step) at model = 2 in f32 and bf16 and at data 2 x
+     model 2 in f32, against the one-process step on the whole batch: loss,
+     the gradients gathered over the model group (E4's comparison in f32,
+     TP_BF16_TOL in bf16), the gathered parameters after the update (within
+     2 lr) and the BN running statistics; K3/K4 launched on the local heads
+     in every process; ms/step a process printed as a check; E8 a Trainer on
+     a (1, 2) grid (``sbl`` f32 at the full width, K11 on, B=E8_BATCH): two
+     steps, a validation batch, a checkpoint written whole; the checkpoint
+     loads at model = 1, whose greedy tokens equal the grid's decode (a
+     difference only at a tie within TIE_TOL), and K11 ran on the gathered
+     layer, 96 launches a decode;
   11. a JSON line of the seventeen kernels (each with its launches on every
-     path, its error, its time, its plain version's, its bound on the card
+     path, E7's and E8's among them, its error, its time, its plain version's, its bound on the card
      and a library call's time where one PyTorch call computes the same
      function), then the result line {"ok": true, "device": {...}}.
 
@@ -232,6 +254,9 @@ RATE_BATCHES = 5
 TRAIN_TOL = {"float32": {"fwd": 1e-5, "grad": 1e-4},
              "bfloat16": {"rel": 2.0 ** -7, "floor": 2.0 ** -12}}
 DROPOUT_RATE = 0.1
+# K3/K4/K5 at the decoder's (480,17,512) / (480,8,17,17) in bf16 before their
+# Philox counter took a head offset (NVIDIA H100 80GB HBM3, 700 W; PERF.md)
+H0_BEFORE_MS = {"fwd": 0.0282, "bwd": 0.0508, "mask": 0.0092}
 KEEP_FRACTION = (0.895, 0.905)
 # K5 off the train step's shapes (B, H, Tq, Tk), checked bit-exact: one
 # element, n not a multiple of 16, one key, one head, one query row, and
@@ -969,6 +994,51 @@ def phase_train_kernels(torch, dev, timing=True):
     print(f"phase 3b batch-row map {tuple(rows_map)} at ({2 * half},{L},{L}): K5 "
           f"bit-exact, its rows of the one-process mask; K3/K4 max err "
           f"{max(map_errs):.3g}")
+    # the head map of model process 1 of 2 of a tensor-parallel step (heads
+    # 4-7 of 8, h0 = 4) with the batch-row map above: K5 bit-exact against
+    # the plain Philox and equal to those heads (and rows) of the
+    # one-process mask; K3/K4 within TRAIN_TOL of their plain versions given
+    # that mask, and equal to those heads' columns of the one-process
+    # launch's outputs (a block per (row, head) computes the same values
+    # whatever the launch's other heads)
+    h0, Hl = H // 2, H // 2
+    heads = slice(h0 * 64, (h0 + Hl) * 64)
+    local_mask = ops.dropout_keep_mask_flat(2 * half, L, L, Hl, seed, DROPOUT_RATE,
+                                            dev, rows_map, h0)
+    check(torch.equal(local_mask, ops.dropout_keep_mask_flat_plain(
+        2 * half, L, L, Hl, seed, DROPOUT_RATE, dev, rows_map, h0)),
+        "K5 with a head map differs from the plain Philox")
+    check(torch.equal(local_mask, mine[:, h0:h0 + Hl]),
+          "K5 with a head map is not its heads of the one-process mask")
+    head_errs = []
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, dout = (torch.randn((2 * half, L, H * 64), generator=g, device=dev,
+                                     dtype=dt) for _ in range(4))
+        args = (q, k, v, H, causal, seed, DROPOUT_RATE, None)
+        part = [t[..., heads].contiguous() for t in (q, k, v, dout)]
+        largs = (*part[:3], Hl, causal, seed, DROPOUT_RATE, None)
+        got = ops.small_mha_dropout_fwd_flat(*largs, rows=rows_map, h0=h0)
+        err, ok = _train_close(got, ops.small_mha_dropout_flat_plain(
+            *largs, keep=local_mask), "fwd")
+        check(ok, f"K3 with a head map {dt}: {err}")
+        head_errs.append(err)
+        check(torch.equal(got, ops.small_mha_dropout_fwd_flat(
+            *args, rows=rows_map)[..., heads]),
+            f"K3 with a head map {dt}: not its heads of the one-process launch")
+        whole_grads = ops.small_mha_dropout_bwd_flat(*args, dout, rows=rows_map)
+        for which, a, b, w in zip("qkv", ops.small_mha_dropout_bwd_flat(
+                *largs, part[3], rows=rows_map, h0=h0),
+                ops.small_mha_dropout_bwd_flat_plain(
+                    *largs, part[3], keep=local_mask), whole_grads):
+            err, ok = _train_close(a, b, "grad")
+            check(ok, f"K4 with a head map {dt} d{which}: {err}")
+            check(torch.equal(a, w[..., heads]), f"K4 with a head map {dt} "
+                  f"d{which}: not its heads of the one-process launch")
+            head_errs.append(err)
+    print(f"phase 3b head map h0 = {h0} ({Hl} of {H} heads) with the batch-row "
+          f"map at ({2 * half},{L},{Hl}x64): K5 bit-exact, its heads of the "
+          f"one-process mask; K3/K4 max err {max(head_errs):.3g}, each its heads "
+          f"of the one-process launch, bit for bit")
     floor = (launch_floor(torch, dev) if timing
              else dict(fill_ms=float("nan"), empty_ms=float("nan"),
                        queued_fill_ms=float("nan")))
@@ -987,6 +1057,12 @@ def phase_train_kernels(torch, dev, timing=True):
                   f"{r['mask_queued_ms']:.4f} ms "
                   f"({r['mask_bound'][0] / r['mask_queued_ms']:.0%} of its bound)")
     print(f"phase 3b K5 bit-exact at {', '.join(str(s) for s in MASK_SHAPES)}")
+    dec = next(r for r in rows if r["dtype"] == "bfloat16"
+               and r["case"] == "decoder self (480,17,512) causal")
+    print(f"phase 3b at h0 = 0, decoder self (480,17,512) causal bf16 (a record, "
+          f"beside the tree before the head offset: K3 {H0_BEFORE_MS['fwd']}, K4 "
+          f"{H0_BEFORE_MS['bwd']}, K5 {H0_BEFORE_MS['mask']} ms): K3 "
+          f"{dec['fwd_ms']:.4f}, K4 {dec['bwd_ms']:.4f}, K5 {dec['mask_ms']:.4f} ms")
 
     # the other head widths K3/K4 are built for (the tiny presets' d_k = 16;
     # cli --d_model / --n_head), at the train step's shapes, and lengths
@@ -2662,13 +2738,18 @@ def _path_e_setup(torch, np, dev, n):
     return cfg, train_batch(torch, np, dev, cfg, data, n, 6)
 
 
-def _new_step(torch, dev, cfg, mesh=None):
+def _new_step(torch, dev, cfg, mesh=None, shard=False):
+    """The train step of a model built from seed 0 (with ``shard``, cut to
+    this process's slice over ``mesh``'s model group)."""
     from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
+    from sbl_for_multilingual_lip_reading_tpu_torch.parallel import shard_model
     from sbl_for_multilingual_lip_reading_tpu_torch.training.schedule import (
         make_optimizer)
     from sbl_for_multilingual_lip_reading_tpu_torch.training.steps import (
         make_train_step)
     model = build_model(cfg, dev, seed=0)
+    if shard:
+        shard_model(model, mesh)
     return make_train_step(model, make_optimizer(model, cfg.optim), cfg, mesh)
 
 
@@ -2893,6 +2974,306 @@ def phase_dp_two(torch, np, dev):
     return out
 
 
+# phase E7's grids: (name, data, model, compute dtypes), each one launch of
+# data x model processes; E8's grid is (1, 2)
+TP_GRIDS = (("model2", 1, 2, ("float32", "bfloat16")),
+            ("data2 x model2", 2, 2, ("float32",)))
+# E7's bf16 turn against the one-process bf16 step.  f32 takes phase 5's
+# f32 tolerances; in bf16 the row-parallel products are summed in f32 and
+# rounded once where the one-process GEMM rounds once too, but every bf16
+# rounding after them may land one ulp apart, as phase 5's kernel vs plain
+# bf16 steps do: phase 5's bf16 tolerances
+TP_BF16_TOL = {"loss": TRAIN_LOSS_TOL["bfloat16"], "grad": TRAIN_GRAD_TOL["bfloat16"],
+               "bn": TRAIN_BN_TOL["bfloat16"]}
+E8_BATCH = 8
+# E8's greedy tokens at model = 1 against the tensor-parallel eval's: equal,
+# but where the one-process logits of the first differing step put the two
+# tokens within TIE_TOL of each other (a tie the two f32 encoders' last bits
+# break either way)
+TIE_TOL = 1e-4
+
+
+def tp_worker(torch, np, dev, phase: str, rank: int, port: int,
+              outdir: str) -> int:
+    """One process of phase E7 (``phase`` "E7-<turn index>") or E8 on the
+    one card over gloo: the grid's step against what phase E7's parent
+    compares it with, or E8's Trainer."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.parallel import (
+        gather_state_dict, make_mesh, shutdown)
+    from sbl_for_multilingual_lip_reading_tpu_torch.parallel.tensor import (
+        gather_from_model)
+    if phase == "E8":
+        return _e8_worker(torch, np, dev, rank, port, outdir)
+    name, data, model, dtypes = TP_GRIDS[int(phase.split("-")[1])]
+    _set_switches(True)
+    mesh = make_mesh(data, model, device=dev, rank=rank, backend="gloo",
+                     init_method=f"tcp://localhost:{port}")
+    cfg0, batch = _path_e_setup(torch, np, dev, TRAIN_BATCH)
+    n = TRAIN_BATCH // data
+    local = {k: v[mesh.rank * n:(mesh.rank + 1) * n] for k, v in batch.items()}
+    out = {}
+    for dtype in dtypes:
+        cfg = dataclasses.replace(_dp_config(cfg0), compute_dtype=dtype,
+                                  mesh=C.MeshConfig(data=data, model=model))
+        step = _new_step(torch, dev, cfg, mesh, shard=True)
+        m = step.state.model
+        plan = m.tp_plan
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = step(local, torch.Generator().manual_seed(5),
+                    use_gold=DP_USE_GOLD)["loss"].item()
+        torch.cuda.synchronize()
+        # the checked step itself, first launches included: a check, not a rate
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = ops.launch_counts()
+        grads = {n: gather_from_model(p.grad, mesh, plan[n][0]) if n in plan
+                 else p.grad.detach().clone() for n, p in m.named_parameters()}
+        after = gather_state_dict(m.state_dict(), m)    # every process gathers
+        res = dict(loss=loss, launches=launches, ms_per_step=ms,
+                   sharded=len(plan),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   grad_norms={k: v.float().norm().item() for k, v in grads.items()})
+        if rank == 0:
+            res.update(grads={k: v.cpu() for k, v in grads.items()},
+                       after={k: v.cpu() for k, v in after.items()})
+        out[dtype] = res
+        del step, m, grads, after
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
+    shutdown()
+    return 0
+
+
+def _run_workers(torch, phase: str, world: int, tmp: str):
+    """Start ``world`` processes of ``phase`` on the card, writing into
+    ``tmp``, and return what each saved."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--tp-worker", phase,
+         str(r), str(port), tmp], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        # four processes share the card's memory: less fragmentation
+        env=dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [f"process {r}:\n{log[-3000:]}"
+              for r, (p, log) in enumerate(zip(procs, logs)) if p.returncode]
+    check(not failed, f"{phase} failed: " + "\n".join(failed))
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def phase_tp(torch, np, dev):
+    """E7: the tensor-parallel step at the full width (``sbl``, B=240
+    global, remat on, PALLAS_INGEST=1 PALLAS_BN=1, dropout on with its
+    masks drawn, gold fed at every decode step) on gloo grids on the one
+    card -- model = 2 in f32 and bf16, data 2 x model 2 in f32 -- against
+    the one-process step on the whole batch: loss, the gathered gradients
+    (E4's comparison), the gathered parameters after the update and the BN
+    running statistics.  ms/step a process is printed as a check."""
+    import tempfile
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.schedule import noam_lr
+
+    def on_host(step, rec):
+        sd = step.state.model.state_dict()
+        return (rec[0], {k: v.cpu() for k, v in rec[1].items()},
+                {k: v.cpu() for k, v in rec[2].items()},
+                {k: v.cpu() for k, v in sd.items()})
+    refs = {}
+    cfg0, batch = _path_e_setup(torch, np, dev, TRAIN_BATCH)
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(_dp_config(cfg0), compute_dtype=dtype)
+        if dtype == "float32":
+            # the one-process step's own rounding floor (plain BatchNorm)
+            _set_switches(False)
+            step = _new_step(torch, dev, cfg)
+            refs["alt"] = on_host(step, _step_record(torch, step, batch,
+                                                     use_gold=DP_USE_GOLD))
+            del step
+        _set_switches(True)
+        step = _new_step(torch, dev, cfg)
+        refs[dtype] = on_host(step, _step_record(torch, step, batch,
+                                                 use_gold=DP_USE_GOLD))
+        del step
+        torch.cuda.empty_cache()
+    lr = noam_lr(0, cfg0.optim.k, cfg0.optim.warmup_steps, cfg0.optim.lr_base_dim)
+    del batch
+    torch.cuda.empty_cache()
+    out, launches, turns = {}, None, []
+    for i, (grid, data, model, dtypes) in enumerate(TP_GRIDS):
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks = _run_workers(torch, f"E7-{i}", data * model, tmp)
+        turns += [(f"{grid} {dtype}", model, dtype, [r[dtype] for r in ranks])
+                  for dtype in dtypes]
+    for name, model, dtype, ranks in turns:
+        r0 = ranks[0]
+        want = refs[dtype]
+        got = (r0["loss"], r0["grads"], {k: v for k, v in r0["after"].items()
+                                          if "running" in k})
+        if dtype == "float32":
+            res = _compare_dp_step(got, want[:3], refs["alt"][:3], f"E7 {name}")
+        else:
+            errs = _grad_errors(got[1], want[1])
+            worst = max(errs, key=errs.get)
+            bn_err = max((got[2][n] - b).abs().max().item()
+                         for n, b in want[2].items())
+            print(f"phase E7 {name} vs one process: loss {got[0]:.6f} vs "
+                  f"{want[0]:.6f} (tol {TP_BF16_TOL['loss']}); gradient rel err "
+                  f"max {errs[worst]:.3g} at {worst}, median "
+                  f"{statistics.median(errs.values()):.3g} (tol "
+                  f"{TP_BF16_TOL['grad']}); BN running stats max abs diff "
+                  f"{bn_err:.3g} (tol {TP_BF16_TOL['bn']})")
+            check(abs(got[0] - want[0]) <= TP_BF16_TOL["loss"], f"E7 {name}: loss")
+            check(errs[worst] <= TP_BF16_TOL["grad"], f"E7 {name}: gradients")
+            check(bn_err <= TP_BF16_TOL["bn"], f"E7 {name}: BN stats")
+            res = dict(loss_err=abs(got[0] - want[0]), grad_err_max=errs[worst],
+                       grad_err_median=statistics.median(errs.values()),
+                       bn_err=bn_err)
+        param_err = max((r0["after"][k] - v).abs().max().item()
+                        for k, v in want[3].items() if "running" not in k)
+        check(param_err <= 2 * lr + 1e-6,
+              f"E7 {name}: parameters after the update differ by {param_err}")
+        for r in ranks[1:]:
+            check(r["loss"] == r0["loss"], f"E7 {name}: the processes' losses differ")
+        # the model processes of a data index hold the same gathered gradients
+        for a in range(0, len(ranks), model):
+            for b in range(a + 1, a + model):
+                check(ranks[b]["grad_norms"] == ranks[a]["grad_norms"],
+                      f"E7 {name}: processes {a} and {b} gather other gradients")
+        for r in ranks:
+            check(r["launches"]["small_mha_dropout_fwd_flat"] > 0
+                  and r["launches"]["small_mha_dropout_bwd_flat"] > 0,
+                  f"E7 {name}: K3/K4 not launched")
+        print(f"phase E7 {name}: {r0['sharded']} tensors sharded a process; "
+              f"parameters after the update within {param_err:.3g} (2 lr = "
+              f"{2 * lr:.3g}); launches a process {r0['launches']}; ms/step a "
+              f"process (its checked step, a check that it runs, not a rate: the "
+              f"processes share the card and gloo copies through the host) "
+              f"{[round(r['ms_per_step'], 1) for r in ranks]}; peak GB a process "
+              f"{[round(r['peak_gb'], 2) for r in ranks]}")
+        res.update(param_err=param_err, ms_per_step_check=[
+            r["ms_per_step"] for r in ranks], peak_gb=[r["peak_gb"] for r in ranks])
+        out[name] = res
+        if launches is None:
+            launches = r0["launches"]
+    _set_switches(False)
+    return launches, out
+
+
+def _e8_config():
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    return dataclasses.replace(C.sbl(), batch_size=E8_BATCH, compute_dtype="float32",
+                               use_fused_decoder_layer=True)
+
+
+def _e8_data(cfg):
+    from sbl_for_multilingual_lip_reading_tpu_torch.data import SyntheticLipDataset
+    return SyntheticLipDataset(size=2 * E8_BATCH, frames=cfg.data.frames,
+                               raw_size=cfg.data.raw_size, seed=4)
+
+
+def _e8_decode(torch, np, dev, model, cfg, data):
+    """Greedy tokens and logits of the first E8_BATCH clips (K11 on)."""
+    from sbl_for_multilingual_lip_reading_tpu_torch.recognize import recognize_batch
+    clips = torch.as_tensor(np.stack([data[i]["clip_u8"] for i in range(E8_BATCH)]),
+                            device=dev)
+    rec = recognize_batch(model, clips, cfg.data.crop_size)
+    return {k: t.cpu() for k, t in zip(("ys_l2r", "ys_r2l", "logits_l2r",
+                                        "logits_r2l"), rec)}
+
+
+def _e8_worker(torch, np, dev, rank, port, outdir):
+    """E8: a Trainer on a (1, 2) gloo grid: two steps and a validation
+    batch of ``sbl`` (f32, K11 on), its checkpoint, and the greedy decode
+    of the eval clips with K11's launches counted."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.parallel import make_mesh, shutdown
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.trainer import Trainer
+    mesh = make_mesh(1, 2, device=dev, rank=rank, backend="gloo",
+                     init_method=f"tcp://localhost:{port}")
+    cfg = _e8_config()
+    data = _e8_data(cfg)
+    tr = Trainer(cfg, data, {"synthetic": data}, checkpoint_dir=os.path.join(
+        outdir, "ckpt"), device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    res = tr.fit(1, max_steps_per_epoch=2, max_eval_batches=1)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    ops.reset_launch_counts()
+    tokens = _e8_decode(torch, np, dev, tr.model, cfg, data)
+    torch.cuda.synchronize()
+    decode_launches = ops.launch_counts()
+    torch.save(dict(step=tr.state.step, result=res, launches=launches,
+                    decode_launches=decode_launches, tokens=tokens,
+                    whole_in_eval=sum(getattr(m, "whole_in_eval", False)
+                                      for m in tr.model.modules())),
+               os.path.join(outdir, f"rank{rank}.pt"))
+    shutdown()
+    return 0
+
+
+def phase_tp_trainer(torch, np, dev):
+    """E8: a Trainer on a (1, 2) gloo grid on the card (``sbl`` at the full
+    width, f32, K11 on): two steps, one validation batch, a checkpoint.  The
+    checkpoint loads at model = 1, whose greedy tokens equal the
+    tensor-parallel decode's (ties within TIE_TOL aside), and K11 was
+    launched in the grid's validation and decode."""
+    import tempfile
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.trainer import Trainer
+    cfg = _e8_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = _run_workers(torch, "E8", 2, tmp)
+        tr = Trainer(cfg, [], device=dev)
+        epoch = tr.restore(os.path.join(tmp, "ckpt"))
+    check(tr.state.step == 2 and epoch == 0,
+          f"E8: the checkpoint holds step {tr.state.step}, epoch {epoch}")
+    data = _e8_data(cfg)
+    want = _e8_decode(torch, np, dev, tr.model, cfg, data)
+    ties, per_decode = 0, cfg.dims.n_dec_layers * cfg.decoder.maxlen
+    for r in ranks:
+        check(r["step"] == 2, "E8: the grid took other than two steps")
+        check(r["decode_launches"]["fused_decoder_layer"] == per_decode,
+              f"E8: K11 launched {r['decode_launches']['fused_decoder_layer']} "
+              f"times in a decode, not {per_decode}")
+        check(r["launches"]["fused_decoder_layer"] >= per_decode,
+              "E8: K11 not launched in the validation")
+        for d in ("l2r", "r2l"):
+            got, ref = r["tokens"][f"ys_{d}"], want[f"ys_{d}"]
+            for b in range(got.shape[0]):
+                diff = (got[b] != ref[b]).nonzero()
+                if len(diff) == 0:
+                    continue
+                t = int(diff[0]) - 1        # the step whose argmax differs
+                lg = want[f"logits_{d}"][b, t]
+                gap = abs(lg[got[b, t + 1]] - lg[ref[b, t + 1]]).item()
+                check(gap <= TIE_TOL, f"E8 {d} sample {b}: tokens differ at step "
+                      f"{t} with a logit gap {gap}")
+                ties += 1
+    check(ranks[0]["whole_in_eval"] > 0, "E8: no module runs whole in eval")
+    print(f"phase E8 Trainer on a (1, 2) gloo grid, sbl f32 with K11: 2 steps, "
+          f"validation {ranks[0]['result']}, checkpoint loaded at model = 1 (step "
+          f"{tr.state.step}); greedy tokens at model = 1 equal the grid's "
+          f"({ties} sequences differ at a tie within {TIE_TOL}); K11 launched "
+          f"{ranks[0]['decode_launches']['fused_decoder_layer']} times a decode a "
+          f"process, fit's launches {ranks[0]['launches']}")
+    del tr
+    torch.cuda.empty_cache()
+    return ranks[0]["launches"], dict(ties=ties, result=ranks[0]["result"])
+
+
 def _scalar_steps(log_dir: str, tag: str):
     """The steps at which ``tag`` was logged: from metrics.jsonl, or from
     the TensorBoard event file where the tensorboard package wrote one."""
@@ -2907,7 +3288,7 @@ def _scalar_steps(log_dir: str, tag: str):
     return [e.step for e in acc.Scalars(tag)]
 
 
-def _compare_dp_step(got, want, alt):
+def _compare_dp_step(got, want, alt, label="E4 W=2 (gloo, one card)"):
     """Phase E4's comparison, f32.  Loss and running statistics within phase
     5's tolerances; the gradient as a whole (||got - want|| / ||want|| over
     every parameter) within TRAIN_GRAD_TOL, and each parameter's within
@@ -2925,7 +3306,7 @@ def _compare_dp_step(got, want, alt):
     worst = max(errs, key=errs.get)
     over = {n: (e, floor[n]) for n, e in errs.items() if e > TRAIN_GRAD_TOL["float32"]}
     bn_err = max((sg[n] - b).abs().max().item() for n, b in sw.items())
-    print(f"phase E4 W=2 (gloo, one card) vs one process on the whole batch "
+    print(f"phase {label} vs one process on the whole batch "
           f"float32: loss {lg:.6f} vs {lw:.6f} (tol {TRAIN_LOSS_TOL['float32']}); "
           f"gradient rel err {whole:.3g} as a whole (tol "
           f"{TRAIN_GRAD_TOL['float32']}), per parameter max {errs[worst]:.3g} at "
@@ -2936,12 +3317,12 @@ def _compare_dp_step(got, want, alt):
           + ", ".join(f"{n} {e:.3g} / {f:.3g}" for n, (e, f) in sorted(over.items()))
           + f"; BN running stats max abs diff {bn_err:.3g} (tol "
           f"{TRAIN_BN_TOL['float32']})")
-    check(abs(lg - lw) <= TRAIN_LOSS_TOL["float32"], "E4: losses differ")
-    check(whole <= TRAIN_GRAD_TOL["float32"], f"E4: gradients differ by {whole}")
+    check(abs(lg - lw) <= TRAIN_LOSS_TOL["float32"], f"{label}: losses differ")
+    check(whole <= TRAIN_GRAD_TOL["float32"], f"{label}: gradients differ by {whole}")
     for n, (e, f) in over.items():
-        check(e <= 2 * f, f"E4: gradient of {n} differs by {e}, the one-process "
-              f"step's own rounding moves it by {f}")
-    check(bn_err <= TRAIN_BN_TOL["float32"], "E4: BN stats differ")
+        check(e <= 2 * f, f"{label}: gradient of {n} differs by {e}, the "
+              f"one-process step's own rounding moves it by {f}")
+    check(bn_err <= TRAIN_BN_TOL["float32"], f"{label}: BN stats differ")
     return dict(loss_err=abs(lg - lw), grad_err=whole, grad_err_max=errs[worst],
                 over=over, bn_err=bn_err)
 
@@ -3212,6 +3593,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--dp-worker"]:
         return dp_worker(torch, np, dev, int(sys.argv[2]), int(sys.argv[3]),
                          sys.argv[4])
+    if sys.argv[1:2] == ["--tp-worker"]:
+        return tp_worker(torch, np, dev, sys.argv[2], int(sys.argv[3]),
+                         int(sys.argv[4]), sys.argv[5])
     compare = {"--compare-eval": "eval", "--compare-bn": "bn",
                "--compare-ingest-mask": "ingest_mask"}
     if sys.argv[1:2] and sys.argv[1] in compare:
@@ -3248,7 +3632,9 @@ def main() -> int:
                   dp_two=timed("E4", phase_dp_two, torch, np, dev))
     e_launches, path_e["cli"] = timed("E5", phase_path_e_cli, torch, np, dev)
     path_e["memorize"] = timed("E6", phase_memorize, torch, np, dev)
-    print(f"phases 1-10 and E1-E6 took {time.perf_counter() - t_start:.1f} s")
+    tp_launches, path_e["tp"] = timed("E7", phase_tp, torch, np, dev)
+    tpt_launches, path_e["tp_trainer"] = timed("E8", phase_tp_trainer, torch, np, dev)
+    print(f"phases 1-10 and E1-E8 took {time.perf_counter() - t_start:.1f} s")
     # every kernel of the eval and training paths was launched on its path
     for kernel in ("stack_frames_u8", "fused_resblock", "fused_decoder_layer",
                    "small_mha_flat"):
@@ -3264,10 +3650,20 @@ def main() -> int:
                    "small_mha_dropout_bwd_flat", "ingest_train", "channel_sums",
                    "channel_sums_pair", "small_mha_flat"):
         check(e_launches[kernel] > 0, f"path E never launched {kernel}")
+    for kernel in ("stack_frames", "small_mha_dropout_fwd_flat",
+                   "small_mha_dropout_bwd_flat", "ingest_train", "channel_sums",
+                   "channel_sums_pair"):
+        check(tp_launches[kernel] > 0, f"the tensor-parallel step never launched "
+              f"{kernel}")
+    for kernel in ("small_mha_dropout_fwd_flat", "small_mha_dropout_bwd_flat",
+                   "small_mha_flat", "fused_decoder_layer"):
+        check(tpt_launches[kernel] > 0, f"the tensor-parallel Trainer never "
+              f"launched {kernel}")
     by_path = {"recognize": launches, "train_step": train_launches,
                "entry_point": entry_launches, "eval_switches": a_launches,
                "uni_eval": b_launches, "uni_train": c_launches,
-               "classify": d_launches, "path_e": e_launches}
+               "classify": d_launches, "path_e": e_launches,
+               "tp_step": tp_launches, "tp_trainer": tpt_launches}
 
     csrc = "sbl_for_multilingual_lip_reading_tpu_torch/csrc/"
     jax_ops = "sbl_for_multilingual_lip_reading_tpu/ops/"

@@ -12,18 +12,19 @@ LRW-1000 protocol; ``sbl`` uses the paired bidirectional beam), and scores
 
 It runs on the card; ``--cpu`` runs it on the CPU, and without a card and
 without ``--cpu`` it refuses.  ``--synthetic`` (or no dataset path) uses the
-synthetic dataset.  ``--mesh-model`` > 1 (tensor parallelism) is not ported
-and raises, naming its ROADMAP item; ``--compile-cache`` is XLA's and is
-accepted and ignored.  ``PALLAS_INGEST=1`` and ``PALLAS_BN=1`` in the
+synthetic dataset.  ``--compile-cache`` is XLA's and is accepted and
+ignored.  ``PALLAS_INGEST=1`` and ``PALLAS_BN=1`` in the
 environment turn on the kernel ingest (K6) and the kernel BatchNorm
 statistics (K7, K8), as in JAX.
 
-``train --mesh-data W`` trains data-parallel on W cards, one process each
-(NCCL; ``--cpu``: W processes on the CPU over gloo): under torchrun
-(``torchrun --nproc_per_node W -m ...cli train --mesh-data W ...``) each
-process joins the group torchrun describes; started alone, the command
-starts the W processes itself on a free localhost port.  The batch size is
-global.  ``--no-sync-batchnorm`` keeps BatchNorm statistics per process.
+``train --mesh-data W --mesh-model M`` trains on a W x M grid of
+processes, one card each (NCCL; ``--cpu``: on the CPU over gloo): W
+data-parallel replicas, each of M tensor-parallel processes holding its
+slice of the attention heads and FFN columns (``parallel/mesh.py``).  Under
+torchrun (``torchrun --nproc_per_node W*M -m ...cli train --mesh-data W
+--mesh-model M ...``) each process joins the group torchrun describes;
+started alone, the command starts the W x M processes itself on a free
+localhost port.  The batch size is global.  ``--no-sync-batchnorm`` keeps BatchNorm statistics per process.
 ``--profile-dir D`` writes a Chrome trace of steps 1-3 into D and
 ``--tensorboard-dir`` logs the scalars JAX logs.
 """
@@ -95,12 +96,14 @@ def build_argparser() -> argparse.ArgumentParser:
                         "card, and refuses to run without one)")
     p.add_argument("--data-fraction", type=float, default=None,
                    help="reference config.py `p`")
-    # parallelism: --mesh-data processes, one card each (tensor parallelism,
-    # --mesh-model > 1, is not ported)
+    # parallelism: a --mesh-data x --mesh-model grid of processes, one card
+    # each
     p.add_argument("--mesh-data", type=int, default=1,
-                   help="data-parallel processes, one card each; the batch "
-                        "size stays global")
-    p.add_argument("--mesh-model", type=int, default=1)
+                   help="data-parallel replicas; the batch size stays "
+                        "global")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="tensor-parallel processes per replica (attention "
+                        "heads and FFN columns sharded)")
     p.add_argument("--no-sync-batchnorm", action="store_true",
                    help="BatchNorm statistics per process (process 0's "
                         "running statistics kept) instead of over the "
@@ -127,14 +130,6 @@ def build_argparser() -> argparse.ArgumentParser:
                         "package; accepted and ignored here (the CUDA "
                         "kernels build once per checkout into _build/)")
     return p
-
-
-def check_ported(args) -> None:
-    """Raise for a flag whose path the port does not have."""
-    if args.mesh_model > 1:
-        from .parallel import TENSOR_PARALLEL
-        raise NotImplementedError(
-            f"--mesh-model > 1 is not ported yet: {TENSOR_PARALLEL}")
 
 
 def config_from_args(args) -> C.WorkloadConfig:
@@ -245,7 +240,6 @@ def make_datasets(cfg, args, eval_split: str = "val"):
 
 def _setup(argv):
     args = build_argparser().parse_args(argv)
-    check_ported(args)
     from .utils.device import resolve_device
     device = resolve_device("cpu" if args.cpu else None)
     return args, config_from_args(args), device
@@ -259,7 +253,7 @@ def _free_port() -> int:
 
 
 def _train_process(rank: int, argv, world: int, port: int) -> None:
-    """One process of a data-parallel ``train`` started by ``run_train``."""
+    """One process of a parallel ``train`` started by ``run_train``."""
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
                       WORLD_SIZE=str(world), MASTER_ADDR="localhost",
                       MASTER_PORT=str(port))
@@ -273,20 +267,22 @@ def run_train(argv=None):
     ``--checkpoint`` resumes (model, optimizer, update count, random
     number states) at the epoch after the saved one.  Returns the
     ``Trainer`` and the last epoch's results (``Trainer.fit``).  With
-    ``--mesh-data W`` > 1 and no RANK in the environment it starts W
-    processes, waits for them and returns (None, None)."""
+    ``--mesh-data W`` x ``--mesh-model M`` > 1 and no RANK in the
+    environment it starts W x M processes, waits for them and returns
+    (None, None)."""
     args, cfg, device = _setup(argv)
-    if cfg.mesh.data > 1 and "RANK" not in os.environ:
+    world = cfg.mesh.data * cfg.mesh.model
+    if world > 1 and "RANK" not in os.environ:
         import torch.multiprocessing as mp
-        mp.start_processes(_train_process, nprocs=cfg.mesh.data,
-                           args=(argv, cfg.mesh.data, _free_port()),
+        mp.start_processes(_train_process, nprocs=world,
+                           args=(argv, world, _free_port()),
                            start_method="spawn")
         return None, None
     from .training import checkpoint as ckpt
     from .training.trainer import Trainer
     train_ds, valid_ds = make_datasets(cfg, args)
     mesh = None
-    if cfg.mesh.data > 1:
+    if world > 1:
         from .parallel import make_mesh
         # each process on its own card (LOCAL_RANK), or on the CPU
         mesh = make_mesh(cfg.mesh.data, cfg.mesh.model,

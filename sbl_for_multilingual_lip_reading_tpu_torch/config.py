@@ -91,12 +91,15 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The process layout of a training run: ``data`` processes, each
-    driving one card on its stripe of every global batch
-    (``parallel/mesh.py``); ``model`` > 1 (tensor parallelism) is not
-    ported.  ``sync_batchnorm`` takes the frontend's BatchNorm statistics
-    over the global batch; False keeps them per process, with process 0's
-    running statistics kept (the reference's ``nn.DataParallel``)."""
+    """The process layout of a training run (``parallel/mesh.py``): a
+    ``data`` x ``model`` grid of processes, one card each.  Each of the
+    ``data`` replicas takes its stripe of every global batch; each of its
+    ``model`` processes holds its slice of the attention heads and FFN
+    columns (tensor parallelism, Megatron's layout of JAX's
+    ``PARAM_RULES``).  ``sync_batchnorm`` takes the frontend's BatchNorm
+    statistics over the global batch; False keeps them per replica, with
+    replica 0's running statistics kept (the reference's
+    ``nn.DataParallel``)."""
     data: int = 1
     model: int = 1
     sync_batchnorm: bool = True

@@ -17,7 +17,7 @@
 // generator, Philox4x32-10 (Salmon et al., SC'11, with the round constants
 // of Random123 and cuRAND), in one function shared by the three kernels:
 //   key     = (seed & 0xffffffff, seed >> 32), the launch's 64-bit seed;
-//   counter = (key index j, query index i, head h, batch row b);
+//   counter = (key index j, query index i, head h0 + h, batch row b);
 //   bits    = word 0 of Philox4x32-10(counter, key);
 //   keep   <=> bits >= uint32(rate * 2^32), the JAX package's threshold.
 // An element (b, h, i, j) gets the same bits in K3, K4 and K5 for one seed
@@ -31,6 +31,10 @@
 // (row0 = the process's first row, rows = its rows per direction,
 // row_stride = the whole batch), so every process draws the masks of its
 // rows of the one-process run; (row0, rows) = (0, B) is the identity.
+// The counter's head is h0 + h: a tensor-parallel process launches its H
+// heads of the model's, which start at head h0, so it draws the masks of
+// those heads of the one-process run; h0 = 0 is the identity.  The offset
+// is added once a block, outside the Philox rounds.
 //
 // What bounds them.  At the train step's shapes (Tq, Tk <= 31, d = 64) a
 // head's products are a few hundred kFLOP, under a microsecond of the
@@ -167,14 +171,17 @@ struct Dropout {
   float inv_keep;    // 1 / (1 - rate), rounded to f32 as JAX's weak-typed constant
   int on;            // rate > 0
   int row0, rows, row_stride;  // the batch-row map (see the header)
+  int h0;            // the counter's first head (see the header)
 
   // the counter's batch row of the launch's row b
   __device__ __forceinline__ int row(int b) const {
     return (b / rows) * row_stride + row0 + b % rows;
   }
-  // gb: the counter's batch row, row(b)
-  __device__ __forceinline__ bool keep(int gb, int h, int i, int j) const {
-    return dropout_bits(seed, gb, h, i, j) >= thresh;
+  // the counter's head of the launch's head h
+  __device__ __forceinline__ int head(int h) const { return h0 + h; }
+  // gb, gh: the counter's batch row and head, row(b) and head(h)
+  __device__ __forceinline__ bool keep(int gb, int gh, int i, int j) const {
+    return dropout_bits(seed, gb, gh, i, j) >= thresh;
   }
 };
 
@@ -253,6 +260,7 @@ dropout_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __res
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const int gb = drop.row(b);
+  const int gh = drop.head(h);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long rs = (long long)H * D;
@@ -274,7 +282,7 @@ dropout_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __res
     softmax_row<D>(qrow, ks, bb, row, Tk, scale, lane, prow);
     if (drop.on)
       for (int j = lane; j < Tk; j += 32)
-        prow[j] = drop.keep(gb, h, row, j) ? prow[j] * drop.inv_keep : 0.f;
+        prow[j] = drop.keep(gb, gh, row, j) ? prow[j] * drop.inv_keep : 0.f;
     __syncwarp();
     float acc[kCols];
 #pragma unroll
@@ -315,6 +323,7 @@ dropout_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const int gb = drop.row(b);
+  const int gh = drop.head(h);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long rs = (long long)H * D;
@@ -344,7 +353,7 @@ dropout_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
       const float p = prow[j];
       float pd = p, dp = dpd;
       if (drop.on) {
-        const bool keep = drop.keep(gb, h, row, j);
+        const bool keep = drop.keep(gb, gh, row, j);
         pd = keep ? p * drop.inv_keep : 0.f;
         dp = keep ? dpd * drop.inv_keep : 0.f;
       }
@@ -406,10 +415,10 @@ dropout_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
 // only for rows < Tq and keys < Tk, and inv_keep in the output's scale.
 struct HeadDropout {
   Dropout drop;
-  int gb, h, Tq, Tk;  // gb: the counter's batch row
+  int gb, gh, Tq, Tk;  // the counter's batch row and head
 
   __device__ __forceinline__ float operator()(int row, int key, float p) const {
-    return drop.on && row < Tq && key < Tk && !drop.keep(gb, h, row, key) ? 0.f : p;
+    return drop.on && row < Tq && key < Tk && !drop.keep(gb, gh, row, key) ? 0.f : p;
   }
   __device__ __forceinline__ float scale(float inv_l) const {
     return drop.on ? inv_l * drop.inv_keep : inv_l;
@@ -433,7 +442,7 @@ dropout_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
   const float* bb = nullptr;
   if (bias != nullptr) bb = bias + (bias_per_batch ? (long long)b * Tq * Tk : 0LL);
   sbl::mha_fwd_block<D>(q + qoff, k + koff, v + koff, bb, out + qoff, rs, Tq, Tk, scale,
-                        HeadDropout{drop, drop.row(b), h, Tq, Tk}, reinterpret_cast<bf16*>(smem_raw));
+                        HeadDropout{drop, drop.row(b), drop.head(h), Tq, Tk}, reinterpret_cast<bf16*>(smem_raw));
 }
 
 // Whether K4's bf16 body keeps P_drop and dS of the whole head in shared
@@ -501,6 +510,7 @@ dropout_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   const int gb = drop.row(b);
+  const int gh = drop.head(h);
   const long long rs = (long long)H * D;
   const long long qoff = (long long)b * Tq * rs + (long long)h * D;
   const long long koff = (long long)b * Tk * rs + (long long)h * D;
@@ -566,7 +576,7 @@ dropout_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
         const int row = row0 + g + (e >> 1) * 8;
         const int bit = j * 8 + 2 * t + (e & 1);
         const int key = kt * kKeyTile + bit;
-        if (row < Tq && key < Tk && drop.keep(gb, h, row, key)) w[e >> 1] |= 1u << bit;
+        if (row < Tq && key < Tk && drop.keep(gb, gh, row, key)) w[e >> 1] |= 1u << bit;
       }
     }
 #pragma unroll
@@ -918,13 +928,14 @@ struct FastDiv {
 
 // out: (B, H, Tq, Tk) bytes, 1 = keep; n = B * H * Tq * Tk < 2^31.
 // kMapped: the counter's batch row goes through the batch-row map (row0,
-// rows, row_stride) of the header; otherwise it is the launch's row.
+// rows, row_stride) and its head starts at h0 (the header); otherwise both
+// are the launch's.
 template <bool kMapped>
 __global__ void __launch_bounds__(kMaskThreads)
     dropout_keep_mask_kernel(unsigned char* __restrict__ out, uint32_t n, FastDiv by_tk,
                              FastDiv by_tq, FastDiv by_h, unsigned long long seed,
                              uint32_t thresh, uint32_t row0, uint32_t rows,
-                             uint32_t row_stride) {
+                             uint32_t row_stride, uint32_t h0) {
   uint32_t k0[10], k1[10];
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
@@ -945,7 +956,7 @@ __global__ void __launch_bounds__(kMaskThreads)
     uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
     for (int u = 0; u < kMaskRun; ++u) {
-      uint32_t c0 = j, c1 = i, c2 = h, c3 = kMapped ? bq * row_stride + row0 + br : b;
+      uint32_t c0 = j, c1 = i, c2 = kMapped ? h0 + h : h, c3 = kMapped ? bq * row_stride + row0 + br : b;
 #pragma unroll
       for (int r = 0; r < 10; ++r) philox_round(c0, c1, c2, c3, k0[r], k1[r]);
       w[u / 4] |= static_cast<uint32_t>(c0 >= thresh) << (8 * (u % 4));
@@ -992,7 +1003,7 @@ bool shape_ok(int B, int Tq, int Tk, int H, int D) {
 }
 
 Dropout make_dropout(unsigned long long seed, unsigned int thresh, float inv_keep, int on,
-                     int row0, int rows, int row_stride) {
+                     int row0, int rows, int row_stride, int h0) {
   Dropout d;
   d.seed = seed;
   d.thresh = thresh;
@@ -1001,6 +1012,7 @@ Dropout make_dropout(unsigned long long seed, unsigned int thresh, float inv_kee
   d.row0 = row0;
   d.rows = rows;
   d.row_stride = row_stride;
+  d.h0 = h0;
   return d;
 }
 
@@ -1010,6 +1022,9 @@ bool rows_ok(int B, int row0, int rows, int row_stride) {
   const long long last = (long long)((B - 1) / rows) * row_stride + row0 + (B - 1) % rows;
   return last < (1LL << 31);
 }
+
+// A head offset that keeps every counter head below 2^31.
+bool heads_ok(int H, int h0) { return h0 >= 0 && (long long)h0 + H <= (1LL << 31); }
 
 int warps_for(int rows) {
   const int tiles = (rows + 15) / 16;
@@ -1101,7 +1116,8 @@ int prepare(int B, int Tq, int Tk, int H, int D, int dtype, int device,
 // dtype: 0 = float32, 1 = bfloat16 (pointers 16-byte aligned); D in {16,
 // 32, 64, 128}; Tq, Tk such that f32_smem_bytes fits a block (kMaxSmem).
 // thresh = uint32(rate * 2^32), inv_keep = 1 / (1 - rate), dropout_on =
-// rate > 0; (row0, rows, row_stride) the batch-row map of the header.
+// rate > 0; (row0, rows, row_stride) the batch-row map and h0 the first
+// head of the header.
 // Each returns the cudaError_t of its launch (0 on success).
 extern "C" int sbl_small_mha_dropout_fwd_flat(const void* q, const void* k, const void* v,
                                               const void* bias, void* out, int B, int Tq,
@@ -1109,12 +1125,12 @@ extern "C" int sbl_small_mha_dropout_fwd_flat(const void* q, const void* k, cons
                                               float scale, unsigned long long seed,
                                               unsigned int thresh, float inv_keep,
                                               int dropout_on, int row0, int rows,
-                                              int row_stride, int dtype, int device,
+                                              int row_stride, int h0, int dtype, int device,
                                               void* stream) {
-  if (!rows_ok(B, row0, rows, row_stride)) return (int)cudaErrorInvalidValue;
+  if (!rows_ok(B, row0, rows, row_stride) || !heads_ok(H, h0)) return (int)cudaErrorInvalidValue;
   const int err = prepare(B, Tq, Tk, H, D, dtype, device, {q, k, v, out});
   if (err != 0) return err;
-  const Dropout drop = make_dropout(seed, thresh, inv_keep, dropout_on, row0, rows, row_stride);
+  const Dropout drop = make_dropout(seed, thresh, inv_keep, dropout_on, row0, rows, row_stride, h0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SBL_TRAIN_DISPATCH(launch_fwd, q, k, v, bias, out, B, Tq, Tk, H, bias_per_batch, scale, drop,
                      dtype, s)
@@ -1126,27 +1142,28 @@ extern "C" int sbl_small_mha_dropout_bwd_flat(const void* q, const void* k, cons
                                               int D, int bias_per_batch, float scale,
                                               unsigned long long seed, unsigned int thresh,
                                               float inv_keep, int dropout_on, int row0,
-                                              int rows, int row_stride, int dtype,
+                                              int rows, int row_stride, int h0, int dtype,
                                               int device, void* stream) {
-  if (!rows_ok(B, row0, rows, row_stride)) return (int)cudaErrorInvalidValue;
+  if (!rows_ok(B, row0, rows, row_stride) || !heads_ok(H, h0)) return (int)cudaErrorInvalidValue;
   const int err = prepare(B, Tq, Tk, H, D, dtype, device, {q, k, v, dout, dq, dk, dv});
   if (err != 0) return err;
-  const Dropout drop = make_dropout(seed, thresh, inv_keep, dropout_on, row0, rows, row_stride);
+  const Dropout drop = make_dropout(seed, thresh, inv_keep, dropout_on, row0, rows, row_stride, h0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SBL_TRAIN_DISPATCH(launch_bwd, q, k, v, bias, dout, dq, dk, dv, B, Tq, Tk, H, bias_per_batch,
                      scale, drop, dtype, s)
 }
 
 // out: (B, H, Tq, Tk) torch.bool (one byte per element), 16-byte aligned;
-// B * H * Tq * Tk < 2^31; (row0, rows, row_stride) the batch-row map of the
-// header (the identity (0, B, B) takes the unmapped kernel).
+// B * H * Tq * Tk < 2^31; (row0, rows, row_stride) the batch-row map and h0
+// the first head of the header (the identity (0, B, B) and h0 = 0 take the
+// unmapped kernel).
 extern "C" int sbl_dropout_keep_mask_flat(void* out, int B, int H, int Tq, int Tk,
                                           unsigned long long seed, unsigned int thresh,
-                                          int row0, int rows, int row_stride, int device,
-                                          void* stream) {
+                                          int row0, int rows, int row_stride, int h0,
+                                          int device, void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || !aligned16(out)) return (int)cudaErrorInvalidValue;
-  if (!rows_ok(B, row0, rows, row_stride)) return (int)cudaErrorInvalidValue;
-  const bool mapped = !(row0 == 0 && rows >= B);
+  if (!rows_ok(B, row0, rows, row_stride) || !heads_ok(H, h0)) return (int)cudaErrorInvalidValue;
+  const bool mapped = !(row0 == 0 && rows >= B && h0 == 0);
   const auto kernel = mapped ? dropout_keep_mask_kernel<true> : dropout_keep_mask_kernel<false>;
   const long long n = (long long)B * H * Tq * Tk;
   if (n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
@@ -1162,6 +1179,6 @@ extern "C" int sbl_dropout_keep_mask_flat(void* out, int B, int H, int Tq, int T
   const unsigned blocks = (unsigned)(want < resident ? want : resident);
   kernel<<<blocks, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<unsigned char*>(out), (uint32_t)n, FastDiv(Tk), FastDiv(Tq), FastDiv(H), seed,
-      thresh, (uint32_t)row0, (uint32_t)rows, (uint32_t)row_stride);
+      thresh, (uint32_t)row0, (uint32_t)rows, (uint32_t)row_stride, (uint32_t)h0);
   return (int)cudaGetLastError();
 }

@@ -223,8 +223,7 @@ def make_uni_beam_decoder(model, beam_size: int = 5,
             enc_kv = dec.compute_cross_kv(enc.repeat_interleave(K, dim=0))
             if kv_cache:
                 cache0 = make_uni_cache(B * K, dec.maxlen + 1, dec.n_layers,
-                                        dec.n_head * dec.d_k,
-                                        dec.n_head * dec.d_v, dec.dtype,
+                                        *dec.cache_widths(), dec.dtype,
                                         enc.device)
 
                 def step_fn_kv(tok, cache, step):

@@ -27,7 +27,9 @@ def check_kernel_shapes(cfg) -> None:
     of the workload (its frames, or the decoder's maxlen + 1 positions)
     within their shared memory; K11 (``use_fused_decoder_layer``) takes a
     decode segment of at most MAX_ROWS positions and d_inner a multiple of
-    d_model."""
+    d_model.  Tensor parallelism changes none of this: a process launches
+    the attention kernels on its heads, of the same width, and K11 on the
+    whole layer."""
     dims, dec = cfg.dims, cfg.decoder
     if cfg.use_pallas_attention:
         if dims.d_k not in HEAD_DIMS:

@@ -34,6 +34,14 @@ decoder vmaps each layer over the direction axis with one dropout key per
 direction; here both directions fold into one launch of 2B rows, and the
 batch row in the kernels' Philox counter (and the (2, B, ...) shape of the
 elementwise masks) gives each direction its own mask.
+
+Tensor parallelism (``parallel.shard_model``): each layer's attention and
+FFN shard on the trailing dims of their direction-stacked weights, as JAX's
+``param_spec`` right-aligns its rules.  K11 (``use_fused_decoder_layer``)
+takes a whole layer: under tensor parallelism the decoder runs whole in
+eval, its weights gathered over the model group once a batch
+(``layers.cast_dense_weights``, or ``_run`` itself), and each process runs
+the kernel on the whole layer; training keeps the sharded module path.
 """
 from __future__ import annotations
 
@@ -51,7 +59,7 @@ from ..ops.decoder_layer import (fused_decoder_layer, fused_decoder_layer_plain,
 from ..vocab import EOS_ID, IGNORE_ID, SOS_ID
 from .layers import (CachedCrossAttention, CrossKV, Dense, DropoutRNG,
                      MultiHeadAttention, PositionwiseFeedForward, dropout,
-                     sinusoid_position_encoding)
+                     run_whole, sinusoid_position_encoding)
 
 DIRS = 2
 
@@ -119,7 +127,9 @@ class _SBLLayer(nn.Module):
         call, d_k == d_v, and heads that fill the model width (the kernel
         packs the biases and LayerNorm vectors into one (13, d_model) tile
         and writes the (n_head * d_v)-wide context into the d_model-wide
-        residual stream)."""
+        residual stream).  ``n_head`` is the model's, whatever the
+        sublayers hold under tensor parallelism: a sharded layer here
+        fails K11's shape check rather than leaving the kernel."""
         return (self.use_fused_layer and rng is None and self.d_k == self.d_v
                 and self.n_head * self.d_k == self.d_model)
 
@@ -215,6 +225,7 @@ class SBLDecoder(nn.Module):
                  use_fused_layer: bool = False):
         super().__init__()
         self.maxlen, self.decode_segments = maxlen, decode_segments
+        self.use_fused_layer = use_fused_layer
         self.n_layers, self.dtype, self.vocab_size = n_layers, dtype, vocab_size
         self.teacher_forcing_rate, self.remat = teacher_forcing_rate, remat
         self.step = _SBLStep(vocab_size, d_model, n_layers, n_head, d_k, d_v,
@@ -257,6 +268,16 @@ class SBLDecoder(nn.Module):
         """The decode loop (JAX ``SBLDecoder._run``).  gold: (2, B, maxlen)
         or None where ``use_gold`` is all False.  Returns the token buffers
         (2, B, maxlen+1) and the f32 logits (2, B, maxlen, V)."""
+        whole = [] if rng is not None else [
+            m for m in self.modules() if getattr(m, "whole_in_eval", False)]
+        if whole:
+            # K11 under tensor parallelism: the whole decoder (nothing to
+            # gather inside cast_dense_weights, which gathered it already)
+            with torch.no_grad(), run_whole(whole):
+                return self._loop(enc_output, gold, use_gold, None)
+        return self._loop(enc_output, gold, use_gold, rng)
+
+    def _loop(self, enc_output, gold, use_gold, rng):
         B = enc_output.shape[0]
         ys = torch.full((DIRS, B, self.maxlen + 1), SOS_ID, dtype=torch.int64,
                         device=enc_output.device)

@@ -116,6 +116,12 @@ class UniDecoder(nn.Module):
         nn.init.xavier_uniform_(w, generator=g)
         self.tgt_word_emb.weight.copy_(w)
 
+    def cache_widths(self) -> Tuple[int, int]:
+        """The self-attention caches' widths (kd, vd): this process's heads
+        under tensor parallelism."""
+        h = self.slf_attn_0.n_head
+        return h * self.d_k, h * self.d_v
+
     def _layers(self):
         for i in range(self.n_layers):
             yield (getattr(self, f"slf_attn_{i}"), getattr(self, f"enc_attn_{i}"),
@@ -230,8 +236,8 @@ class UniDecoder(nn.Module):
         B, dev = enc_output.shape[0], enc_output.device
         L = steps + 1
         enc_kv = self.compute_cross_kv(enc_output)
-        cache = make_uni_cache(B, L, self.n_layers, self.n_head * self.d_k,
-                               self.n_head * self.d_v, self.dtype, dev)
+        cache = make_uni_cache(B, L, self.n_layers, *self.cache_widths(),
+                               self.dtype, dev)
         ys = torch.full((B, L), SOS_ID, dtype=torch.int64, device=dev)
         for step in range(steps):
             logits, cache = self.decode_step_cached(ys[:, step], cache, enc_kv,

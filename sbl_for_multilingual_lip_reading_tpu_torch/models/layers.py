@@ -16,6 +16,27 @@
   ``sinusoid_position_encoding``.
 * ``DropoutRNG`` / ``dropout`` -- the training forward's random numbers.
 
+Tensor parallelism (the mesh's ``model`` axis, Megatron's layout;
+``parallel.shard_model`` cuts a built model down to one process's slice).
+A sharded attention holds its heads [m H/M, (m+1) H/M) of Q, K and V and
+the matching input columns of ``fc``; a sharded FFN its d_inner / M slice
+of ``w_1`` and the matching columns of ``w_2``.  Two operators join the
+slices: f (``copy_to_model``) before the column-parallel projections, the
+identity whose backward sums the input's gradient over the model group,
+and g inside a row-parallel ``Dense``, which sums the f32 partial products
+over the group, rounds once and adds the bias once.  Where JAX's rules
+shard the projections but not the ``fc`` after them (the unidirectional
+decoder's ``slf_attn_i`` / ``enc_attn_i``, whose paths its ``fc`` rule
+does not match), the heads' context is gathered over the group
+(``gather_heads``) and ``fc`` runs whole, as GSPMD gathers a sharded
+operand for a replicated consumer.  Dropout after ``fc``
+and ``w_2`` acts on whole activations, so every model process draws the
+same mask from the same seed; the attention probabilities' masks are the
+process's heads of the one-process masks (the kernels' head offset
+``h0``).  ``cast_dense_weights`` runs the modules marked ``whole_in_eval``
+(an SBL decoder under ``use_fused_decoder_layer``) on their weights
+gathered over the group.
+
 Numerics follow the JAX modules: parameters in f32, cast to the compute
 dtype where they are used; matmuls in the compute dtype, rounded before the
 bias is added; LayerNorm in f32 with flax's eps 1e-6 (torch's default is
@@ -37,6 +58,8 @@ from torch import nn
 
 from ..ops.attention import (MASK_FILL, BatchRows, small_mha_dropout_flat,
                              small_mha_flat, small_mha_flat_plain)
+from ..parallel.tensor import (copy_to_model, gather_from_model,
+                               gather_heads, reduce_from_model)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -54,6 +77,9 @@ class DropoutRNG:
     the one-process run.  Elementwise masks are drawn at the whole batch's
     shape and cut to the stripe; the attention kernels map their batch rows
     (``ops.attention.BatchRows``).  Seeds and coins are the same in every
+    process.  Under tensor parallelism each attention passes the kernels
+    its own head offset besides these rows (``attend``'s ``h0``), and the
+    elementwise masks, on whole activations, are the same in every model
     process."""
 
     def __init__(self, seed: int, device, rows: Optional[BatchRows] = None):
@@ -126,6 +152,10 @@ class Dense(nn.Module):
         self.weight = nn.Parameter(torch.empty(shape))
         self.bias = nn.Parameter(torch.zeros(shape[:-1])) if bias else None
         self.cast = None    # (weight, bias) cast once, see cast_dense_weights
+        # tensor parallelism: "column" (output rows sharded) or "row" (input
+        # columns sharded), the mesh, and the whole f32 (weight, bias)
+        # gathered over its model group while the module runs whole
+        self.parallel, self.mesh, self.whole = None, None, None
 
     @torch.no_grad()
     def init_weights(self, g: torch.Generator) -> None:
@@ -141,14 +171,49 @@ class Dense(nn.Module):
         if self.bias is not None:
             self.bias.zero_()
 
+    def params(self):
+        """The f32 (weight, bias) this layer computes with: its own, or the
+        whole ones gathered while it runs whole."""
+        return self.whole or (self.weight, self.bias)
+
     def cast_params(self):
-        return (self.weight.to(self.dtype),
-                None if self.bias is None else self.bias.to(self.dtype))
+        w, b = self.params()
+        return w.to(self.dtype), None if b is None else b.to(self.dtype)
+
+    @torch.no_grad()
+    def shard_(self, mesh, kind: str) -> None:
+        """Keep this process's slice: ``column`` its output rows (and bias),
+        ``row`` its input columns.  The slices are new parameters, each
+        marked with the mesh (``tp_mesh``) for the gradient norm."""
+        dim = -2 if kind == "column" else -1
+        M, m = mesh.model_size, mesh.model_rank
+        self.weight = nn.Parameter(
+            self.weight.chunk(M, dim)[m].contiguous())
+        self.weight.tp_mesh = mesh
+        if kind == "column" and self.bias is not None:
+            self.bias = nn.Parameter(self.bias.chunk(M, -1)[m].contiguous())
+            self.bias.tp_mesh = mesh
+        self.parallel, self.mesh = kind, mesh
+
+    def _product(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        if self.dirs is None:
+            return F.linear(x, w)
+        y = torch.bmm(x.reshape(self.dirs, -1, x.shape[-1]), w.transpose(1, 2))
+        return y.reshape(*x.shape[:-1], y.shape[-1])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # flax rounds the product to the compute dtype, then adds the bias
         # (a fused addmm would round once, after the add)
         w, b = self.cast or self.cast_params()
+        if self.parallel == "row" and self.whole is None:
+            # g: the f32 partial products summed over the model group,
+            # rounded once, the bias added once
+            y = reduce_from_model(self._product(x.float(), w.float()),
+                                  self.mesh).to(self.dtype)
+            if b is None:
+                return y
+            return y + (b if self.dirs is None else
+                        b.view(self.dirs, *(1,) * (y.dim() - 2), -1))
         if self.dirs is None:
             y = F.linear(x, w)
             return y if b is None else y + b
@@ -171,13 +236,90 @@ def cast_dense_weights(model: nn.Module):
         raise RuntimeError("cast_dense_weights needs torch.no_grad() or "
                            "torch.inference_mode()")
     dense = [m for m in model.modules() if isinstance(m, Dense)]
-    for m in dense:
-        m.cast = m.cast_params()
+    whole = [m for m in model.modules() if getattr(m, "whole_in_eval", False)]
+    with run_whole(whole):
+        for m in dense:
+            m.cast = m.cast_params()
+        try:
+            yield
+        finally:
+            for m in dense:
+                m.cast = None
+
+
+class _Sharded:
+    """Tensor-parallel state of a module made of column-parallel ``Dense``
+    layers (``COLUMN``) feeding row-parallel ones (``ROW``): once sharded,
+    ``mesh``, the layers sharded and how (``tp_sharded``: every COLUMN one,
+    and each ROW one whose rule shards it), and for an attention its head
+    offset ``h0`` among the model's heads (its ``n_head`` becomes the local
+    count)."""
+    COLUMN: tuple = ()
+    ROW: tuple = ()
+    mesh = None
+    h0 = 0
+    tp_sharded: tuple = ()
+    whole_in_eval = False   # gathered inside cast_dense_weights
+
+    def tp_denses(self):
+        return ([(n, "column") for n in self.COLUMN]
+                + [(n, "row") for n in self.ROW])
+
+    def shard_(self, mesh, kinds) -> None:
+        """Keep this process's slice of the ``kinds`` ((name, "column" |
+        "row")) layers."""
+        for name, kind in kinds:
+            getattr(self, name).shard_(mesh, kind)
+        self.tp_sharded = tuple(kinds)
+        if hasattr(self, "n_head"):
+            self.n_head //= mesh.model_size
+            self.h0 = mesh.model_rank * self.n_head
+        self.mesh = mesh
+
+    def _enter(self, x: torch.Tensor) -> torch.Tensor:
+        """f: the identity forward, the input gradient summed over the
+        model group."""
+        return x if self.mesh is None else copy_to_model(x, self.mesh)
+
+    def _exit(self, x: torch.Tensor) -> torch.Tensor:
+        """The column-parallel output, gathered whole over the model group
+        where the ROW layer after it runs whole."""
+        if self.mesh is None or not self.ROW or any(
+                k == "row" for _, k in self.tp_sharded):
+            return x
+        return gather_heads(x, self.mesh)
+
+
+@contextlib.contextmanager
+def run_whole(modules):
+    """Inside the block, each sharded module of ``modules`` runs as the
+    unsharded one: every ``Dense`` on its weight and bias gathered over the
+    model group (once, on entry), all heads, no collective.  The f32
+    copies take no gradient.  Modules already whole are left as they are."""
+    todo = [m for m in modules if m.mesh is not None]
+    saved = []
+    with torch.no_grad():
+        for m in todo:
+            saved.append((m, m.mesh, getattr(m, "n_head", None), m.h0))
+            for name, kind in m.tp_sharded:
+                d = getattr(m, name)
+                w = gather_from_model(d.weight, m.mesh, -2 if kind == "column" else -1)
+                b = d.bias
+                if b is not None and kind == "column":
+                    b = gather_from_model(b, m.mesh, -1)
+                d.whole = (w, b)
+            if hasattr(m, "n_head"):
+                m.n_head *= m.mesh.model_size
+            m.mesh, m.h0 = None, 0
     try:
         yield
     finally:
-        for m in dense:
-            m.cast = None
+        for m, mesh, n_head, h0 in saved:
+            for name, _ in m.tp_sharded:
+                getattr(m, name).whole = None
+            if n_head is not None:
+                m.n_head = n_head
+            m.mesh, m.h0 = mesh, h0
 
 
 class LayerNorm(nn.Module):
@@ -206,13 +348,15 @@ class LayerNorm(nn.Module):
 
 def attend(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor, n_head: int,
            bias: Optional[torch.Tensor], scale: float, use_kernels: bool,
-           rate: float = 0.0, rng: Optional[DropoutRNG] = None) -> torch.Tensor:
+           rate: float = 0.0, rng: Optional[DropoutRNG] = None,
+           h0: int = 0) -> torch.Tensor:
     """Flat attention over (..., T, H*d) projections: every leading axis
     (batch, and the decoder's direction axis) folds into the kernel's batch,
     so one launch covers both directions.  Deterministic (K1) without an
     rng; with one, the training attention (K3 forward, K4 backward) with
     dropout ``rate`` on the probabilities and a seed drawn from the rng
-    (seed 0 and no draw at rate 0, as in JAX)."""
+    (seed 0 and no draw at rate 0, as in JAX).  ``n_head`` is the heads
+    this process holds and ``h0`` the first of them among the model's."""
     q3 = q2.reshape(-1, *q2.shape[-2:])
     k3 = k2.reshape(-1, *k2.shape[-2:])
     v3 = v2.reshape(-1, *v2.shape[-2:])
@@ -222,7 +366,7 @@ def attend(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor, n_head: int,
     else:
         seed = rng.seed() if rate > 0.0 else 0
         ctx = small_mha_dropout_flat(q3, k3, v3, n_head, bias, seed, rate,
-                                     scale, use_kernels, rng.rows)
+                                     scale, use_kernels, rng.rows, h0)
     return ctx.reshape(*q2.shape[:-1], ctx.shape[-1])
 
 
@@ -242,9 +386,10 @@ def _qk_std(d_model: int, d: int) -> float:
     return math.sqrt(2.0 / (d_model + d))
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(_Sharded, nn.Module):
     """Post-LN multi-head attention; submodule names match the JAX module
     (w_qs/w_ks/w_vs/fc/layer_norm)."""
+    COLUMN, ROW = ("w_qs", "w_ks", "w_vs"), ("fc",)
 
     def __init__(self, d_model: int, n_head: int, d_k: int, d_v: int,
                  dtype=torch.float32, use_kernels: bool = True,
@@ -267,9 +412,14 @@ class MultiHeadAttention(nn.Module):
                 bias: Optional[torch.Tensor] = None,
                 rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         """q/k/v: (..., T, d_model); bias: additive (1|B, Tq, Tk) f32."""
-        ctx = attend(self.w_qs(q), self.w_ks(k), self.w_vs(v), self.n_head,
-                     bias, self.scale, self.use_kernels, self.dropout, rng)
-        out = dropout(self.fc(ctx), self.dropout, rng, _batch_dim(self.fc))
+        xq = self._enter(q)
+        xk = xq if k is q else self._enter(k)
+        xv = xk if v is k else self._enter(v)
+        ctx = attend(self.w_qs(xq), self.w_ks(xk), self.w_vs(xv), self.n_head,
+                     bias, self.scale, self.use_kernels, self.dropout, rng,
+                     self.h0)
+        out = dropout(self.fc(self._exit(ctx)), self.dropout, rng,
+                      _batch_dim(self.fc))
         return _post_ln(self.layer_norm, out, q, self.dtype)
 
     def decode_step(self, x: torch.Tensor, k_cache: torch.Tensor,
@@ -280,7 +430,8 @@ class MultiHeadAttention(nn.Module):
         the flat (B, L, h*d) caches.
 
         x: (B, 1, d_model), the layer input at position ``step``;
-        k_cache/v_cache: projected caches whose slots >= step are unset.
+        k_cache/v_cache: projected caches whose slots >= step are unset
+        (this process's heads under tensor parallelism).
         Slot ``step`` is written IN PLACE (JAX returns updated copies; the
         callers here own their caches).  Returns (out (B, 1, d_model),
         k_cache, v_cache).  Deterministic path only."""
@@ -299,31 +450,34 @@ class MultiHeadAttention(nn.Module):
         logits = torch.where(invalid[None, None, :], MASK_FILL, logits)
         attn = torch.softmax(logits, dim=-1).to(self.dtype)
         ctx = torch.einsum("bhk,bkhd->bhd", attn.to(f32), vh).to(self.dtype)
-        out = self.fc(ctx.reshape(B, 1, HD))
+        out = self.fc(self._exit(ctx.reshape(B, 1, HD)))
         return _post_ln(self.layer_norm, out, x, self.dtype), k_cache, v_cache
 
 
-class CrossKV(nn.Module):
+class CrossKV(_Sharded, nn.Module):
     """Cross-attention K/V projections, split out so the decoder projects
     the encoder sequence once per clip.  Returns FLAT (..., Tk, H*d)."""
+    COLUMN = ("w_ks", "w_vs")
 
     def __init__(self, d_model: int, n_head: int, d_k: int, d_v: int,
                  dtype=torch.float32, dirs: Optional[int] = None):
         super().__init__()
-        self.dirs = dirs
+        self.dirs, self.n_head = dirs, n_head
         kw = dict(dirs=dirs, dtype=dtype, init="normal")
         self.w_ks = Dense(d_model, n_head * d_k, std=_qk_std(d_model, d_k), **kw)
         self.w_vs = Dense(d_model, n_head * d_v, std=_qk_std(d_model, d_v), **kw)
 
     def forward(self, enc: torch.Tensor):
         """enc: (B, Tk, d_model), shared by every direction."""
+        enc = self._enter(enc)
         x = enc if self.dirs is None else enc.expand(self.dirs, *enc.shape)
         return self.w_ks(x), self.w_vs(x)
 
 
-class CachedCrossAttention(nn.Module):
+class CachedCrossAttention(_Sharded, nn.Module):
     """Multi-head cross-attention over precomputed ``CrossKV`` outputs:
     ``MultiHeadAttention`` minus the per-call K/V projections."""
+    COLUMN, ROW = ("w_qs",), ("fc",)
 
     def __init__(self, d_model: int, n_head: int, d_k: int, d_v: int,
                  dtype=torch.float32, use_kernels: bool = True,
@@ -343,14 +497,16 @@ class CachedCrossAttention(nn.Module):
     def forward(self, q: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
                 rng: Optional[DropoutRNG] = None) -> torch.Tensor:
-        ctx = attend(self.w_qs(q), k2, v2, self.n_head, bias, self.scale,
-                     self.use_kernels, self.dropout, rng)
-        out = dropout(self.fc(ctx), self.dropout, rng, _batch_dim(self.fc))
+        ctx = attend(self.w_qs(self._enter(q)), k2, v2, self.n_head, bias,
+                     self.scale, self.use_kernels, self.dropout, rng, self.h0)
+        out = dropout(self.fc(self._exit(ctx)), self.dropout, rng,
+                      _batch_dim(self.fc))
         return _post_ln(self.layer_norm, out, q, self.dtype)
 
 
-class PositionwiseFeedForward(nn.Module):
+class PositionwiseFeedForward(_Sharded, nn.Module):
     """w_2(relu(w_1(x))), dropout, post-LN residual."""
+    COLUMN, ROW = ("w_1",), ("w_2",)
 
     def __init__(self, d_model: int, d_inner: int, dtype=torch.float32,
                  dirs: Optional[int] = None, dropout: float = 0.1):
@@ -362,8 +518,8 @@ class PositionwiseFeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 rng: Optional[DropoutRNG] = None) -> torch.Tensor:
-        h = dropout(self.w_2(F.relu(self.w_1(x))), self.dropout, rng,
-                    _batch_dim(self.w_2))
+        h = self._exit(F.relu(self.w_1(self._enter(x))))
+        h = dropout(self.w_2(h), self.dropout, rng, _batch_dim(self.w_2))
         return _post_ln(self.layer_norm, h, x, self.dtype)
 
 

@@ -13,7 +13,11 @@ split and merge done inside the kernel and the softmax in f32:
   (``fused_small_mha_dropout_bwd_flat``): its dQ, dK, dV, regenerating the
   mask from the same seed; K5 ``dropout_keep_mask_flat``: that mask.  CUDA
   source ``csrc/attention_train.cu``, whose header gives the Philox counter
-  layout that ``philox4x32_10`` here reproduces bit for bit.
+  layout that ``philox4x32_10`` here reproduces bit for bit.  Two maps place
+  a launch in the one-process run whose masks it draws: ``rows``
+  (``BatchRows``, a data-parallel process's batch rows) and ``h0`` (the
+  first of a tensor-parallel process's heads: the counter's head is
+  h0 + h).
 * ``small_mha_dropout_flat``: the ``torch.autograd.Function`` the training
   path calls (JAX ``small_mha_dropout_grad_flat``, a custom VJP): K3 forward,
   K4 backward, saving only q, k, v and the bias.
@@ -300,6 +304,14 @@ class BatchRows(NamedTuple):
     total: int
 
 
+def _check_h0(H: int, h0: int) -> int:
+    """The counter's first head: every head h0 + h below 2^31."""
+    h0 = int(h0)
+    if h0 < 0 or h0 + H > 2 ** 31:
+        raise ValueError(f"head offset {h0} of {H} heads outside [0, 2^31)")
+    return h0
+
+
 def _row_args(B: int, rows: Optional[BatchRows]):
     """(row0, rows, row_stride) of the kernels' batch-row map: the identity
     without ``rows``."""
@@ -315,13 +327,14 @@ def _row_args(B: int, rows: Optional[BatchRows]):
 
 def dropout_keep_mask_flat_plain(B: int, Tq: int, Tk: int, H: int, seed: int,
                                  rate: float, device=None,
-                                 rows: Optional[BatchRows] = None
-                                 ) -> torch.Tensor:
+                                 rows: Optional[BatchRows] = None,
+                                 h0: int = 0) -> torch.Tensor:
     """Plain version of K5: the (B, H, Tq, Tk) bool keep mask, from word 0
-    of Philox4x32-10 at counter (key, query, head, batch row), the batch
-    row mapped by ``rows`` where given."""
+    of Philox4x32-10 at counter (key, query, h0 + head, batch row), the
+    batch row mapped by ``rows`` where given."""
     seed = _check_seed(seed)
     row0, local, stride = _row_args(B, rows)
+    h0 = _check_h0(H, h0)
 
     def axis(n, dim):
         shape = [1, 1, 1, 1]
@@ -330,22 +343,25 @@ def dropout_keep_mask_flat_plain(B: int, Tq: int, Tk: int, H: int, seed: int,
 
     b = axis(B, 0)
     b = (b // local) * stride + row0 + b % local
-    bits = philox4x32_10((axis(Tk, 3), axis(Tq, 2), axis(H, 1), b), seed)[0]
+    bits = philox4x32_10((axis(Tk, 3), axis(Tq, 2), axis(H, 1) + h0, b),
+                         seed)[0]
     return bits >= dropout_threshold(rate)
 
 
 def dropout_keep_mask_flat(B: int, Tq: int, Tk: int, H: int, seed: int,
                            rate: float, device=None,
-                           rows: Optional[BatchRows] = None) -> torch.Tensor:
+                           rows: Optional[BatchRows] = None,
+                           h0: int = 0) -> torch.Tensor:
     """K5: the (B, H, Tq, Tk) bool keep mask that K3 and K4 draw for
-    ``seed`` (and ``rows``) on a (B, Tq, H*d) x (B, Tk, H*d) launch.  On a
+    ``seed`` (and ``rows``, ``h0``) on a (B, Tq, H*d) x (B, Tk, H*d) launch.  On a
     CUDA device (the default) it launches the kernel, and raises without a
     card; on the CPU (``device="cpu"``) it takes the plain version."""
     device = resolve_device(device)
     if device.type == "cpu":
         return dropout_keep_mask_flat_plain(B, Tq, Tk, H, seed, rate, device,
-                                            rows)
-    out = _k5("dropout_keep_mask_flat", B, Tq, Tk, H, seed, rate, device, rows)
+                                            rows, h0)
+    out = _k5("dropout_keep_mask_flat", B, Tq, Tk, H, seed, rate, device, rows,
+              h0)
     dropout_keep_mask_flat.launches += 1
     return out
 
@@ -353,7 +369,7 @@ def dropout_keep_mask_flat(B: int, Tq: int, Tk: int, H: int, seed: int,
 dropout_keep_mask_flat.launches = 0
 
 
-def _k5(name, B, Tq, Tk, H, seed, rate, device, rows=None):
+def _k5(name, B, Tq, Tk, H, seed, rate, device, rows=None, h0=0):
     """Launch K5 on a CUDA device into a new (B, H, Tq, Tk) bool mask.  K5
     indexes its elements in 32 bits, so a mask of MAX_MASK_ELEMENTS or more
     is refused before it is allocated (the plain version has no such
@@ -361,6 +377,7 @@ def _k5(name, B, Tq, Tk, H, seed, rate, device, rows=None):
     seed = _check_seed(seed)
     thresh = dropout_threshold(rate)
     row_args = _row_args(B, rows)
+    h0 = _check_h0(H, h0)
     if device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {device}")
     if B * H * Tq * Tk >= MAX_MASK_ELEMENTS:
@@ -370,13 +387,14 @@ def _k5(name, B, Tq, Tk, H, seed, rate, device, rows=None):
     if out.numel() == 0:
         return out
     err = _build.library().sbl_dropout_keep_mask_flat(
-        out.data_ptr(), B, H, Tq, Tk, seed, thresh, *row_args, device.index,
-        _stream(device))
+        out.data_ptr(), B, H, Tq, Tk, seed, thresh, *row_args, h0,
+        device.index, _stream(device))
     _build.check(err, name)
     return out
 
 
-def _train_probs(q, k, v, n_head, bias, seed, rate, scale, keep, rows=None):
+def _train_probs(q, k, v, n_head, bias, seed, rate, scale, keep, rows=None,
+                 h0=0):
     """Shared plain forward/backward recompute: heads (B, H, T, d), P and
     P after dropout (B, H, Tq, Tk) in at least f32, and the keep mask (None
     at rate 0, where nothing is drawn)."""
@@ -389,7 +407,8 @@ def _train_probs(q, k, v, n_head, bias, seed, rate, scale, keep, rows=None):
         return qh, kh, vh, p, p, None
     if keep is None:
         keep = dropout_keep_mask_flat_plain(q.shape[0], q.shape[1], k.shape[1],
-                                            n_head, seed, rate, q.device, rows)
+                                            n_head, seed, rate, q.device, rows,
+                                            h0)
     return qh, kh, vh, p, torch.where(keep, p, 0.0) * (1.0 / (1.0 - rate)), keep
 
 
@@ -399,15 +418,15 @@ def small_mha_dropout_flat_plain(q: torch.Tensor, k: torch.Tensor,
                                  seed: int = 0, rate: float = 0.0,
                                  scale: Optional[float] = None,
                                  keep: Optional[torch.Tensor] = None,
-                                 rows: Optional[BatchRows] = None
-                                 ) -> torch.Tensor:
+                                 rows: Optional[BatchRows] = None,
+                                 h0: int = 0) -> torch.Tensor:
     """Plain version of K3.  ``keep`` injects a (B, H, Tq, Tk) mask; by
-    default it is drawn from ``seed`` (and ``rows``) with the plain Philox
-    (K5's bits)."""
+    default it is drawn from ``seed`` (and ``rows``, ``h0``) with the plain
+    Philox (K5's bits)."""
     B, Tq, Tk, D = _check(q, k, v, n_head, bias)
     dropout_threshold(rate)
     _, _, vh, _, pd, _ = _train_probs(q, k, v, n_head, bias, seed, rate,
-                                      _scale(scale, D, n_head), keep, rows)
+                                      _scale(scale, D, n_head), keep, rows, h0)
     return _merge(torch.matmul(pd, vh), q.dtype)
 
 
@@ -418,7 +437,8 @@ def small_mha_dropout_bwd_flat_plain(q: torch.Tensor, k: torch.Tensor,
                                      scale: Optional[float],
                                      dout: torch.Tensor,
                                      keep: Optional[torch.Tensor] = None,
-                                     rows: Optional[BatchRows] = None):
+                                     rows: Optional[BatchRows] = None,
+                                     h0: int = 0):
     """Plain version of K4: (dq, dk, dv) of K3 for the output gradient
     ``dout``, in the dtypes of q, k, v, by the JAX kernel's formulas."""
     B, Tq, Tk, D = _check(q, k, v, n_head, bias)
@@ -427,7 +447,7 @@ def small_mha_dropout_bwd_flat_plain(q: torch.Tensor, k: torch.Tensor,
     dropout_threshold(rate)
     scale = _scale(scale, D, n_head)
     qh, kh, vh, p, pd, keep = _train_probs(q, k, v, n_head, bias, seed, rate,
-                                           scale, keep, rows)
+                                           scale, keep, rows, h0)
     g = _heads(dout, n_head)
     dv = torch.matmul(pd.transpose(-1, -2), g)
     dp = torch.matmul(g, vh.transpose(-1, -2))
@@ -448,9 +468,11 @@ def small_mha_dropout_fwd_flat(q: torch.Tensor, k: torch.Tensor,
                                bias: Optional[torch.Tensor] = None,
                                seed: int = 0, rate: float = 0.0,
                                scale: Optional[float] = None,
-                               rows: Optional[BatchRows] = None) -> torch.Tensor:
+                               rows: Optional[BatchRows] = None,
+                               h0: int = 0) -> torch.Tensor:
     """K3: flat attention with dropout ``rate`` on its probabilities, the
-    mask drawn from ``seed`` (its batch rows mapped by ``rows``).  CUDA tensors (``train_kernels_fit``: d in
+    mask drawn from ``seed`` (its batch rows mapped by ``rows``, its heads
+    starting at ``h0``).  CUDA tensors (``train_kernels_fit``: d in
     HEAD_DIMS, Tq and Tk within its shared memory; f32 or bf16, contiguous)
     launch the kernel; CPU tensors take the plain version."""
     _check(q, k, v, n_head, bias)
@@ -458,9 +480,9 @@ def small_mha_dropout_fwd_flat(q: torch.Tensor, k: torch.Tensor,
     dropout_threshold(rate)
     if q.device.type == "cpu":
         return small_mha_dropout_flat_plain(q, k, v, n_head, bias, seed, rate,
-                                            scale, rows=rows)
+                                            scale, rows=rows, h0=h0)
     out = _k3("small_mha_dropout_fwd_flat", q, k, v, n_head, bias, seed, rate,
-              scale, rows)
+              scale, rows, h0)
     small_mha_dropout_fwd_flat.launches += 1
     return out
 
@@ -468,12 +490,13 @@ def small_mha_dropout_fwd_flat(q: torch.Tensor, k: torch.Tensor,
 small_mha_dropout_fwd_flat.launches = 0
 
 
-def _k3(name, q, k, v, n_head, bias, seed, rate, scale, rows=None):
+def _k3(name, q, k, v, n_head, bias, seed, rate, scale, rows=None, h0=0):
     """Launch K3 on flat CUDA operands (checked here) into a new tensor."""
     B, Tq, Tk, D = _check(q, k, v, n_head, bias)
     seed = _check_seed(seed)
     thresh, inv_keep, on = _dropout_launch_args(rate)
     row_args = _row_args(B, rows)
+    h0 = _check_h0(n_head, h0)
     _check_cuda(name, (q, k, v), bias, D // n_head, train=True)
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -483,7 +506,7 @@ def _k3(name, q, k, v, n_head, bias, seed, rate, scale, rows=None):
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         B, Tq, Tk, n_head, D // n_head, int(bias is not None and bias.shape[0] > 1),
         float(_scale(scale, D, n_head)), seed, thresh, inv_keep, on, *row_args,
-        _DTYPE_CODES[q.dtype], q.device.index, _stream(q.device))
+        h0, _DTYPE_CODES[q.dtype], q.device.index, _stream(q.device))
     _build.check(err, name)
     return out
 
@@ -493,9 +516,10 @@ def small_mha_dropout_bwd_flat(q: torch.Tensor, k: torch.Tensor,
                                bias: Optional[torch.Tensor], seed: int,
                                rate: float, scale: Optional[float],
                                dout: torch.Tensor,
-                               rows: Optional[BatchRows] = None):
+                               rows: Optional[BatchRows] = None,
+                               h0: int = 0):
     """K4: (dq, dk, dv) of K3, regenerating its mask from ``seed`` (and
-    ``rows``).  CUDA
+    ``rows``, ``h0``).  CUDA
     tensors launch the kernel (K3's conditions, dout like q); CPU tensors
     take the plain version."""
     _check(q, k, v, n_head, bias)
@@ -505,9 +529,10 @@ def small_mha_dropout_bwd_flat(q: torch.Tensor, k: torch.Tensor,
     dropout_threshold(rate)
     if q.device.type == "cpu":
         return small_mha_dropout_bwd_flat_plain(q, k, v, n_head, bias, seed,
-                                                rate, scale, dout, rows=rows)
+                                                rate, scale, dout, rows=rows,
+                                                h0=h0)
     grads = _k4("small_mha_dropout_bwd_flat", q, k, v, n_head, bias, seed,
-                rate, scale, dout, rows)
+                rate, scale, dout, rows, h0)
     small_mha_dropout_bwd_flat.launches += 1
     return grads
 
@@ -515,7 +540,8 @@ def small_mha_dropout_bwd_flat(q: torch.Tensor, k: torch.Tensor,
 small_mha_dropout_bwd_flat.launches = 0
 
 
-def _k4(name, q, k, v, n_head, bias, seed, rate, scale, dout, rows=None):
+def _k4(name, q, k, v, n_head, bias, seed, rate, scale, dout, rows=None,
+        h0=0):
     """Launch K4 on flat CUDA operands (checked here) into new tensors.  At
     rate 0 the kernel draws no mask and never reads ``inv_keep``, so its
     gradients are those of the plain backward without dropout."""
@@ -525,6 +551,7 @@ def _k4(name, q, k, v, n_head, bias, seed, rate, scale, dout, rows=None):
     seed = _check_seed(seed)
     thresh, inv_keep, on = _dropout_launch_args(rate)
     row_args = _row_args(B, rows)
+    h0 = _check_h0(n_head, h0)
     _check_cuda(name, (q, k, v, dout), bias, D // n_head, train=True)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
@@ -535,7 +562,7 @@ def _k4(name, q, k, v, n_head, bias, seed, rate, scale, dout, rows=None):
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, Tq, Tk, n_head, D // n_head, int(bias is not None and bias.shape[0] > 1),
         float(_scale(scale, D, n_head)), seed, thresh, inv_keep, on, *row_args,
-        _DTYPE_CODES[q.dtype], q.device.index, _stream(q.device))
+        h0, _DTYPE_CODES[q.dtype], q.device.index, _stream(q.device))
     _build.check(err, name)
     return dq, dk, dv
 
@@ -564,20 +591,23 @@ def small_mha_dropout_flat(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            seed: int = 0, rate: float = 0.0,
                            scale: Optional[float] = None,
                            use_kernels: bool = True,
-                           rows: Optional[BatchRows] = None) -> torch.Tensor:
+                           rows: Optional[BatchRows] = None,
+                           h0: int = 0) -> torch.Tensor:
     """Differentiable training attention (JAX ``small_mha_dropout_grad_flat``):
     K3 forward and K4 backward through their wrappers (plain versions on CPU
     tensors), or with ``use_kernels=False`` the plain versions on any
     device.  At rate 0 nothing is drawn and the forward is K1's math.
-    ``rows`` maps the batch rows of the masks (``BatchRows``)."""
+    ``rows`` maps the batch rows of the masks (``BatchRows``), ``h0`` their
+    first head."""
     fwd = small_mha_dropout_fwd_flat if use_kernels else small_mha_dropout_flat_plain
     bwd = (small_mha_dropout_bwd_flat if use_kernels
            else small_mha_dropout_bwd_flat_plain)
     return _Attention.apply(
         q, k, v, bias,
-        lambda q, k, v, b: fwd(q, k, v, n_head, b, seed, rate, scale, rows=rows),
+        lambda q, k, v, b: fwd(q, k, v, n_head, b, seed, rate, scale,
+                               rows=rows, h0=h0),
         lambda q, k, v, b, g: bwd(q, k, v, n_head, b, seed, rate, scale, g,
-                                  rows=rows))
+                                  rows=rows, h0=h0))
 
 
 # ---------------------------------------------------------------------------
@@ -687,18 +717,22 @@ def small_mha(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
         lambda q, k, v, b, g: small_mha_bwd(q, k, v, b, scale, g))
 
 
-def small_mha_dropout_fwd_plain(qh, kh, vh, bias, seed, scale, rate, keep=None):
+def small_mha_dropout_fwd_plain(qh, kh, vh, bias, seed, scale, rate, keep=None,
+                                h0=0):
     """Plain version of ``small_mha_dropout_fwd``: K3's on views; ``keep``
     injects a (B, H, Tq, Tk) mask."""
     H = _check_headed(qh, kh, vh, bias)
     return _unflat(small_mha_dropout_flat_plain(
-        _flat(qh), _flat(kh), _flat(vh), H, bias, seed, rate, scale, keep), H)
+        _flat(qh), _flat(kh), _flat(vh), H, bias, seed, rate, scale, keep,
+        h0=h0), H)
 
 
 def small_mha_dropout_fwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                           bias: Optional[torch.Tensor], seed: int,
-                          scale: Optional[float], rate: float) -> torch.Tensor:
-    """JAX ``fused_small_mha_dropout_fwd`` (argument order as there): K3 on
+                          scale: Optional[float], rate: float,
+                          h0: int = 0) -> torch.Tensor:
+    """JAX ``fused_small_mha_dropout_fwd`` (argument order as there; ``h0``
+    the counter's first head): K3 on
     the flat views for CUDA tensors (K3/K4's lengths), the plain
     version for CPU tensors.  The mask is the flat kernel's, which does not
     depend on the layout (see ``dropout_keep_mask``)."""
@@ -706,10 +740,12 @@ def small_mha_dropout_fwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     _check_seed(seed)
     dropout_threshold(rate)
     if qh.device.type == "cpu":
-        return small_mha_dropout_fwd_plain(qh, kh, vh, bias, seed, scale, rate)
+        return small_mha_dropout_fwd_plain(qh, kh, vh, bias, seed, scale, rate,
+                                           h0=h0)
     q, k, v = _headed_cuda("small_mha_dropout_fwd", (qh, kh, vh), bias,
                            train=True)
-    out = _k3("small_mha_dropout_fwd", q, k, v, H, bias, seed, rate, scale)
+    out = _k3("small_mha_dropout_fwd", q, k, v, H, bias, seed, rate, scale,
+              h0=h0)
     small_mha_dropout_fwd.launches += 1
     return _unflat(out, H)
 
@@ -718,19 +754,19 @@ small_mha_dropout_fwd.launches = 0
 
 
 def small_mha_dropout_bwd_plain(qh, kh, vh, bias, seed, scale, rate, dout,
-                                keep=None):
+                                keep=None, h0=0):
     """Plain version of ``small_mha_dropout_bwd``: K4's on views."""
     H = _check_headed(qh, kh, vh, bias)
     grads = small_mha_dropout_bwd_flat_plain(
         _flat(qh), _flat(kh), _flat(vh), H, bias, seed, rate, scale,
-        _flat(dout), keep)
+        _flat(dout), keep, h0=h0)
     return tuple(_unflat(g, H) for g in grads)
 
 
 def small_mha_dropout_bwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                           bias: Optional[torch.Tensor], seed: int,
                           scale: Optional[float], rate: float,
-                          dout: torch.Tensor):
+                          dout: torch.Tensor, h0: int = 0):
     """JAX ``fused_small_mha_dropout_bwd``: (dq, dk, dv) of
     ``small_mha_dropout_fwd``, K4 on the flat views for CUDA tensors, the
     plain version for CPU tensors."""
@@ -741,10 +777,11 @@ def small_mha_dropout_bwd(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
     dropout_threshold(rate)
     if qh.device.type == "cpu":
         return small_mha_dropout_bwd_plain(qh, kh, vh, bias, seed, scale, rate,
-                                           dout)
+                                           dout, h0=h0)
     q, k, v, g = _headed_cuda("small_mha_dropout_bwd", (qh, kh, vh, dout),
                               bias, train=True)
-    grads = _k4("small_mha_dropout_bwd", q, k, v, H, bias, seed, rate, scale, g)
+    grads = _k4("small_mha_dropout_bwd", q, k, v, H, bias, seed, rate, scale, g,
+                h0=h0)
     small_mha_dropout_bwd.launches += 1
     return tuple(_unflat(x, H) for x in grads)
 
@@ -754,20 +791,22 @@ small_mha_dropout_bwd.launches = 0
 
 def small_mha_dropout(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
                       bias: Optional[torch.Tensor], seed: int,
-                      scale: Optional[float], rate: float) -> torch.Tensor:
+                      scale: Optional[float], rate: float,
+                      h0: int = 0) -> torch.Tensor:
     """Differentiable (B, T, H, d) training attention (JAX
     ``small_mha_dropout_grad``): ``small_mha_dropout_fwd`` forward (K3) and
     ``small_mha_dropout_bwd`` backward (K4, the mask regenerated from
     ``seed``); plain versions on CPU tensors."""
     return _Attention.apply(
         qh, kh, vh, bias,
-        lambda q, k, v, b: small_mha_dropout_fwd(q, k, v, b, seed, scale, rate),
+        lambda q, k, v, b: small_mha_dropout_fwd(q, k, v, b, seed, scale, rate,
+                                                 h0),
         lambda q, k, v, b, g: small_mha_dropout_bwd(q, k, v, b, seed, scale,
-                                                    rate, g))
+                                                    rate, g, h0))
 
 
 def dropout_keep_mask(B: int, Tq: int, Tk: int, H: int, seed: int,
-                      rate: float, device=None) -> torch.Tensor:
+                      rate: float, device=None, h0: int = 0) -> torch.Tensor:
     """JAX ``dropout_keep_mask``: the (B, H, Tq, Tk) bool keep mask the
     (B, T, H, d) dropout twins draw for ``seed``.  K5 on a CUDA device (the
     default; raises without a card); on the CPU its plain version,
@@ -781,8 +820,9 @@ def dropout_keep_mask(B: int, Tq: int, Tk: int, H: int, seed: int,
     a batch tile per program); Philox has no such order."""
     device = resolve_device(device)
     if device.type == "cpu":
-        return dropout_keep_mask_flat_plain(B, Tq, Tk, H, seed, rate, device)
-    out = _k5("dropout_keep_mask", B, Tq, Tk, H, seed, rate, device)
+        return dropout_keep_mask_flat_plain(B, Tq, Tk, H, seed, rate, device,
+                                            None, h0)
+    out = _k5("dropout_keep_mask", B, Tq, Tk, H, seed, rate, device, None, h0)
     dropout_keep_mask.launches += 1
     return out
 

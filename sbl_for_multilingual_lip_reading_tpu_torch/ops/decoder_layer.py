@@ -50,9 +50,12 @@ _VEC_ROWS = ("bq", "bk", "bv", "fc_b", "ln1_s", "ln1_b",
 
 def _dense_args(dense) -> Tuple[torch.Tensor, torch.Tensor]:
     """A ``Dense``'s weight in its compute dtype (the copy of
-    ``cast_dense_weights`` where there is one) and its f32 bias."""
-    weight = dense.cast[0] if dense.cast is not None else dense.weight.to(dense.dtype)
-    return weight, dense.bias
+    ``cast_dense_weights`` where there is one) and its f32 bias (the whole
+    ones while a tensor-parallel layer runs whole)."""
+    weight, bias = dense.params()
+    if dense.cast is not None:
+        weight = dense.cast[0]
+    return weight.to(dense.dtype), bias
 
 
 def layer_params_to_args(layer) -> tuple:

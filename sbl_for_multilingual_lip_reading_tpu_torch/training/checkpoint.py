@@ -12,6 +12,12 @@ draws; the JAX checkpoint does not keep them.  Files are written under a
 temporary name and renamed into place, so a cut-off save never leaves a
 checkpoint that looks whole.
 
+Under tensor parallelism (a model ``parallel.shard_model`` sharded) a
+checkpoint is still written whole: every process of the model group
+gathers the parameters and Adam's moments and global rank 0 writes them;
+a restore takes each process's slices.  So a checkpoint written at one
+model size loads at any other, and at none.
+
 ``restore_for_transfer`` takes the JAX package's ``/``-joined prefixes
 ("encoder", "decoder/step/layer_0"): the port names its modules after the
 JAX ones, so a prefix maps onto the port's module path component by
@@ -25,6 +31,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel.mesh import (gather_optimizer_state, gather_state_dict,
+                             shard_optimizer_state, shard_state_dict)
 from .state import TrainState
 
 FILE = "checkpoint.pt"
@@ -40,13 +48,19 @@ def _write(payload: Dict, path: str) -> None:
 
 def save_checkpoint(path: str, state: TrainState, epoch: int = 0,
                     best_metric: float = float("inf"), is_best: bool = False,
-                    rng_state: Optional[Dict] = None) -> None:
-    """Save to ``<path>/`` (and mirror to ``<path>_best/`` when is_best)."""
-    payload = {"model": state.model.state_dict(),
-               "optimizer": state.optimizer.state_dict(),
+                    rng_state: Optional[Dict] = None, write: bool = True) -> None:
+    """Save to ``<path>/`` (and mirror to ``<path>_best/`` when is_best).
+    A tensor-parallel model's processes all call it (they gather the whole
+    state); only the one given ``write`` writes."""
+    model = state.model
+    payload = {"model": gather_state_dict(model.state_dict(), model),
+               "optimizer": gather_optimizer_state(
+                   state.optimizer.state_dict(), model),
                "step": int(state.step), "epoch": int(epoch),
                "best_metric": float(best_metric),
                "rng_state": rng_state or {}}
+    if not write:
+        return
     _write(payload, path)
     if is_best:
         best = os.path.abspath(path) + "_best"
@@ -65,11 +79,13 @@ def load(path: str) -> Dict:
 def restore_checkpoint(path: str, state: TrainState
                        ) -> Tuple[TrainState, int, float, Dict]:
     """Full restore into ``state`` (model, optimizer moments and the update
-    count, so the Noam lr carries on).  Returns (state, epoch, best_metric,
-    rng_state)."""
+    count, so the Noam lr carries on), each sharded tensor cut to this
+    process's slice.  Returns (state, epoch, best_metric, rng_state)."""
     payload = load(path)
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    model = state.model
+    model.load_state_dict(shard_state_dict(payload["model"], model))
+    state.optimizer.load_state_dict(
+        shard_optimizer_state(payload["optimizer"], model))
     state.step = int(payload["step"])
     return (state, int(payload["epoch"]), float(payload["best_metric"]),
             payload.get("rng_state", {}))
@@ -110,6 +126,7 @@ def restore_for_transfer(path: str, model: torch.nn.Module,
         pretrained = {k: v for k, v in pretrained.items()
                       if any(tuple(k.split(".")[:len(p)]) == p
                              for p in prefixes)}
-    merged, loaded, _ = partial_merge(model.state_dict(), pretrained)
+    merged, loaded, _ = partial_merge(model.state_dict(),
+                                      shard_state_dict(pretrained, model))
     model.load_state_dict(merged)
     return loaded

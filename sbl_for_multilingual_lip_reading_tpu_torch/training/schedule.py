@@ -14,7 +14,11 @@ does.
 JAX package chains before Adam when ``grad_clip`` is set: every gradient
 becomes (g / norm) * max_norm when the global norm is at least max_norm,
 and stays as it is otherwise; no epsilon (``torch.nn.utils.
-clip_grad_norm_`` scales by max_norm / (norm + 1e-6) instead).
+clip_grad_norm_`` scales by max_norm / (norm + 1e-6) instead).  Under
+tensor parallelism the norm is the unsharded model's: a sharded
+parameter's squares (``tp_mesh`` set by ``parallel.shard_model``) are
+summed over its model group, a replicated parameter's counted once, so
+every process clips at the same norm.
 """
 from __future__ import annotations
 
@@ -35,7 +39,11 @@ def noam_lr(step: int, k: float = 0.2, warmup_steps: int = 4000,
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of every element's square (optax ``global_norm``),
     in f32."""
-    return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    return torch.sqrt(_squares(grads))
+
+
+def _squares(grads) -> torch.Tensor:
+    return sum(torch.sum(g.float() * g.float()) for g in grads)
 
 
 def clip_by_global_norm_(params: Iterable[torch.nn.Parameter],
@@ -43,8 +51,17 @@ def clip_by_global_norm_(params: Iterable[torch.nn.Parameter],
     """Clip the gradients of ``params`` in place by optax's rule and return
     their global norm before the clip (a device scalar: nothing waits for
     the device)."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = global_norm(grads)
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    sharded = [p for p in params if getattr(p, "tp_mesh", None) is not None]
+    if sharded:
+        from ..parallel.tensor import reduce_from_model
+        whole = [p.grad for p in params
+                 if getattr(p, "tp_mesh", None) is None]
+        norm = torch.sqrt(_squares(whole) + reduce_from_model(
+            _squares([p.grad for p in sharded]), sharded[0].tp_mesh))
+    else:
+        norm = global_norm(grads)
     clip = norm >= max_norm
     one = torch.ones((), device=norm.device)
     torch._foreach_div_(grads, torch.where(clip, norm, one))

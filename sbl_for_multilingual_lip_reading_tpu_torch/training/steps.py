@@ -23,12 +23,18 @@ The step's random numbers come from the ``torch.Generator`` the caller
 passes (a CPU one: drawing from it never waits for the device): one seed per
 step builds the forward's ``DropoutRNG``.
 
-With a ``mesh`` (``parallel.DataMesh``) the step is one data-parallel
-process's share of the step on the processes' batches put one after another
+With a ``mesh`` (``parallel.DataMesh``) the step is one process's share of
+the step on the data indices' batches put one after another
 (``parallel/mesh.py``): its loss terms are weighted by their share of the
-global count, the gradients averaged over the processes before the frozen
-subtrees are zeroed and the gradients clipped, and the metrics it returns
-are the global ones.
+global count (over the data group), the gradients averaged over the data
+group before the frozen subtrees are zeroed and the gradients clipped, and
+the metrics it returns are the global ones.  A model sharded over the
+mesh's model group (``parallel.shard_model``) computes the unsharded
+step: its processes see the same batch, draw the same seeds, coins and
+elementwise masks, and each attention draws its heads' masks (the
+kernels' head offset); the BatchNorm statistics are synchronised over the
+data group only.  Every process runs the same collectives in the same
+order, the decoder's checkpointed recompute included.
 """
 from __future__ import annotations
 

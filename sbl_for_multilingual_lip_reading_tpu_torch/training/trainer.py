@@ -23,14 +23,18 @@ thread (``background_iter``) -> ``prefetch_to_device``; or, with
 ``cache_on_device``, from the uint8 dataset uploaded to the card once and
 gathered there by index, in the same order with the same plans.
 
-Data parallelism (``mesh``, or ``cfg.mesh.data`` > 1 under torchrun): one
-``Trainer`` a process, each on its card, with the same seeds.  A process
-takes its stripe ``idx[rank::W]`` of every global batch (from the
+Data and tensor parallelism (``mesh``, or ``cfg.mesh`` data x model > 1
+under torchrun): one ``Trainer`` a process, each on its card, with the same
+seeds.  Every process builds the whole model from the seed, then keeps its
+slice over the model group (``parallel.shard_model``).  A process takes its
+data index's stripe ``idx[d::W]`` of every global batch (from the
 ``Batcher``, or gathered from the device cache); the plans are drawn for
 the global batch, its stripes put one after another, and cut to the
 process's rows, so every process crops as the one-process run on that
-batch would.  Only process 0 logs, evaluates and writes checkpoints; the
-others take its results.  ``tensorboard_dir`` logs JAX's tags;
+batch would.  Global rank 0 logs and writes checkpoints (the model group
+gathers the whole state for it); the processes of data index 0 evaluate
+(together, over their model group), and the others take their results.
+Traces are written a process each.  ``tensorboard_dir`` logs JAX's tags;
 ``profile_dir`` traces steps 1-3 of the first epoch.  The first train step
 runs under the memory guard (``memguard.GuardedTrainStep``).
 """
@@ -124,8 +128,10 @@ class Trainer:
     trains and evaluates every workload: ``sbl`` / ``sbl_stage2``, ``lrw`` /
     ``lrw1000`` (``validate_seq2seq``) and ``classify``
     (``validate_classify``).  ``mesh`` (a ``parallel.DataMesh``) makes it
-    one process of a data-parallel run; without one, ``cfg.mesh.data`` > 1
-    joins the process group torchrun describes in the environment."""
+    one process of a data x model grid; without one, ``cfg.mesh`` data x
+    model > 1 joins the process group torchrun describes in the
+    environment.  A given ``model`` is sharded over the mesh's model group
+    unless it already is."""
 
     def __init__(self, cfg, train_dataset, valid_datasets: Optional[Dict] = None,
                  checkpoint_dir: Optional[str] = None, device=None,
@@ -140,7 +146,9 @@ class Trainer:
             from ..parallel import make_mesh
             mesh = make_mesh(mesh_cfg.data, mesh_cfg.model, device)
         self.mesh = mesh
-        self.is_lead = mesh is None or mesh.rank == 0
+        self.is_lead = mesh is None or mesh.global_rank == 0
+        # the processes that validate: data index 0's model group
+        self.evaluates = mesh is None or mesh.rank == 0
         if mesh is not None:
             device = mesh.device
         elif device is None and model is not None:
@@ -150,7 +158,10 @@ class Trainer:
         self.timer = StepTimer(batch_size=cfg.batch_size)
         self.model = model if model is not None else build_model(cfg, self.device)
         if mesh is not None:
-            # every process starts from process 0's weights and statistics
+            if mesh.model_size > 1 and not getattr(self.model, "tp_plan", None):
+                from ..parallel import shard_model
+                shard_model(self.model, mesh)
+            # every process starts from data index 0's weights and statistics
             mesh.broadcast_(list(self.model.state_dict().values()))
         self.writer = None
         if tensorboard_dir and self.is_lead:
@@ -197,18 +208,18 @@ class Trainer:
                 "torch": self.generator.get_state()}
 
     def save(self, path: str, epoch: int = 0, is_best: bool = False) -> None:
-        """Write the checkpoint (process 0 only; the others wait for it)."""
-        if self.is_lead:
-            ckpt.save_checkpoint(path, self.state, epoch=epoch,
-                                 best_metric=self.best_metric,
-                                 is_best=is_best, rng_state=self.rng_state())
+        """Write the checkpoint, whole (global rank 0 writes; the others
+        gather with it and wait for it)."""
+        ckpt.save_checkpoint(path, self.state, epoch=epoch,
+                             best_metric=self.best_metric, is_best=is_best,
+                             rng_state=self.rng_state(), write=self.is_lead)
         if self.mesh is not None:
             self.mesh.barrier()
 
     def restore(self, path: str) -> int:
         """Resume from a checkpoint: model, optimizer, update count, best
         metric and the random number states (every process reads the same
-        file).  Returns its epoch."""
+        file and keeps its slices).  Returns its epoch."""
         _, epoch, self.best_metric, rng = ckpt.restore_checkpoint(path,
                                                                   self.state)
         if rng:
@@ -248,7 +259,7 @@ class Trainer:
                          f"({clips.nbytes / 1e9:.2f} GB) resident")
 
     def _world(self) -> Tuple[int, int]:
-        """(processes, this one's rank): (1, 0) without a mesh."""
+        """(data indices, this one's): (1, 0) without a mesh."""
         return (1, 0) if self.mesh is None else (self.mesh.size, self.mesh.rank)
 
     def _device_batches(self, epoch: int) -> Iterator[Dict]:
@@ -361,7 +372,7 @@ class Trainer:
                     # step 0 builds kernels and picks cuDNN algorithms
                     trace = Trace(self.profile_dir, self.device,
                                   "trace.json" if self.mesh is None else
-                                  f"trace_rank{self.mesh.rank}.json")
+                                  f"trace_rank{self.mesh.global_rank}.json")
                 with self.timer.step():
                     metrics = self.train_step(batch, self.generator)
                     if pending is not None:
@@ -504,15 +515,16 @@ class Trainer:
 
     def _validate_all(self, max_eval_batches: Optional[int]):
         """(best-model metric, {name: metrics}) over the eval sets, from
-        process 0 (the model is the same in every process); logged there,
-        and written as JAX's ``{name}/{metric}`` scalars for the seq2seq
-        workloads."""
+        data index 0's processes (the model is the same in every data
+        index); logged by global rank 0, and written as JAX's
+        ``{name}/{metric}`` scalars for the seq2seq workloads."""
         metric, results = 0.0, {}
-        if self.is_lead:
+        if self.evaluates:
             for name, ds in self.valid_datasets.items():
                 results[name] = self.validate(ds, max_eval_batches)
                 metric += self.score(results[name])
-                self.logger.info(f"{name}: {results[name]}")
+                if self.is_lead:
+                    self.logger.info(f"{name}: {results[name]}")
                 if self.writer is not None and model_kind(self.cfg) != "classify":
                     for k, v in results[name].items():
                         self.writer.add_scalar(f"{name}/{k}", v, self.state.step)

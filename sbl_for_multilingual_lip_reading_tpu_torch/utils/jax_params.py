@@ -58,10 +58,12 @@ def _param(path: Tuple[str, ...], t: torch.Tensor):
 
 
 def state_dict_from_jax(params: Mapping,
-                        batch_stats: Optional[Mapping] = None
-                        ) -> Dict[str, torch.Tensor]:
-    """JAX ``params`` (+ ``batch_stats``) trees -> the port's state_dict.
-    Values may be views; ``load_state_dict`` copies them into place."""
+                        batch_stats: Optional[Mapping] = None,
+                        model=None) -> Dict[str, torch.Tensor]:
+    """JAX ``params`` (+ ``batch_stats``) trees -> the port's state_dict:
+    the whole one, or with ``model`` (sharded by ``parallel.shard_model``)
+    that process's slices of it.  Values may be views; ``load_state_dict``
+    copies them into place."""
     sd: Dict[str, torch.Tensor] = {}
     for path, a in _flatten(params):
         mods, t = _param(path, _tensor(a))
@@ -71,4 +73,8 @@ def state_dict_from_jax(params: Mapping,
         if leaf not in ("mean", "var"):
             raise KeyError(f"unknown JAX batch stat {'/'.join(path)}")
         sd[".".join(mods + ["running_" + leaf])] = _tensor(a)
+    if model is not None:
+        # imported here: parallel/ imports ops/, which imports utils/
+        from ..parallel.mesh import shard_state_dict
+        sd = shard_state_dict(sd, model)
     return sd

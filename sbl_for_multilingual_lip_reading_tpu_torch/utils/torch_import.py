@@ -29,6 +29,8 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from ..parallel.mesh import shard_state_dict
+
 StateDict = Dict[str, torch.Tensor]
 
 
@@ -123,14 +125,16 @@ def import_sbl_decoder(sd: Dict[str, np.ndarray], n_layers: int = 6,
 
 
 def import_sbl_model(sd: Dict[str, np.ndarray], n_enc_layers: int = 6,
-                     n_dec_layers: int = 6, resnet_blocks=(2, 2, 2, 2)
-                     ) -> StateDict:
+                     n_dec_layers: int = 6, resnet_blocks=(2, 2, 2, 2),
+                     model=None) -> StateDict:
     """A whole reference SBL Transformer state dict -> the port's
     ``state_dict`` (parameters and BN running statistics), for
-    ``SBLTransformer.load_state_dict``."""
-    return {**import_frontend(sd, resnet_blocks),
-            **import_encoder(sd, n_enc_layers),
-            **import_sbl_decoder(sd, n_dec_layers)}
+    ``SBLTransformer.load_state_dict``: the whole one, or with ``model``
+    (sharded by ``parallel.shard_model``) that process's slices of it."""
+    out = {**import_frontend(sd, resnet_blocks),
+           **import_encoder(sd, n_enc_layers),
+           **import_sbl_decoder(sd, n_dec_layers)}
+    return out if model is None else shard_state_dict(out, model)
 
 
 def load_torch_file(path: str) -> Dict[str, np.ndarray]:

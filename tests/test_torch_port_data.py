@@ -312,23 +312,19 @@ def test_config_from_args_matches_jax(argv):
     _assert_fields_match(mine, theirs)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--workload", "lrw", "--mesh-model", "2"], "item 17"),
-    (["--workload", "classify", "--profile-dir", "/tmp/p"], None),
-    (["--mesh-data", "2"], None), (["--no-sync-batchnorm"], None),
-    (["--remat-frontend"], None), (["--profile-dir", "/tmp/p"], None)])
-def test_unported_flags_raise_with_their_roadmap_item(argv, item):
-    # tensor parallelism is the one flag still to be ported; the others
-    # (data parallelism, per-process BatchNorm, remat, the trace) parse into
+@pytest.mark.parametrize("argv", [
+    ["--workload", "lrw", "--mesh-model", "2"],
+    ["--workload", "classify", "--profile-dir", "/tmp/p"],
+    ["--mesh-data", "2"], ["--no-sync-batchnorm"],
+    ["--remat-frontend"], ["--profile-dir", "/tmp/p"]])
+def test_unported_flags_raise_with_their_roadmap_item(argv):
+    # no flag is left unported: tensor parallelism (--mesh-model), data
+    # parallelism, per-process BatchNorm, remat and the trace parse into
     # the config as JAX's CLI parses them
     args = cli.build_argparser().parse_args(argv + ["--cpu"])
-    if item is not None:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md queue A {item}"):
-            cli.run_train(argv + ["--cpu"])
-        return
-    cli.check_ported(args)
     mine = cli.config_from_args(args)
+    assert (mine.mesh.data, mine.mesh.model) == (
+        args.mesh_data, args.mesh_model)
     theirs = jax_cli.config_from_args(jax_cli.build_argparser().parse_args(
         argv + ["--cpu"]))
     _assert_fields_match(mine, theirs)

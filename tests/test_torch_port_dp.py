@@ -558,15 +558,26 @@ def test_dp_batcher_and_device_cache_stripes_are_equal(runs):
 
 
 def test_make_mesh_refuses_what_it_cannot_give(monkeypatch):
-    """Tensor parallelism raises, naming its ROADMAP item; NCCL with more
-    processes than cards raises, as JAX's make_mesh does, before any
-    process group starts; a rank outside the mesh raises."""
+    """A data x model grid lays its ranks out as JAX's
+    ``create_device_mesh((data, model))`` does (rank r at data index
+    r // model, model index r % model; the gloo grid itself is built by
+    ``test_torch_port_tp.py``'s workers); NCCL with fewer cards than
+    data x model processes raises, as JAX's make_mesh does, before any
+    process group starts; a rank outside the grid raises."""
     from sbl_for_multilingual_lip_reading_tpu_torch.parallel import mesh
-    with pytest.raises(NotImplementedError, match="queue A item 17"):
-        mesh.make_mesh(2, model=2, device="cpu", rank=0)
+    data_groups, model_groups = mesh.grid_groups(2, 2)
+    assert data_groups == [[0, 2], [1, 3]] and model_groups == [[0, 1], [2, 3]]
+    grid = np.arange(8).reshape(4, 2)
+    assert mesh.grid_groups(4, 2) == ([list(c) for c in grid.T],
+                                      [list(r) for r in grid])
+    with pytest.raises(ValueError, match="outside a mesh of 4"):
+        mesh.make_mesh(2, model=2, device="cpu", rank=4)
     with pytest.raises(ValueError, match="outside a mesh"):
         mesh.make_mesh(2, device="cpu", rank=2)
     monkeypatch.setattr(mesh, "resolve_device", torch.device)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    with pytest.raises(ValueError, match="need 4 devices, have 3"):
+        mesh.make_mesh(2, model=2, device="cuda:0", rank=0)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match="need 2 devices, have 1"):
         mesh.make_mesh(2, device="cuda:0", rank=0)

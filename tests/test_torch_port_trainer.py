@@ -287,9 +287,14 @@ def test_train_steps_runs_on_the_trainer():
                     "cpu")
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch):
     # every workload trains, with grad_clip too (which the reference never
-    # sets); what the Trainer still refuses is tensor parallelism
+    # sets), and a tensor-parallel config asks for its data x model grid
+    # (the grid's runs: test_torch_port_tp.py)
+    from sbl_for_multilingual_lip_reading_tpu_torch import parallel
+    asked = []
+    monkeypatch.setattr(parallel, "make_mesh",
+                        lambda *a: asked.append(a) or None)
     for name in ("sbl", "lrw", "classify"):
         cfg = JC.tiny_test(name)
         Trainer(cfg, [], device="cpu")
@@ -297,8 +302,8 @@ def test_unported_paths_raise():
             cfg.optim, grad_clip=1.0))
         assert Trainer(clipped, [], device="cpu").state.optim_cfg.grad_clip == 1.0
         sharded = dataclasses.replace(cfg, mesh=JC.MeshConfig(model=2))
-        with pytest.raises(NotImplementedError, match="item 17"):
-            Trainer(sharded, [], device="cpu")
+        Trainer(sharded, [], device="cpu")
+        assert asked.pop() == (1, 2, "cpu") and not asked
 
 
 def test_decode_protocol_matches_jax():

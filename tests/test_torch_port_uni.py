@@ -444,9 +444,15 @@ def test_trainer_evaluates_and_refuses_to_train(jax_trainers):
         cfg.optim, grad_clip=1.0))
     tr = Trainer(clipped, ds, device="cpu", model=_port(cfg, _variables(jtr)))
     assert np.isfinite(tr.fit(1, max_steps_per_epoch=1)["train_loss"])
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # a tensor-parallel config asks for its data x model grid (the grid's
+    # runs: test_torch_port_tp.py)
+    from sbl_for_multilingual_lip_reading_tpu_torch import parallel
+    asked = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(parallel, "make_mesh", lambda *a: asked.append(a) or None)
         Trainer(dataclasses.replace(cfg, mesh=port_config.MeshConfig(model=2)),
                 ds, device="cpu")
+    assert asked == [(1, 2, "cpu")]
 
 
 @pytest.mark.parametrize("name,extra", [
@@ -485,12 +491,19 @@ def test_cli_test_matches_jax_validate(jax_trainers, monkeypatch, tmp_path,
     assert got[name] == pytest.approx(want[name])
 
 
-def test_cli_train_refuses_a_unidirectional_workload():
-    # `train --workload lrw1000` runs (test_torch_port_uni_train.py); what
-    # it still refuses is tensor parallelism, as for every workload
-    with pytest.raises(NotImplementedError, match="item 17"):
-        cli.run_train(["--cpu", "--workload", "lrw1000", "--synthetic",
-                       "--mesh-model", "2"])
+def test_cli_train_refuses_a_unidirectional_workload(monkeypatch):
+    # `train --workload lrw1000` runs (test_torch_port_uni_train.py), and
+    # with --mesh-model 2 and no RANK it starts its two processes (their
+    # run: test_torch_port_tp.py)
+    import torch.multiprocessing as mp
+    started = []
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.setattr(mp, "start_processes",
+                        lambda fn, nprocs, args, **kw: started.append(
+                            (fn, nprocs, args[1])))
+    argv = ["--cpu", "--workload", "lrw1000", "--synthetic", "--mesh-model", "2"]
+    assert cli.run_train(argv) == (None, None)
+    assert started == [(cli._train_process, 2, 2)]
 
 
 def test_synthetic_dataset_vocabs_match_jax():
