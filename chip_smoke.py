@@ -173,6 +173,22 @@ line (phase 2 adds nvcc's per-kernel register report):
      loads at model = 1, whose greedy tokens equal the grid's decode (a
      difference only at a tie within TIE_TOL), and K11 ran on the gathered
      layer, 96 launches a decode;
+  E9. the epoch-fused cached route (``cache_on_device``; the whole step
+     one CUDA graph, replayed once a step) at the full ``sbl`` width,
+     B=240, PALLAS_INGEST=1 PALLAS_BN=1, remat on, profile_fused.CLIPS
+     clips resident on the card: f32 (TF32 off, deterministic algorithms)
+     E9_CHECK_STEPS steps graphed vs the
+     per-step route (SBL_NO_EPOCH_FUSED=1; losses within E9_LOSS_RTOL, each
+     parameter's update within E9_UPDATE_TOL, Adam's step counts equal),
+     the per-step route's step 0 vs the host batch route's, the graph
+     captured once and replayed once a step with the kernels' captured
+     counts equal to expected_launches; bf16
+     (``profile_fused.compare_routes``): each route's peak memory and the
+     capture's seconds, ms/step in turns, a traced window of each (kernels
+     and host-side launches a step, the idle share), the two routes' 12
+     losses bit for bit; one NCCL W = 1 graphed run (its collectives
+     captured) against the run without a mesh; a checkpoint written on the
+     CPU resumed on the card for two graphed steps against the CPU's own;
   11. a JSON line of the seventeen kernels (each with its launches on every
      path, E7's and E8's among them, its error, its time, its plain version's, its bound on the card
      and a library call's time where one PyTorch call computes the same
@@ -214,6 +230,7 @@ card's nvidia-smi name and power limit to chiprun_out/compare_<set>.json.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -315,6 +332,25 @@ DP_WORLD = 2
 TRACE_BATCH = TRAIN_CHECK_BATCH
 DP_TIMED = 2
 MEMORIZE_STEPS = 1600
+# E9: profile_fused.CLIPS (1,440) SyntheticPatternDataset clips (0.40 GB of
+# uint8) resident on the card, 6 steps an epoch at B=240; the f32 routes'
+# losses agree to E9_LOSS_RTOL (with the deterministic algorithms below,
+# bit for bit)
+E9_CHECK_STEPS = 3
+E9_ROUNDS = 1
+E9_LOSS_RTOL = 1e-5
+# the f32 routes' updates (parameters after minus before) agree per
+# parameter to E3's gradient tolerance, with cuDNN's and torch's
+# deterministic algorithms (``_deterministic``): with cuDNN's default ones
+# two runs of the same route differ in the gradients' last bits, and a
+# BatchNorm scale (near 1), which 3 steps of the warm-up's lr (3.5e-8 a
+# step) move by 1-2 f32 ulps, took updates 5% apart.  E9_CHECK_STEPS from
+# step 0, where the Noam lr grows as s + 1: a graph whose update was
+# skipped, doubled or ran at an lr frozen at capture (1, 2, 2 for 1, 2, 3)
+# moves the summed update by 1/6 or more
+E9_UPDATE_TOL = TRAIN_GRAD_TOL["float32"]
+# the resume check: a tiny sbl Trainer, dropout 0, E9_RESUME_BATCH a step
+E9_RESUME_BATCH = 4
 # K10 against its plain version.  f32: both sum K = 9C products in f32 in
 # another order.  bf16: both round one f32 result, so outputs may sit one
 # bf16 ulp apart (2^-7 relative); where the intermediate h flips one ulp in
@@ -543,8 +579,15 @@ def launch_floor(torch, dev) -> dict:
 def k5_queued_ms(torch, ops, dev, shape) -> float:
     """K5's queued_ms at a (B, H, Tq, Tk) mask."""
     B, H, Tq, Tk = shape
+    seed = card_seed(torch, dev, 1000 + B * Tq + Tk)
     return queued_ms(torch, lambda: ops.dropout_keep_mask_flat(
-        B, Tq, Tk, H, 1000 + B * Tq + Tk, DROPOUT_RATE, dev))
+        B, Tq, Tk, H, seed, DROPOUT_RATE, dev))
+
+
+def card_seed(torch, dev, value: int):
+    """A dropout seed as the train step gives it to K3/K4/K5: an int64 on
+    the card, which the kernels read (their wrappers take no other)."""
+    return torch.tensor(value, dtype=torch.int64, device=dev)
 
 
 def library_time(torch, fn, call: str):
@@ -863,7 +906,7 @@ def phase_train_kernels(torch, dev, timing=True):
     for dt in (torch.float32, torch.bfloat16):
         name_dt = str(dt).split(".")[-1]
         for case, N, Tq, Tk, bias in cases:
-            seed = 1000 + N * Tq + Tk
+            seed = card_seed(torch, dev, 1000 + N * Tq + Tk)
             q = torch.randn((N, Tq, H * 64), generator=g, device=dev, dtype=dt)
             k = torch.randn((N, Tk, H * 64), generator=g, device=dev, dtype=dt)
             v = torch.randn((N, Tk, H * 64), generator=g, device=dev, dtype=dt)
@@ -952,7 +995,7 @@ def phase_train_kernels(torch, dev, timing=True):
     # at the train step's, its time queued back to back and the launch
     # floor, split, beside its times and bounds
     for B_, H_, Tq_, Tk_ in MASK_SHAPES:
-        seed = 3000 + B_ * H_ + Tq_ * Tk_
+        seed = card_seed(torch, dev, 3000 + B_ * H_ + Tq_ * Tk_)
         keep = ops.dropout_keep_mask_flat(B_, Tq_, Tk_, H_, seed, DROPOUT_RATE, dev)
         check(torch.equal(keep, ops.dropout_keep_mask_flat_plain(
             B_, Tq_, Tk_, H_, seed, DROPOUT_RATE, dev)),
@@ -964,7 +1007,7 @@ def phase_train_kernels(torch, dev, timing=True):
     # that mask
     half = TRAIN_BATCH // 2
     rows_map = ops.BatchRows(half, half, TRAIN_BATCH)
-    seed = 4242
+    seed = card_seed(torch, dev, 4242)
     whole = ops.dropout_keep_mask_flat(2 * TRAIN_BATCH, L, L, H, seed,
                                        DROPOUT_RATE, dev)
     mine = ops.dropout_keep_mask_flat(2 * half, L, L, H, seed, DROPOUT_RATE, dev,
@@ -1097,7 +1140,7 @@ def phase_train_kernels(torch, dev, timing=True):
     for dt in (torch.float32, torch.bfloat16):
         name_dt = str(dt).split(".")[-1]
         for case, N, Tq, Tk, bias, d in extras:
-            seed = 2000 + N * Tq + Tk + d
+            seed = card_seed(torch, dev, 2000 + N * Tq + Tk + d)
             q = torch.randn((N, Tq, H * d), generator=g, device=dev, dtype=dt)
             k = torch.randn((N, Tk, H * d), generator=g, device=dev, dtype=dt)
             v = torch.randn((N, Tk, H * d), generator=g, device=dev, dtype=dt)
@@ -1255,7 +1298,7 @@ def phase_twin_kernels(torch, dev, timing=True):
                 (f"({TRAIN_BATCH},31,{H},{d})", TRAIN_BATCH, 31, False),
                 (f"({TRAIN_BATCH},32,{H},{d}) causal", TRAIN_BATCH, 32, True)):
             bias = causal_bias(T) if with_bias else None
-            seed = 2000 + B * T
+            seed = card_seed(torch, dev, 2000 + B * T)
             q, k, v, dout = (headed(B, T, dt) for _ in range(4))
             keep = ops.dropout_keep_mask(B, T, T, H, seed, DROPOUT_RATE, dev)
             plain_keep = ops.dropout_keep_mask_flat_plain(B, T, T, H, seed,
@@ -3407,6 +3450,273 @@ def phase_memorize(torch, np, dev):
     return dict(step=out["step"], seconds=seconds)
 
 
+def _release(torch):
+    """Free the card's memory of the Trainers dropped: a Trainer sits in
+    reference cycles (its steps' closures), and its CUDA graph's private
+    pool goes only with it."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _fused_run(torch, ops, tr, fused, steps, epoch=0):
+    """``steps`` steps of a cached Trainer on a route, the launch counts set
+    to 0 just before and read just after: a dict of the losses, each
+    parameter's update (after minus before: exact in f32, the two within a
+    factor 2), Adam's first moments, the set of Adam's step counts, and the
+    counts."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import profile_fused
+    params = dict(tr.model.named_parameters())
+    before = {n: p.detach().clone() for n, p in params.items()}
+    history = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile_fused.route(fused):
+        tr.train_epoch(epoch, max_steps=steps, history=history)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    state = tr.state.optimizer.state
+    return dict(losses=[h["loss"] for h in history],
+                updates={n: p.detach() - before[n] for n, p in params.items()},
+                moments={n: state[p]["exp_avg"].clone()
+                         for n, p in params.items()},
+                adam_steps={float(state[p]["step"]) for p in params.values()},
+                counts=counts)
+
+
+@contextlib.contextmanager
+def _deterministic(torch):
+    """cuDNN's deterministic algorithms and torch's deterministic
+    implementations while the block runs, then the settings as they were;
+    yields the set of warnings of ops that have none (cuBLAS's workspace
+    setting among them: its GEMMs on one stream repeat their sums)."""
+    import warnings
+    cudnn = torch.backends.cudnn
+    old = (cudnn.deterministic, cudnn.benchmark,
+           torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    seen = set()
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield seen
+            seen.update(str(w.message).split(".")[0][:100] for w in caught)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = old[:2]
+        torch.use_deterministic_algorithms(old[2], warn_only=old[3])
+
+
+def _update_errors(kern, plain, moments):
+    """Per parameter ||kernel update - plain update|| / ||plain update||,
+    leaving out the parameters whose gradient is rounding noise: Adam's
+    first moment on the plain route under 1e-3 of the largest, as
+    ``_grad_errors`` floors gradients.  Adam moves every element by about
+    the lr whatever its gradient's size, so the update of a gradient that
+    is zero in exact arithmetic (the key projections' biases: a softmax does
+    not see a shift of all its scores) takes rounding noise's sign.
+    Returns (errors, the names left out)."""
+    norms = {n: m.norm().item() for n, m in moments.items()}
+    floor = 1e-3 * max(norms.values())
+    errs = {n: (kern[n] - u).norm().item() / u.norm().item()
+            for n, u in plain.items() if norms[n] >= floor}
+    return errs, sorted(set(plain) - set(errs))
+
+
+def _check_graphed(tr, cfg, label, replays):
+    """The Trainer's fused step was captured as a CUDA graph, replayed
+    ``replays`` times, with the kernels' captured counts as counted."""
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.steps import (
+        GraphedStep, expected_launches)
+    fs = tr.fused_step
+    check(isinstance(fs, GraphedStep) and fs.graph is not None,
+          f"{label}: the fused step was not captured as a CUDA graph")
+    check(fs.replays == replays, f"{label}: {fs.replays} replays, not {replays}")
+    want = expected_launches(cfg)
+    check(fs.captured_launches == want, f"{label}: captured launches "
+          f"{fs.captured_launches} != {want}")
+    return fs
+
+
+def _fused_resume(torch, np, dev):
+    """A checkpoint written on the CPU (Adam not ``capturable``: its step
+    counts load onto the host) resumed by a cached Trainer on the card for
+    two steps of the graphed route, against the CPU Trainer's own next two
+    steps: the tiny ``sbl`` preset, f32, every dropout rate 0 (the CPU's and
+    the card's mask generators draw differently)."""
+    import tempfile
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.data import SyntheticLipDataset
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.trainer import Trainer
+    tiny = C.tiny_test("sbl")
+    cfg = dataclasses.replace(
+        tiny, batch_size=E9_RESUME_BATCH,
+        dims=dataclasses.replace(tiny.dims, dropout=0.0),
+        frontend=dataclasses.replace(tiny.frontend, dropout=0.0))
+    data = SyntheticLipDataset(size=3 * E9_RESUME_BATCH, frames=cfg.data.frames,
+                               raw_size=cfg.data.raw_size, seed=0)
+    cpu = Trainer(cfg, data, device="cpu", cache_on_device=True)
+    cpu.train_epoch(0, max_steps=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "ckpt")
+        cpu.save(path, epoch=0)
+        card = Trainer(cfg, data, device=dev, cache_on_device=True)
+        card.restore(path)
+    history = []
+    cpu.train_epoch(1, max_steps=2, history=history)
+    want = [h["loss"] for h in history]
+    got = _fused_run(torch, ops, card, True, 2, epoch=1)
+    _check_graphed(card, cfg, "E9 resume", 1)
+    on_card = {s["step"].device.type for s in card.state.optimizer.state.values()}
+    err = max(abs(a - b) for a, b in zip(got["losses"], want))
+    print(f"phase E9 resumed on the card from a CPU checkpoint (tiny sbl f32, "
+          f"B={E9_RESUME_BATCH}): 2 graphed steps, losses {got['losses']} vs "
+          f"the CPU's {want} (max abs diff {err:.3g}, tol "
+          f"{TRAIN_LOSS_TOL['float32']}); Adam's step counts "
+          f"{sorted(got['adam_steps'])} on {sorted(on_card)}")
+    check(on_card == {"cuda"} and got["adam_steps"] == {3.0},
+          "E9 resume: Adam's step counts are not on the card at 3")
+    check(err <= TRAIN_LOSS_TOL["float32"], "E9 resume: the losses differ")
+    del card, cpu
+    _release(torch)
+    return dict(loss_err=err)
+
+
+def phase_fused(torch, np, dev):
+    """E9: the epoch-fused cached route (``cache_on_device``, the Trainer's
+    default for a cached dataset) at the full ``sbl`` width, B=240,
+    PALLAS_INGEST=1 PALLAS_BN=1, remat on, on profile_fused.CLIPS clips resident on
+    the card (6 steps an epoch): f32 (TF32 off, deterministic algorithms)
+    E9_CHECK_STEPS steps of the graphed route against the per-step route (SBL_NO_EPOCH_FUSED=1; losses
+    within E9_LOSS_RTOL, each parameter's update within E9_UPDATE_TOL,
+    Adam's step counts equal to the steps) and the per-step route's first
+    step against the host batch route's; the graph captured once, replayed
+    once a step, its captured launches as counted; then bf16 through
+    ``profile_fused.compare_routes`` (each route's peak memory and capture
+    seconds, ms/step in turns, a traced window of each: launches a step and
+    the idle share; the routes' losses bit for bit), one NCCL W = 1 fused
+    run against the one without a mesh (E3's tolerance), and a CPU
+    checkpoint resumed on the card (``_fused_resume``)."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops, profile_fused
+    from sbl_for_multilingual_lip_reading_tpu_torch.data import (
+        SyntheticPatternDataset)
+    from sbl_for_multilingual_lip_reading_tpu_torch.parallel import (
+        make_mesh, shutdown)
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.steps import (
+        expected_launches)
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.trainer import Trainer
+    _set_switches(True)
+    base = dataclasses.replace(C.sbl(), batch_size=TRAIN_BATCH,
+                               remat_frontend=True)
+    t0 = time.perf_counter()
+    ds = profile_fused.dataset(base)
+    print(f"phase E9 {len(ds)} clips built in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    cfg = dataclasses.replace(base, compute_dtype="float32")
+    runs, undetermined = {}, set()
+    for name, fused, cache, steps in (("fused", True, True, E9_CHECK_STEPS),
+                                      ("per_step", False, True, E9_CHECK_STEPS),
+                                      ("host", False, False, 1)):
+        tr = Trainer(cfg, ds, device=dev, cache_on_device=cache)
+        with _deterministic(torch) as seen:
+            runs[name] = _fused_run(torch, ops, tr, fused, steps)
+        undetermined |= seen
+        want = expected_launches(cfg)
+        if name == "fused":
+            out["f32_capture_s"] = _check_graphed(
+                tr, cfg, "E9 f32", E9_CHECK_STEPS - 1).capture_seconds
+            # the eager warm-up step and the capture ran the wrappers
+            check(runs[name]["counts"] == {k: 2 * v for k, v in want.items()},
+                  f"E9 f32 fused: launches {runs[name]['counts']}")
+        else:
+            check(runs[name]["counts"] == {k: steps * v for k, v in want.items()},
+                  f"E9 f32 {name}: launches {runs[name]['counts']}")
+        del tr
+        _release(torch)
+    rf, rp = runs["fused"], runs["per_step"]
+    counts = rf["counts"]
+    lf, lp, lh = rf["losses"], rp["losses"], runs["host"]["losses"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lf, lp))
+    errs, left_out = _update_errors(rf["updates"], rp["updates"], rp["moments"])
+    top = sorted(errs, key=errs.get, reverse=True)[:3]
+    bit_equal = sum(torch.equal(rf["updates"][n], rp["updates"][n]) for n in errs)
+    host_err = abs(lp[0] - lh[0]) / abs(lh[0])
+    print(f"phase E9 f32 graphed fused vs per-step route, {E9_CHECK_STEPS} "
+          f"steps: losses {[round(x, 6) for x in lf]} vs "
+          f"{[round(x, 6) for x in lp]} (rel err max {loss_err:.3g}, tol "
+          f"{E9_LOSS_RTOL}); updates rel err over {len(errs)} parameters "
+          f"({bit_equal} bit-equal), largest "
+          f"{', '.join(f'{n} {errs[n]:.3g}' for n in top)} (tol "
+          f"{E9_UPDATE_TOL}); {len(left_out)} left out as rounding noise "
+          f"({', '.join(left_out[:4])}{', ...' if len(left_out) > 4 else ''}); "
+          f"Adam's step counts {sorted(rf['adam_steps'])} vs "
+          f"{sorted(rp['adam_steps'])}; per-step route vs host route step 0 "
+          f"loss rel err {host_err:.3g}; ops without a deterministic "
+          f"implementation: {sorted(undetermined) or 'none'}")
+    check(loss_err <= E9_LOSS_RTOL, "E9 f32: the routes' losses differ")
+    check(rf["adam_steps"] == rp["adam_steps"] == {float(E9_CHECK_STEPS)},
+          "E9 f32: Adam's step counts differ from the steps taken")
+    check(errs[top[0]] <= E9_UPDATE_TOL,
+          f"E9 f32: the updates of {top[0]} differ by {errs[top[0]]}")
+    check(host_err <= E9_LOSS_RTOL, "E9 f32: the per-step route's step 0 "
+          "differs from the host route's")
+    out.update(f32_loss_rel_err=loss_err, f32_update_err=errs[top[0]],
+               f32_update_left_out=len(left_out), host_rel_err=host_err)
+    del runs, rf, rp
+    _release(torch)
+    bf16 = base
+    routes = profile_fused.compare_routes(
+        bf16, ds, dev, E9_ROUNDS, log=lambda x: print(f"phase E9 bf16 B=240 {x}"))
+    mem = routes["memory"]
+    lf, lp = mem["fused"]["losses"], mem["per_step"]["losses"]
+    check(mem["fused"]["captured_launches"] == expected_launches(bf16),
+          "E9 bf16: captured launches differ from expected_launches")
+    check(all(np.isfinite(x) for m in mem.values() for x in m["losses"]),
+          "E9 bf16: a non-finite loss")
+    # the same kernels on the same inputs, in bf16 with no order-dependent
+    # sum: every step's loss bit for bit (each run so far)
+    print(f"phase E9 bf16 {len(lf)} losses graphed vs per-step: "
+          f"{'bit-equal' if lf == lp else f'{lf} vs {lp}'}; step 0 "
+          f"{lf[0]:.6f}; capture {mem['fused']['capture_s']:.2f} s")
+    check(len(lf) == len(lp) == 2 * (len(ds) // bf16.batch_size) and lf == lp,
+          "E9 bf16: the routes' losses differ")
+    out["bf16"] = routes
+    del ds
+    # one NCCL W = 1 fused run against the run without a mesh, f32
+    small = SyntheticPatternDataset(n_words=4, samples_per_word=8,
+                                    frames=base.data.frames,
+                                    raw_size=base.data.raw_size)
+    c16 = dataclasses.replace(cfg, batch_size=TRAIN_CHECK_BATCH)
+    want = _fused_run(torch, ops, Trainer(c16, small, device=dev,
+                                          cache_on_device=True), True, 2)["losses"]
+    _release(torch)
+    mesh = make_mesh(1, device=dev, init_method=f"tcp://localhost:{_free_port()}")
+    check(mesh.backend == "nccl", f"E9: backend {mesh.backend}")
+    try:
+        c16m = dataclasses.replace(c16, mesh=C.MeshConfig(data=1))
+        tr = Trainer(c16m, small, device=dev, cache_on_device=True, mesh=mesh)
+        got = _fused_run(torch, ops, tr, True, 2)["losses"]
+        _check_graphed(tr, c16m, "E9 NCCL W=1", 1)
+        check(tr._dev_clips.shape[0] == len(small), "E9 NCCL: cache rows")
+        del tr
+        _release(torch)
+    finally:
+        shutdown()
+    nccl_err = max(abs(a - b) for a, b in zip(got, want))
+    print(f"phase E9 NCCL W=1 graphed fused run vs no mesh, 2 steps at "
+          f"B={TRAIN_CHECK_BATCH} f32: losses {got} vs {want} (max abs diff "
+          f"{nccl_err:.3g}, tol {TRAIN_LOSS_TOL['float32']})")
+    check(nccl_err <= TRAIN_LOSS_TOL["float32"], "E9: the NCCL run differs")
+    out["nccl_loss_err"] = nccl_err
+    out["resume"] = _fused_resume(torch, np, dev)
+    _set_switches(False)
+    _release(torch)
+    return counts, out
+
+
 def _bf16_rows(rows):
     return {r["case"]: {k: r[k] for k in ("ms", "plain_ms", "module_ms", "bound_ms",
                                           "max_abs_err")}
@@ -3634,7 +3944,8 @@ def main() -> int:
     path_e["memorize"] = timed("E6", phase_memorize, torch, np, dev)
     tp_launches, path_e["tp"] = timed("E7", phase_tp, torch, np, dev)
     tpt_launches, path_e["tp_trainer"] = timed("E8", phase_tp_trainer, torch, np, dev)
-    print(f"phases 1-10 and E1-E8 took {time.perf_counter() - t_start:.1f} s")
+    fused_launches, path_e["fused"] = timed("E9", phase_fused, torch, np, dev)
+    print(f"phases 1-10 and E1-E9 took {time.perf_counter() - t_start:.1f} s")
     # every kernel of the eval and training paths was launched on its path
     for kernel in ("stack_frames_u8", "fused_resblock", "fused_decoder_layer",
                    "small_mha_flat"):
@@ -3659,11 +3970,17 @@ def main() -> int:
                    "small_mha_flat", "fused_decoder_layer"):
         check(tpt_launches[kernel] > 0, f"the tensor-parallel Trainer never "
               f"launched {kernel}")
+    for kernel in ("stack_frames", "small_mha_dropout_fwd_flat",
+                   "small_mha_dropout_bwd_flat", "ingest_train", "channel_sums",
+                   "channel_sums_pair"):
+        check(fused_launches[kernel] > 0, f"the epoch-fused route never "
+              f"launched {kernel}")
     by_path = {"recognize": launches, "train_step": train_launches,
                "entry_point": entry_launches, "eval_switches": a_launches,
                "uni_eval": b_launches, "uni_train": c_launches,
                "classify": d_launches, "path_e": e_launches,
-               "tp_step": tp_launches, "tp_trainer": tpt_launches}
+               "tp_step": tp_launches, "tp_trainer": tpt_launches,
+               "fused_route": fused_launches}
 
     csrc = "sbl_for_multilingual_lip_reading_tpu_torch/csrc/"
     jax_ops = "sbl_for_multilingual_lip_reading_tpu/ops/"

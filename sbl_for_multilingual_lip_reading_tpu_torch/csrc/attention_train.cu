@@ -16,7 +16,9 @@
 // reproduces.  Here the bits of every element come from a counter-based
 // generator, Philox4x32-10 (Salmon et al., SC'11, with the round constants
 // of Random123 and cuRAND), in one function shared by the three kernels:
-//   key     = (seed & 0xffffffff, seed >> 32), the launch's 64-bit seed;
+//   key     = (seed & 0xffffffff, seed >> 32), the launch's 64-bit seed,
+//             read by the kernel from the int64 on the card the wrapper
+//             points at (a CUDA graph replays the launch on new seeds);
 //   counter = (key index j, query index i, head h0 + h, batch row b);
 //   bits    = word 0 of Philox4x32-10(counter, key);
 //   keep   <=> bits >= uint32(rate * 2^32), the JAX package's threshold.
@@ -166,7 +168,7 @@ __device__ __forceinline__ uint32_t dropout_bits(unsigned long long seed, uint32
 }
 
 struct Dropout {
-  unsigned long long seed;
+  const unsigned long long* seed_src;  // the launch's seed, on the card (see seed)
   uint32_t thresh;   // uint32(rate * 2^32)
   float inv_keep;    // 1 / (1 - rate), rounded to f32 as JAX's weak-typed constant
   int on;            // rate > 0
@@ -179,8 +181,16 @@ struct Dropout {
   }
   // the counter's head of the launch's head h
   __device__ __forceinline__ int head(int h) const { return h0 + h; }
+  // The launch's seed, read once by each kernel on entry from the int64 the
+  // wrapper points at (a row of the step's random numbers on the card, so a
+  // step replayed as a CUDA graph reads that replay's seed); at rate 0
+  // nothing is drawn and the pointer may be null.  The struct itself stays
+  // a kernel parameter (its fields read from the parameter bank, not held
+  // in registers).
+  __device__ __forceinline__ unsigned long long seed() const { return on ? *seed_src : 0ull; }
   // gb, gh: the counter's batch row and head, row(b) and head(h)
-  __device__ __forceinline__ bool keep(int gb, int gh, int i, int j) const {
+  __device__ __forceinline__ bool keep(unsigned long long seed, int gb, int gh, int i,
+                                       int j) const {
     return dropout_bits(seed, gb, gh, i, j) >= thresh;
   }
 };
@@ -249,6 +259,7 @@ dropout_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __res
                                  const float* __restrict__ v, const float* __restrict__ bias,
                                  float* __restrict__ out, int Tq, int Tk, int H,
                                  int bias_per_batch, float scale, Dropout drop) {
+  const unsigned long long seed = drop.seed();
   constexpr int kPad = D + 1;
   constexpr int kCols = (D + 31) / 32;  // output columns per lane
   extern __shared__ float smem[];
@@ -282,7 +293,7 @@ dropout_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __res
     softmax_row<D>(qrow, ks, bb, row, Tk, scale, lane, prow);
     if (drop.on)
       for (int j = lane; j < Tk; j += 32)
-        prow[j] = drop.keep(gb, gh, row, j) ? prow[j] * drop.inv_keep : 0.f;
+        prow[j] = drop.keep(seed, gb, gh, row, j) ? prow[j] * drop.inv_keep : 0.f;
     __syncwarp();
     float acc[kCols];
 #pragma unroll
@@ -309,6 +320,7 @@ dropout_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
                                  const float* __restrict__ dout, float* __restrict__ dq,
                                  float* __restrict__ dk, float* __restrict__ dv, int Tq, int Tk,
                                  int H, int bias_per_batch, float scale, Dropout drop) {
+  const unsigned long long seed = drop.seed();
   constexpr int kPad = D + 1;
   constexpr int kCols = (D + 31) / 32;
   extern __shared__ float smem[];
@@ -353,7 +365,7 @@ dropout_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
       const float p = prow[j];
       float pd = p, dp = dpd;
       if (drop.on) {
-        const bool keep = drop.keep(gb, gh, row, j);
+        const bool keep = drop.keep(seed, gb, gh, row, j);
         pd = keep ? p * drop.inv_keep : 0.f;
         dp = keep ? dpd * drop.inv_keep : 0.f;
       }
@@ -415,10 +427,11 @@ dropout_attention_bwd_f32_kernel(const float* __restrict__ q, const float* __res
 // only for rows < Tq and keys < Tk, and inv_keep in the output's scale.
 struct HeadDropout {
   Dropout drop;
-  int gb, gh, Tq, Tk;  // the counter's batch row and head
+  unsigned long long seed;  // the launch's, read on entry
+  int gb, gh, Tq, Tk;       // the counter's batch row and head
 
   __device__ __forceinline__ float operator()(int row, int key, float p) const {
-    return drop.on && row < Tq && key < Tk && !drop.keep(gb, gh, row, key) ? 0.f : p;
+    return drop.on && row < Tq && key < Tk && !drop.keep(seed, gb, gh, row, key) ? 0.f : p;
   }
   __device__ __forceinline__ float scale(float inv_l) const {
     return drop.on ? inv_l * drop.inv_keep : inv_l;
@@ -433,6 +446,7 @@ dropout_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
                                  const bf16* __restrict__ v, const float* __restrict__ bias,
                                  bf16* __restrict__ out, int Tq, int Tk, int H,
                                  int bias_per_batch, float scale, Dropout drop) {
+  const unsigned long long seed = drop.seed();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
@@ -442,7 +456,7 @@ dropout_attention_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
   const float* bb = nullptr;
   if (bias != nullptr) bb = bias + (bias_per_batch ? (long long)b * Tq * Tk : 0LL);
   sbl::mha_fwd_block<D>(q + qoff, k + koff, v + koff, bb, out + qoff, rs, Tq, Tk, scale,
-                        HeadDropout{drop, drop.row(b), drop.head(h), Tq, Tk}, reinterpret_cast<bf16*>(smem_raw));
+                        HeadDropout{drop, seed, drop.row(b), drop.head(h), Tq, Tk}, reinterpret_cast<bf16*>(smem_raw));
 }
 
 // Whether K4's bf16 body keeps P_drop and dS of the whole head in shared
@@ -569,6 +583,9 @@ dropout_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
       return;
     }
     w[0] = w[1] = 0u;
+    // read here, where it is drawn with, and not held across the body (held,
+    // it pushed the d = 128 recomputing body into a spill)
+    const unsigned long long seed = drop.seed();
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
 #pragma unroll
@@ -576,7 +593,7 @@ dropout_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
         const int row = row0 + g + (e >> 1) * 8;
         const int bit = j * 8 + 2 * t + (e & 1);
         const int key = kt * kKeyTile + bit;
-        if (row < Tq && key < Tk && drop.keep(gb, gh, row, key)) w[e >> 1] |= 1u << bit;
+        if (row < Tq && key < Tk && drop.keep(seed, gb, gh, row, key)) w[e >> 1] |= 1u << bit;
       }
     }
 #pragma unroll
@@ -933,9 +950,11 @@ struct FastDiv {
 template <bool kMapped>
 __global__ void __launch_bounds__(kMaskThreads)
     dropout_keep_mask_kernel(unsigned char* __restrict__ out, uint32_t n, FastDiv by_tk,
-                             FastDiv by_tq, FastDiv by_h, unsigned long long seed,
+                             FastDiv by_tq, FastDiv by_h,
+                             const unsigned long long* __restrict__ seed_src,
                              uint32_t thresh, uint32_t row0, uint32_t rows,
                              uint32_t row_stride, uint32_t h0) {
+  const unsigned long long seed = *seed_src;
   uint32_t k0[10], k1[10];
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
@@ -1002,10 +1021,10 @@ bool shape_ok(int B, int Tq, int Tk, int H, int D) {
          f32_smem_bytes(Tq, Tk, D, 0) <= kMaxSmem && f32_smem_bytes(Tq, Tk, D, 1) <= kMaxSmem;
 }
 
-Dropout make_dropout(unsigned long long seed, unsigned int thresh, float inv_keep, int on,
+Dropout make_dropout(const unsigned long long* seed, unsigned int thresh, float inv_keep, int on,
                      int row0, int rows, int row_stride, int h0) {
   Dropout d;
-  d.seed = seed;
+  d.seed_src = seed;
   d.thresh = thresh;
   d.inv_keep = inv_keep;
   d.on = on;
@@ -1117,12 +1136,13 @@ int prepare(int B, int Tq, int Tk, int H, int D, int dtype, int device,
 // 32, 64, 128}; Tq, Tk such that f32_smem_bytes fits a block (kMaxSmem).
 // thresh = uint32(rate * 2^32), inv_keep = 1 / (1 - rate), dropout_on =
 // rate > 0; (row0, rows, row_stride) the batch-row map and h0 the first
-// head of the header.
+// head of the header; seed points at the launch's seed, an int64 on the
+// card (read only when dropout_on; null allowed otherwise).
 // Each returns the cudaError_t of its launch (0 on success).
 extern "C" int sbl_small_mha_dropout_fwd_flat(const void* q, const void* k, const void* v,
                                               const void* bias, void* out, int B, int Tq,
                                               int Tk, int H, int D, int bias_per_batch,
-                                              float scale, unsigned long long seed,
+                                              float scale, const void* seed,
                                               unsigned int thresh, float inv_keep,
                                               int dropout_on, int row0, int rows,
                                               int row_stride, int h0, int dtype, int device,
@@ -1130,7 +1150,8 @@ extern "C" int sbl_small_mha_dropout_fwd_flat(const void* q, const void* k, cons
   if (!rows_ok(B, row0, rows, row_stride) || !heads_ok(H, h0)) return (int)cudaErrorInvalidValue;
   const int err = prepare(B, Tq, Tk, H, D, dtype, device, {q, k, v, out});
   if (err != 0) return err;
-  const Dropout drop = make_dropout(seed, thresh, inv_keep, dropout_on, row0, rows, row_stride, h0);
+  const Dropout drop = make_dropout(
+      static_cast<const unsigned long long*>(seed), thresh, inv_keep, dropout_on, row0, rows, row_stride, h0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SBL_TRAIN_DISPATCH(launch_fwd, q, k, v, bias, out, B, Tq, Tk, H, bias_per_batch, scale, drop,
                      dtype, s)
@@ -1140,25 +1161,27 @@ extern "C" int sbl_small_mha_dropout_bwd_flat(const void* q, const void* k, cons
                                               const void* bias, const void* dout, void* dq,
                                               void* dk, void* dv, int B, int Tq, int Tk, int H,
                                               int D, int bias_per_batch, float scale,
-                                              unsigned long long seed, unsigned int thresh,
+                                              const void* seed, unsigned int thresh,
                                               float inv_keep, int dropout_on, int row0,
                                               int rows, int row_stride, int h0, int dtype,
                                               int device, void* stream) {
   if (!rows_ok(B, row0, rows, row_stride) || !heads_ok(H, h0)) return (int)cudaErrorInvalidValue;
   const int err = prepare(B, Tq, Tk, H, D, dtype, device, {q, k, v, dout, dq, dk, dv});
   if (err != 0) return err;
-  const Dropout drop = make_dropout(seed, thresh, inv_keep, dropout_on, row0, rows, row_stride, h0);
+  const Dropout drop = make_dropout(
+      static_cast<const unsigned long long*>(seed), thresh, inv_keep, dropout_on, row0, rows, row_stride, h0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SBL_TRAIN_DISPATCH(launch_bwd, q, k, v, bias, dout, dq, dk, dv, B, Tq, Tk, H, bias_per_batch,
                      scale, drop, dtype, s)
 }
 
 // out: (B, H, Tq, Tk) torch.bool (one byte per element), 16-byte aligned;
-// B * H * Tq * Tk < 2^31; (row0, rows, row_stride) the batch-row map and h0
+// B * H * Tq * Tk < 2^31; seed points at an int64 on the card; (row0, rows,
+// row_stride) the batch-row map and h0
 // the first head of the header (the identity (0, B, B) and h0 = 0 take the
 // unmapped kernel).
 extern "C" int sbl_dropout_keep_mask_flat(void* out, int B, int H, int Tq, int Tk,
-                                          unsigned long long seed, unsigned int thresh,
+                                          const void* seed, unsigned int thresh,
                                           int row0, int rows, int row_stride, int h0,
                                           int device, void* stream) {
   if (B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || !aligned16(out)) return (int)cudaErrorInvalidValue;
@@ -1178,7 +1201,8 @@ extern "C" int sbl_dropout_keep_mask_flat(void* out, int B, int H, int Tq, int T
   const long long resident = per_sm * sms > 0 ? (long long)per_sm * sms : 1;
   const unsigned blocks = (unsigned)(want < resident ? want : resident);
   kernel<<<blocks, kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<unsigned char*>(out), (uint32_t)n, FastDiv(Tk), FastDiv(Tq), FastDiv(H), seed,
+      static_cast<unsigned char*>(out), (uint32_t)n, FastDiv(Tk), FastDiv(Tq), FastDiv(H),
+      static_cast<const unsigned long long*>(seed),
       thresh, (uint32_t)row0, (uint32_t)rows, (uint32_t)row_stride, (uint32_t)h0);
   return (int)cudaGetLastError();
 }

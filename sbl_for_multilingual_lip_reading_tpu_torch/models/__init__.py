@@ -16,6 +16,7 @@ from .decoder_sbl import SBLDecoder
 from .decoder_uni import UniDecoder
 from .encoder import encoder_from_config
 from .frontend import frontend_from_config
+from .layers import CachedCrossAttention, MultiHeadAttention, RandomLayout
 from .sbl import SBLTransformer, UniTransformer
 
 
@@ -53,6 +54,21 @@ def check_kernel_shapes(cfg) -> None:
             f"{dims.d_inner}, d_model {dims.d_model}: the fused decoder "
             f"layer takes at most {MAX_ROWS} positions and d_inner a "
             f"multiple of d_model")
+
+
+def random_layout(model: nn.Module) -> RandomLayout:
+    """The ``RandomLayout`` of one training forward of ``model``: a seed for
+    each attention (the modules that draw one) outside an SBL decode step,
+    and for each of the SBL decoder's maxlen decode steps a block with a
+    seed for each attention inside it, and one coin a step."""
+    draws = (MultiHeadAttention, CachedCrossAttention)
+    dec = getattr(model, "decoder", None)
+    inner = set(dec.step.modules()) if isinstance(dec, SBLDecoder) else set()
+    steps = dec.maxlen if inner else 0
+    return RandomLayout(
+        direct=sum(isinstance(m, draws) for m in model.modules() if m not in inner),
+        children=steps, child=sum(isinstance(m, draws) for m in inner),
+        coins=steps)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:

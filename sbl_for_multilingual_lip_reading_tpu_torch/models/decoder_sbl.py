@@ -22,14 +22,19 @@ everything else follows the JAX module:
   first ``b+1`` positions, where b ends the step's segment, exactly the
   widths the JAX scan segments use (and ``utils/flops.py`` accounts for);
 * training: scheduled teacher forcing with ONE coin per step, shared by the
-  batch and both directions; the next token is the gold one or the argmax.
+  batch and both directions; the next token is ``torch.where(coin, gold,
+  argmax)``, the coin a bool on the device (drawn with the step's other
+  random numbers), so the host never reads it inside the step.
 
 Random numbers under checkpointing: ``torch.utils.checkpoint`` restores the
 default RNG's state for its recompute, not an explicit generator's.  So
 every random input of a decode step is fixed outside the checkpointed call:
-the step gets one seed, drawn beforehand from the forward's ``DropoutRNG``,
-and rebuilds its own ``DropoutRNG`` from it, which draws the same attention
-seeds and dropout masks in the recompute as in the forward.  The JAX
+the step gets one key (``DropoutRNG.child``: its block of the train
+step's rows of random numbers), drawn beforehand from the forward's
+``DropoutRNG``, and rebuilds its own ``DropoutRNG`` from it, which draws the
+same attention seeds and dropout masks in the recompute as in the forward
+(from rows, a fresh generator seeded alike: a generator cannot be reseeded
+inside a CUDA graph's capture).  The JAX
 decoder vmaps each layer over the direction axis with one dropout key per
 direction; here both directions fold into one launch of 2B rows, and the
 batch row in the kernels' Philox counter (and the (2, B, ...) shape of the
@@ -186,14 +191,15 @@ class _SBLStep(nn.Module):
         self.tgt_word_emb.weight.copy_(w)
 
     def forward(self, ys: torch.Tensor, enc_kv, step: int,
-                seed: Optional[int] = None, rows=None) -> torch.Tensor:
+                key=None, rows=None) -> torch.Tensor:
         """ys: (2, B, L) token buffers; enc_kv: per layer (k2, v2), each
-        (2, B, Tk, H*d); seed: None for a deterministic step, else the seed
-        of the step's random numbers (``rows``: the ``DropoutRNG``'s batch
-        rows).  Returns the (2, B, V) f32 logits at ``step``."""
+        (2, B, Tk, H*d); key: None for a deterministic step, else the key
+        of the step's random numbers (``DropoutRNG.child``; ``rows``: the
+        ``DropoutRNG``'s batch rows).  Returns the (2, B, V) f32 logits at
+        ``step``."""
         L = ys.shape[-1]
         dev = ys.device
-        rng = None if seed is None else DropoutRNG(seed, dev, rows)
+        rng = None if key is None else DropoutRNG(key[0], dev, rows, key[1])
         # the table is cast where it is used (flax Embed with dtype=); the
         # PE is added in the compute dtype (JAX decoder_sbl.py:217-219)
         emb = F.embedding(ys, self.tgt_word_emb.weight.to(self.dtype))
@@ -264,10 +270,11 @@ class SBLDecoder(nn.Module):
         return lg[0], lg[1]
 
     def _run(self, enc_output: torch.Tensor, gold: Optional[torch.Tensor],
-             use_gold: Sequence[bool], rng: Optional[DropoutRNG]):
+             use_gold: Sequence[torch.Tensor], rng: Optional[DropoutRNG]):
         """The decode loop (JAX ``SBLDecoder._run``).  gold: (2, B, maxlen)
-        or None where ``use_gold`` is all False.  Returns the token buffers
-        (2, B, maxlen+1) and the f32 logits (2, B, maxlen, V)."""
+        and use_gold maxlen 0-dim bool tensors on its device, or None and
+        None for the greedy decode.  Returns the token buffers (2, B,
+        maxlen+1) and the f32 logits (2, B, maxlen, V)."""
         whole = [] if rng is not None else [
             m for m in self.modules() if getattr(m, "whole_in_eval", False)]
         if whole:
@@ -286,14 +293,16 @@ class SBLDecoder(nn.Module):
         for a, b in self._segments():
             for step in range(a, b):
                 args = (ys[:, :, :b + 1], enc_kv, step,
-                        None if rng is None else rng.seed(),
+                        None if rng is None else rng.child(),
                         None if rng is None else rng.rows)
                 if self.remat and torch.is_grad_enabled():
                     lg = checkpoint(self.step, *args, use_reentrant=False,
                                     preserve_rng_state=False)
                 else:
                     lg = self.step(*args)
-                nxt = gold[:, :, step] if use_gold[step] else lg.detach().argmax(-1)
+                nxt = lg.detach().argmax(-1)
+                if gold is not None:
+                    nxt = torch.where(use_gold[step], gold[:, :, step], nxt)
                 # a new buffer: the embedding (and a checkpoint) keep this
                 # step's view of the old one for the backward
                 ys = ys.clone()
@@ -318,14 +327,18 @@ class SBLDecoder(nn.Module):
         if len(use_gold) != self.maxlen:
             raise ValueError(f"use_gold needs {self.maxlen} coins, got "
                              f"{len(use_gold)}")
-        _, lg = self._run(enc_output, gold, [bool(c) for c in use_gold], rng)
+        if not all(torch.is_tensor(c) for c in use_gold):
+            # injected bools: one upload
+            use_gold = torch.tensor([bool(c) for c in use_gold],
+                                    device=gold.device).unbind(0)
+        _, lg = self._run(enc_output, gold, use_gold, rng)
         return lg[0], gold[0], lg[1], gold[1]
 
     def decode(self, enc_output: torch.Tensor):
         """Greedy decode.  Returns (ys_l2r, ys_r2l, logits_l2r, logits_r2l):
         token ids (B, maxlen+1) with the leading sos, and f32 logits
         (B, maxlen, V) of every step."""
-        ys, lg = self._run(enc_output, None, [False] * self.maxlen, None)
+        ys, lg = self._run(enc_output, None, None, None)
         return ys[0], ys[1], lg[0], lg[1]
 
     def recognize(self, enc_output: torch.Tensor):

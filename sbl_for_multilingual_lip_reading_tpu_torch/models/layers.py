@@ -14,7 +14,8 @@
   encoder's K/V projected once per clip instead of once per decode step.
 * ``PositionwiseFeedForward``, ``EncoderLayer``, ``DecoderLayer``,
   ``sinusoid_position_encoding``.
-* ``DropoutRNG`` / ``dropout`` -- the training forward's random numbers.
+* ``DropoutRNG`` / ``dropout`` -- the training forward's random numbers;
+  ``StepRandom`` / ``RandomLayout`` -- a train step's rows of them.
 
 Tensor parallelism (the mesh's ``model`` axis, Megatron's layout;
 ``parallel.shard_model`` cuts a built model down to one process's slice).
@@ -49,7 +50,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -64,13 +65,84 @@ from ..parallel.tensor import (copy_to_model, gather_from_model,
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
 
+class RandomLayout(NamedTuple):
+    """Where a training forward finds its random numbers in one step's row
+    of seeds (``StepRandom``): entry 0 seeds the elementwise masks' generator,
+    then ``direct`` seeds for the attentions of the encoder (and a
+    unidirectional decoder), in call order, then ``children`` blocks of
+    1 + ``child`` (an SBL decode step's: its masks' generator seed, then its
+    attentions' seeds); ``coins`` teacher-forcing coins beside them."""
+    direct: int
+    children: int
+    child: int
+    coins: int
+
+    @property
+    def size(self) -> int:
+        return 1 + self.direct + self.children * (1 + self.child)
+
+    def child_base(self, j: int) -> int:
+        return 1 + self.direct + j * (1 + self.child)
+
+
+class StepRandom(NamedTuple):
+    """One train step's random numbers: ``seeds`` (layout.size,) int64 and
+    ``coins`` (layout.coins,) bool on the step's device, ``host`` the seeds
+    on the host (they seed the mask generators, which are seeded on the
+    host), and ``generators(index) -> torch.Generator``, the generator of the
+    masks seeded from ``host[index]`` (``EagerGenerators``, or the pool of a
+    CUDA graph's registered generators)."""
+    seeds: torch.Tensor
+    coins: torch.Tensor
+    host: np.ndarray
+    layout: RandomLayout
+    generators: object
+
+
+class EagerGenerators:
+    """A new generator for each use, seeded with ``host[index]``."""
+
+    def __init__(self, device, host: np.ndarray):
+        self.device, self.host = torch.device(device), host
+
+    def __call__(self, index: int) -> torch.Generator:
+        return torch.Generator(device=self.device).manual_seed(
+            int(self.host[index]))
+
+
+def draw_step_random(seed: int, layout: RandomLayout,
+                     teacher_forcing_rate: float = 0.0):
+    """The host rows of one step's random numbers, drawn from ``seed`` (the
+    step's seed, drawn from the trainer's ``torch.Generator``): seeds
+    (layout.size,) int64 below 2^62 and coins (layout.coins,) bool, each
+    True with probability ``teacher_forcing_rate``."""
+    host = torch.Generator().manual_seed(int(seed))
+    seeds = torch.randint(0, 2 ** 62, (layout.size,), generator=host)
+    coins = torch.rand(layout.coins, generator=host) < teacher_forcing_rate
+    return seeds.numpy(), coins.numpy()
+
+
+def step_random(seed: int, layout: RandomLayout, device,
+                teacher_forcing_rate: float = 0.0) -> StepRandom:
+    """One step's ``StepRandom`` drawn from ``seed`` (``draw_step_random``),
+    uploaded to ``device``, its masks from ``EagerGenerators``."""
+    seeds, coins = draw_step_random(seed, layout, teacher_forcing_rate)
+    return StepRandom(torch.from_numpy(seeds).to(device),
+                      torch.from_numpy(coins).to(device), seeds, layout,
+                      EagerGenerators(device, seeds))
+
+
 class DropoutRNG:
-    """The random numbers of one training forward, from explicit generators
-    (never the global RNG): attention-kernel seeds and teacher-forcing coins
-    on the host, so drawing them never waits for the device; elementwise
-    dropout masks on the device.  Built again from the same seed it draws
-    the same numbers in the same order, which is what lets a checkpointed
-    decode step recompute its masks.
+    """The random numbers of one training forward, read from a train step's
+    rows (``StepRandom``), never from the global RNG: an attention kernel's
+    seed is a view of one int64 of the row on the device (the kernels read
+    it there), a teacher-forcing coin one bool of it, and the elementwise
+    masks come from ``random.generators`` -- so nothing is drawn on the host
+    inside the step, and a step captured as a CUDA graph draws each
+    replay's numbers.  Built again from the same rows it reads the same
+    numbers in the same order, which is what lets a checkpointed decode step
+    recompute its masks.  ``block`` j: the numbers of child j (an SBL decode
+    step, ``child``).
 
     ``rows`` (a ``BatchRows``) is set in a data-parallel process: its batch
     is a stripe of the whole batch, and it draws the masks of its rows of
@@ -82,21 +154,43 @@ class DropoutRNG:
     elementwise masks, on whole activations, are the same in every model
     process."""
 
-    def __init__(self, seed: int, device, rows: Optional[BatchRows] = None):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
-        self.rows = rows
-        self.host = torch.Generator().manual_seed(seed)
-        self.dev = (self.host if self.device.type == "cpu" else
-                    torch.Generator(device=self.device).manual_seed(seed))
+    def __init__(self, random: StepRandom, device,
+                 rows: Optional[BatchRows] = None, block: Optional[int] = None):
+        self.device, self.rows, self.table = torch.device(device), rows, random
+        lay = random.layout
+        first = 0 if block is None else lay.child_base(block)
+        self._next = first + 1
+        self._end = first + 1 + (lay.direct if block is None else lay.child)
+        self._children = lay.children if block is None else 0
+        self._child = 0
+        self.dev = random.generators(first)
 
-    def seed(self) -> int:
-        return int(torch.randint(0, 2 ** 62, (1,), generator=self.host))
+    def seed(self) -> torch.Tensor:
+        """A seed for one attention kernel launch: an int64 view of the
+        step's row on the device."""
+        if self._next >= self._end:
+            raise ValueError("the forward draws more seeds than its step's "
+                             "RandomLayout holds")
+        self._next += 1
+        return self.table.seeds[self._next - 1]
 
-    def coins(self, n: int, p: float) -> List[bool]:
-        """n Bernoulli(p) draws."""
-        return (torch.rand(n, generator=self.host) < p).tolist()
+    def child(self):
+        """The random numbers of the next SBL decode step, as a key
+        (rows, block) from which the step, and its checkpointed recompute,
+        build their ``DropoutRNG`` identically."""
+        if self._child >= self._children:
+            raise ValueError("the forward takes more decode steps than its "
+                             "step's RandomLayout holds")
+        self._child += 1
+        return (self.table, self._child - 1)
+
+    def coins(self, n: int, p: float) -> List[torch.Tensor]:
+        """n teacher-forcing coins, 0-dim bool tensors on the device (drawn
+        into the step's rows with the decoder's rate p)."""
+        if n != self.table.layout.coins:
+            raise ValueError(f"{n} coins asked, the step's rows hold "
+                             f"{self.table.layout.coins}")
+        return list(self.table.coins.unbind(0))
 
     def keep(self, shape, rate: float, batch_dim: int = 0) -> torch.Tensor:
         """Bool mask, True with probability 1 - rate.  ``batch_dim`` is the

@@ -36,7 +36,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
-_SEED = ctypes.c_ulonglong
 _U = ctypes.c_uint
 _SIGNATURES = {
     # q, k, v, bias, out, B, Tq, Tk, H, D, bias_per_batch, scale, dtype,
@@ -49,21 +48,22 @@ _SIGNATURES = {
                       _I, _P],
     # in, out, B, T, plane_bytes, kt, device, stream
     "sbl_stack_frames": [_P, _P, _LL, _I, _LL, _I, _I, _P],
-    # q, k, v, bias, out, B, Tq, Tk, H, D, bias_per_batch, scale, seed,
+    # q, k, v, bias, out, B, Tq, Tk, H, D, bias_per_batch, scale, seed (the
+    # address of the launch's int64 seed on the card),
     # thresh, inv_keep, dropout_on, row0, rows, row_stride, h0, dtype,
     # device, stream
     "sbl_small_mha_dropout_fwd_flat": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _I, _F, _SEED, _U, _F, _I, _I, _I, _I,
+                                       _I, _F, _P, _U, _F, _I, _I, _I, _I,
                                        _I, _I, _I, _P],
     # q, k, v, bias, dout, dq, dk, dv, B, Tq, Tk, H, D, bias_per_batch,
     # scale, seed, thresh, inv_keep, dropout_on, row0, rows, row_stride,
     # h0, dtype, device, stream
     "sbl_small_mha_dropout_bwd_flat": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                       _I, _I, _I, _I, _F, _SEED, _U, _F, _I,
+                                       _I, _I, _I, _I, _F, _P, _U, _F, _I,
                                        _I, _I, _I, _I, _I, _I, _P],
     # out, B, H, Tq, Tk, seed, thresh, row0, rows, row_stride, h0, device,
     # stream
-    "sbl_dropout_keep_mask_flat": [_P, _I, _I, _I, _I, _SEED, _U, _I, _I, _I,
+    "sbl_dropout_keep_mask_flat": [_P, _I, _I, _I, _I, _P, _U, _I, _I, _I,
                                    _I, _I, _P],
     # clips, offsets, flip, frame_map, n_frames, out, B, T, H, W, crop,
     # inv_std, shift, dtype, device, stream

@@ -262,10 +262,37 @@ def dropout_threshold(rate: float) -> int:
     return int(rate * 4294967296.0)
 
 
-def _check_seed(seed) -> int:
+def _check_seed(seed):
+    """A seed is a 64-bit unsigned int, or an int64 tensor of one element
+    holding its bits (two's complement), on the device of the launch: the
+    kernels read it there, so a step replayed as a CUDA graph reads each
+    replay's seed; its value is never read on the host."""
+    if torch.is_tensor(seed):
+        if seed.dtype != torch.int64 or seed.numel() != 1:
+            raise ValueError(f"a seed tensor holds one int64; got {seed.dtype} "
+                             f"{tuple(seed.shape)}")
+        return seed
     if not 0 <= int(seed) < 2 ** 64:
         raise ValueError(f"seed must be a 64-bit unsigned integer; got {seed}")
     return int(seed)
+
+
+def _seed_arg(seed, device, drawn: bool = True):
+    """The address the kernels read the seed from: the element of an int64
+    tensor on the launch's device (``DropoutRNG.seed``, a view of the train
+    step's row there), so that a step replayed as a CUDA graph reads each
+    replay's seed; None when nothing is drawn (dropout rate 0).  An int is
+    refused here: only the plain versions take one, as the JAX package's
+    tests give it."""
+    seed = _check_seed(seed)
+    if not drawn:
+        return None
+    if not torch.is_tensor(seed):
+        raise ValueError("the kernels read their seed on the device: pass an "
+                         "int64 tensor there, not an int")
+    if seed.device != device:
+        raise ValueError(f"the seed lies on {seed.device}, the launch on {device}")
+    return seed.data_ptr()
 
 
 def _mulhilo32(a: torch.Tensor, m: int):
@@ -280,8 +307,11 @@ def _mulhilo32(a: torch.Tensor, m: int):
 def philox4x32_10(counter, seed: int):
     """Philox4x32-10 (Random123's constants) in plain PyTorch: ``counter``
     is four broadcastable int64 tensors of uint32 words, ``seed`` a 64-bit
-    key.  Returns the four output words as int64 tensors."""
+    key (an int, or an int64 tensor of one element: ``_check_seed``).
+    Returns the four output words as int64 tensors."""
     c0, c1, c2, c3 = torch.broadcast_tensors(*counter)
+    if torch.is_tensor(seed):
+        seed = seed.reshape(()).to(c0.device)
     k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
     for r in range(10):
         if r:
@@ -373,8 +403,8 @@ def _k5(name, B, Tq, Tk, H, seed, rate, device, rows=None, h0=0):
     """Launch K5 on a CUDA device into a new (B, H, Tq, Tk) bool mask.  K5
     indexes its elements in 32 bits, so a mask of MAX_MASK_ELEMENTS or more
     is refused before it is allocated (the plain version has no such
-    limit)."""
-    seed = _check_seed(seed)
+    limit).  K5 reads its seed on the card (``_seed_arg``)."""
+    _check_seed(seed)
     thresh = dropout_threshold(rate)
     row_args = _row_args(B, rows)
     h0 = _check_h0(H, h0)
@@ -386,8 +416,9 @@ def _k5(name, B, Tq, Tk, H, seed, rate, device, rows=None, h0=0):
     out = torch.empty((B, H, Tq, Tk), dtype=torch.bool, device=device)
     if out.numel() == 0:
         return out
+    seed_ptr = _seed_arg(seed, device)
     err = _build.library().sbl_dropout_keep_mask_flat(
-        out.data_ptr(), B, H, Tq, Tk, seed, thresh, *row_args, h0,
+        out.data_ptr(), B, H, Tq, Tk, seed_ptr, thresh, *row_args, h0,
         device.index, _stream(device))
     _build.check(err, name)
     return out
@@ -493,7 +524,7 @@ small_mha_dropout_fwd_flat.launches = 0
 def _k3(name, q, k, v, n_head, bias, seed, rate, scale, rows=None, h0=0):
     """Launch K3 on flat CUDA operands (checked here) into a new tensor."""
     B, Tq, Tk, D = _check(q, k, v, n_head, bias)
-    seed = _check_seed(seed)
+    _check_seed(seed)
     thresh, inv_keep, on = _dropout_launch_args(rate)
     row_args = _row_args(B, rows)
     h0 = _check_h0(n_head, h0)
@@ -501,6 +532,7 @@ def _k3(name, q, k, v, n_head, bias, seed, rate, scale, rows=None, h0=0):
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    seed = _seed_arg(seed, q.device, rate > 0.0)
     err = _build.library().sbl_small_mha_dropout_fwd_flat(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
@@ -548,7 +580,7 @@ def _k4(name, q, k, v, n_head, bias, seed, rate, scale, dout, rows=None,
     B, Tq, Tk, D = _check(q, k, v, n_head, bias)
     if dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} does not match q")
-    seed = _check_seed(seed)
+    _check_seed(seed)
     thresh, inv_keep, on = _dropout_launch_args(rate)
     row_args = _row_args(B, rows)
     h0 = _check_h0(n_head, h0)
@@ -556,6 +588,7 @@ def _k4(name, q, k, v, n_head, bias, seed, rate, scale, dout, rows=None,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk, dv
+    seed = _seed_arg(seed, q.device, rate > 0.0)
     err = _build.library().sbl_small_mha_dropout_bwd_flat(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), dout.data_ptr(),

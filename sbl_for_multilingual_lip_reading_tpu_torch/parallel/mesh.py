@@ -27,6 +27,14 @@ step on the stripes put one after another:
   (``models.layers.DropoutRNG`` with ``BatchRows``), and the seeds and
   teacher-forcing coins are the same in every process.
 
+The step issues its collectives (the gradient all-reduce, the loss's
+counts, the BatchNorm sums, the running statistics' broadcast) on the
+current stream with no host read, so under NCCL the whole step can be
+captured as a CUDA graph (``training.steps.GraphedStep``; ``graphable``);
+gloo's collectives run on the host and cannot, so a gloo grid runs the
+epoch-fused step eagerly.  The epoch-fused route's device cache holds only
+the data index's block of the dataset (``data_index``).
+
 Model axis (tensor parallelism, Megatron's layout of JAX's ``PARAM_RULES``).
 ``shard_model`` cuts a model built whole from the seed down to the
 process's slice: the attention projections ``w_qs``/``w_ks``/``w_vs`` and
@@ -94,6 +102,18 @@ class DataMesh:
     @property
     def global_rank(self) -> int:
         return self.rank * self.model_size + self.model_rank
+
+    @property
+    def data_index(self) -> int:
+        """The process's data index (``rank``): which block of the dataset
+        the epoch-fused route's device cache holds."""
+        return self.rank
+
+    @property
+    def graphable(self) -> bool:
+        """Whether the step's collectives can be captured in a CUDA graph:
+        NCCL's can (issued on the capturing stream), gloo's cannot."""
+        return self.backend == "nccl"
 
     def rows(self, local_batch: int) -> BatchRows:
         """This process's rows of the global batch."""

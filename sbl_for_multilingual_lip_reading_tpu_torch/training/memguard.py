@@ -33,7 +33,9 @@ def card_memory(device) -> Tuple[int, int]:
 
 class GuardedTrainStep:
     """Calls ``step(batch, generator, ...)`` (a step of
-    ``training/steps.py``), guarding the first call.  ``rebuild()`` returns
+    ``training/steps.py``; or ``fused(i, None, ...)``, the epoch-fused step,
+    which takes its batch from the epoch's constants and no generator),
+    guarding the first call.  ``rebuild()`` returns
     the cheaper step (the Trainer's turns ``remat_frontend`` on); ``memory``
     returns (peak, capacity) in bytes for the message (default
     ``card_memory`` of the step's device).  ``rebuilt`` tells whether the
@@ -78,10 +80,11 @@ class GuardedTrainStep:
                     f"begun: {e}") from e
             return None, str(e).splitlines()[0]
 
-    def __call__(self, batch, generator: torch.Generator, *args, **kw):
+    def __call__(self, batch, generator: Optional[torch.Generator], *args, **kw):
         if not self._first:
             return self.step(batch, generator, *args, **kw)
-        rng_state = generator.get_state()
+        # the epoch-fused step (batch: its index) draws from no generator
+        rng_state = None if generator is None else generator.get_state()
         out, oom = self._attempt(batch, generator, args, kw)
         if oom is not None:
             self._free()
@@ -95,7 +98,8 @@ class GuardedTrainStep:
                     f"remat_frontend=True")
             self.step = self._rebuild()
             self.rebuilt = True
-            generator.set_state(rng_state)
+            if generator is not None:
+                generator.set_state(rng_state)
             out, oom = self._attempt(batch, generator, args, kw)
             if oom is not None:
                 self._free()

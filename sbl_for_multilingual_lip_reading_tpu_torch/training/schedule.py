@@ -5,10 +5,14 @@
 
 with ``step`` the number of updates already applied (the reference
 increments before use, so the first update sees s = 1), computed in f32
-as the JAX schedule is.  Adam is ``torch.optim.Adam`` with betas (0.9, 0.98)
-and eps 1e-9 outside the square root, as optax's; its lr is set from the
-schedule before every step, and its own step count starts at 0, as optax's
-does.
+as the JAX schedule is.  ``noam_lr_device`` computes it on the device from
+the train state's step counter (an int64 tensor), so a step captured as a
+CUDA graph computes each replay's lr; it equals ``noam_lr`` within one f32
+ulp (s ** -0.5 from f64 in place of numpy's f32 power).  Adam is ``torch.optim.Adam``
+with betas (0.9, 0.98) and eps 1e-9 outside the square root, as optax's;
+its lr is a device tensor the train state writes before every step
+(``capturable`` on a card, so its step count and bias corrections live on
+the card too), and its own step count starts at 0, as optax's does.
 
 ``clip_by_global_norm_`` is optax's ``clip_by_global_norm``, which the
 JAX package chains before Adam when ``grad_clip`` is set: every gradient
@@ -34,6 +38,19 @@ def noam_lr(step: int, k: float = 0.2, warmup_steps: int = 4000,
     lr = np.float32(k * d_model ** -0.5) * np.minimum(
         s ** np.float32(-0.5), s * np.float32(warmup_steps ** -1.5))
     return float(lr)
+
+
+def noam_lr_device(step: torch.Tensor, k: float = 0.2, warmup_steps: int = 4000,
+                   d_model: int = 512) -> torch.Tensor:
+    """``noam_lr`` of the int64 counter ``step`` on its device, in f32, with
+    no host read."""
+    s = torch.clamp(step + 1, min=1)
+    # s ** -0.5 rounded once to f32 from f64 (within an ulp of numpy's powf)
+    root = torch.rsqrt(s.to(torch.float64)).to(torch.float32)
+    s = s.to(torch.float32)
+    scale = float(np.float32(k * d_model ** -0.5))
+    ramp = float(np.float32(warmup_steps ** -1.5))
+    return scale * torch.minimum(root, s * ramp)
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -71,8 +88,12 @@ def clip_by_global_norm_(params: Iterable[torch.nn.Parameter],
 
 def make_optimizer(model: torch.nn.Module, optim_cfg) -> torch.optim.Adam:
     """Adam over every parameter of ``model`` (an OptimConfig's betas and
-    eps; the lr is set per step by ``TrainState.apply_gradients``, which
-    also applies ``grad_clip``)."""
-    return torch.optim.Adam(model.parameters(), lr=0.0,
+    eps) with a tensor lr on the model's device, ``capturable`` on a card;
+    ``TrainState.apply_gradients`` writes the lr each step and applies
+    ``grad_clip``."""
+    device = next(model.parameters()).device
+    return torch.optim.Adam(model.parameters(),
+                            lr=torch.zeros((), device=device),
                             betas=(optim_cfg.adam_b1, optim_cfg.adam_b2),
-                            eps=optim_cfg.adam_eps)
+                            eps=optim_cfg.adam_eps,
+                            capturable=device.type == "cuda")

@@ -19,9 +19,17 @@ The BN running statistics update inside the forward.  Frozen subtrees
 ``_freeze_grads`` gives them: Adam's moments then keep moving those weights,
 as they do under optax (``torch.optim.Adam`` would skip a None gradient).
 
-The step's random numbers come from the ``torch.Generator`` the caller
-passes (a CPU one: drawing from it never waits for the device): one seed per
-step builds the forward's ``DropoutRNG``.
+The step's random numbers are one row of seeds and coins a step
+(``models.layers.StepRandom``: the attention kernels' seeds, the seeds of
+the elementwise masks' generators, the teacher-forcing coins).  The
+per-step route draws the step's seed from the ``torch.Generator`` the
+caller passes (a CPU one: drawing from it never waits for the device),
+draws the row from it on the host and uploads it once; the epoch-fused
+route (``make_epoch_fused_step``) finds the same rows among the epoch's
+constants.  Inside the step nothing is read on the host: the lr comes from
+the device step counter, the coins are device bools, the seeds device
+int64s, so a whole step can be captured as one CUDA graph
+(``GraphedStep``) and replayed once a step.
 
 With a ``mesh`` (``parallel.DataMesh``) the step is one process's share of
 the step on the data indices' batches put one after another
@@ -38,22 +46,33 @@ order, the decoder's checkpointed recompute included.
 """
 from __future__ import annotations
 
+import gc
 import os
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import ops
 from ..config import model_kind
 from ..data.ingest import device_ingest
+from ..models import random_layout
 from ..models.frontend import pallas_bn_on
-from ..models.layers import DropoutRNG, cast_dense_weights
+from ..models.layers import (DropoutRNG, EagerGenerators, StepRandom,
+                             cast_dense_weights, step_random)
 from ..ops.ingest import MAX_OFFSET, ingest_train, ingest_train_plain
 from ..recognize import recognize_batch
 from .loss import cal_performance, classify_terms, token_count
 from .state import TrainState
 
 PLAN_KEYS = ("offsets", "flip", "frame_map")
+# the metrics each workload's step returns, in the order of the epoch-fused
+# route's ring of metrics
+METRIC_KEYS = {"sbl": ("loss", "loss_l2r", "loss_r2l", "n_correct_l2r",
+                       "n_correct_r2l"),
+               "uni": ("loss", "n_correct"),
+               "classify": ("loss", "word_correct", "lang_correct")}
 
 
 def freeze_grads(model: torch.nn.Module, freeze_prefixes: Sequence[str]) -> None:
@@ -166,7 +185,12 @@ def _make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     rng, **kw) -> (loss, metrics, terms)``, the workload's forward and loss
     (terms: ``_global_loss``'s).  ``mesh`` makes it a data-parallel
     process's step and sets the BatchNorms' synchronisation from
-    ``cfg.mesh.sync_batchnorm``."""
+    ``cfg.mesh.sync_batchnorm``.
+
+    ``step(batch, generator, ...)`` is the per-step route: it draws the
+    step's row of random numbers from ``generator`` and runs ``step.body(
+    batch, random, ...)``, the step itself, which the epoch-fused route
+    calls on its own rows.  ``step.layout`` is the rows' ``RandomLayout``."""
     from ..parallel import running_stats, set_sync_batchnorm
     freeze = tuple(cfg.freeze_prefixes)
     crop = cfg.data.crop_size
@@ -176,16 +200,17 @@ def _make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     state = TrainState(model, optimizer, cfg.optim)
     sync_bn = mesh is not None and cfg.mesh.sync_batchnorm
     set_sync_batchnorm(model, mesh if sync_bn else None)
+    layout = random_layout(model)
 
-    def step(batch, generator: torch.Generator, marks: Optional[List] = None,
+    def body(batch, random: StepRandom, marks: Optional[List] = None,
              **kw) -> Dict[str, torch.Tensor]:
         model.train()
         step.updating = False
         _mark(marks, "start")
         video = ingest_train_batch(batch, crop, dtype, kernels)
         _mark(marks, "ingest")
-        rng = DropoutRNG(int(torch.randint(0, 2 ** 62, (1,), generator=generator)),
-                         device, None if mesh is None else mesh.rows(video.shape[0]))
+        rng = DropoutRNG(random, device, None if mesh is None
+                         else mesh.rows(video.shape[0]))
         loss, metrics, terms = forward_loss(video, batch, rng, **kw)
         objective = loss
         if mesh is not None:
@@ -206,7 +231,17 @@ def _make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         _mark(marks, "optimizer")
         return {"loss": loss.detach(), **metrics}
 
-    step.state = state
+    def step(batch, generator: torch.Generator, marks: Optional[List] = None,
+             **kw) -> Dict[str, torch.Tensor]:
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+        dec = getattr(model, "decoder", None)
+        random = step_random(seed, layout, device,
+                             getattr(dec, "teacher_forcing_rate", 0.0))
+        return body(batch, random, marks, **kw)
+
+    step.body, step.state, step.layout, step.mesh = body, state, layout, mesh
+    step.metric_keys = METRIC_KEYS[model_kind(cfg)]
+    step.updating = False
     return step
 
 
@@ -325,3 +360,238 @@ def make_eval_step(model: torch.nn.Module, cfg) -> Optional[Callable]:
     make = {"classify": make_classify_eval_step,
             "uni": make_uni_eval_step}.get(model_kind(cfg))
     return None if make is None else make(model, cfg)
+
+
+# ---------------------------------------------------------------------------
+# the epoch-fused cached route
+# ---------------------------------------------------------------------------
+
+class EpochConst:
+    """The device buffers the epoch-fused step reads (JAX
+    ``make_epoch_fused_step``'s ``const``), allocated once for ``capacity``
+    steps (a whole epoch) and refilled every epoch in place, so a CUDA graph
+    captured in one epoch reads the next one's:
+
+      base        int64 ()               state.step_dev at the epoch's start
+      order       int64 (capacity, B)    dataset indices, one row a step
+      clips       uint8 (N, T, H, W)     the resident dataset
+      per_sample  {key: (N, ...)}        label-like arrays, gathered by order
+      per_step    {key: (capacity, B, ...)}  the augmentation plans
+      seeds       int64 (capacity, size) each step's ``StepRandom`` seeds
+      coins       bool (capacity, coins) and its teacher-forcing coins
+      ring        f32 (capacity, k)      each step's metrics, written by it
+
+    ``host_seeds`` holds the seeds on the host too (they seed the mask
+    generators).  Under a mesh (``make_epoch_fused_step_mesh``) B is the
+    process's columns of the global batch and N its data index's rows."""
+
+    def __init__(self, clips: torch.Tensor, per_sample: Dict[str, torch.Tensor],
+                 capacity: int, batch: int, plan_shapes: Dict[str, tuple],
+                 layout, n_metrics: int):
+        device = clips.device
+        self.clips, self.per_sample, self.layout = clips, per_sample, layout
+        self.base = torch.zeros((), dtype=torch.int64, device=device)
+        self.order = torch.zeros((capacity, batch), dtype=torch.int64,
+                                 device=device)
+        self.per_step = {k: torch.zeros((capacity, batch) + shape, dtype=dtype,
+                                        device=device)
+                         for k, (shape, dtype) in plan_shapes.items()}
+        self.seeds = torch.zeros((capacity, layout.size), dtype=torch.int64,
+                                 device=device)
+        self.coins = torch.zeros((capacity, layout.coins), dtype=torch.bool,
+                                 device=device)
+        self.ring = torch.zeros((capacity, n_metrics), dtype=torch.float32,
+                                device=device)
+        self.host_seeds = np.zeros((capacity, layout.size), np.int64)
+
+    @property
+    def capacity(self) -> int:
+        return self.order.shape[0]
+
+    def load(self, base: int, order: np.ndarray, plans: Dict[str, np.ndarray],
+             seeds: np.ndarray, coins: np.ndarray) -> int:
+        """Copy an epoch's n_steps rows in; returns n_steps."""
+        n = len(order)
+        if n > self.capacity:
+            raise ValueError(f"{n} steps do not fit the {self.capacity} rows")
+        self.base.fill_(base)
+        self.order[:n].copy_(torch.from_numpy(np.asarray(order, np.int64)))
+        for k, v in plans.items():
+            self.per_step[k][:n].copy_(torch.from_numpy(np.ascontiguousarray(v)))
+        self.seeds[:n].copy_(torch.from_numpy(seeds))
+        self.coins[:n].copy_(torch.from_numpy(coins))
+        self.host_seeds[:n] = seeds
+        return n
+
+
+class FusedStep:
+    """JAX ``make_epoch_fused_step``: the batch assembled on the device from
+    ``const`` -- row i = state.step_dev - base of the order, the plans and the
+    random numbers, ``index_select`` at a device index -- then the step's
+    body, whose metrics go to row i of the ring.  ``row0`` is subtracted from
+    the dataset indices (the mesh variant's data index times N_local).  Call
+    as ``fused(i, None, generators=None)``: i the step's index on the host,
+    which only picks the host seeds of the mask generators (the memory
+    guard's call convention; the second argument, a host generator, must be
+    None: nothing is drawn on the host here)."""
+
+    def __init__(self, step: Callable, const: EpochConst, row0: int = 0):
+        self.step, self.const, self.row0 = step, const, row0
+        self.device = const.clips.device
+
+    @property
+    def state(self):
+        return self.step.state
+
+    @property
+    def updating(self) -> bool:
+        return self.step.updating
+
+    def __call__(self, i: int, generator=None, generators=None) -> None:
+        if generator is not None:
+            raise ValueError("the epoch-fused step draws from no host generator")
+        c, state = self.const, self.step.state
+        j = (state.step_dev - c.base).view(1)
+        idx = c.order.index_select(0, j)[0]
+        if self.row0:
+            idx = idx - self.row0
+        batch = {k: v.index_select(0, idx) for k, v in c.per_sample.items()}
+        batch["clip_u8"] = c.clips.index_select(0, idx)
+        for k, v in c.per_step.items():
+            batch[k] = v.index_select(0, j)[0]
+        host = c.host_seeds[i]
+        random = StepRandom(c.seeds.index_select(0, j)[0],
+                            c.coins.index_select(0, j)[0], host, c.layout,
+                            generators or EagerGenerators(self.device, host))
+        metrics = self.step.body(batch, random)
+        c.ring.index_copy_(0, j, torch.stack(
+            [metrics[k].float() for k in self.step.metric_keys])[None])
+
+
+def make_epoch_fused_step(step: Callable, const: EpochConst) -> FusedStep:
+    """The one-process epoch-fused step of ``step`` (a step of this module)
+    over ``const``."""
+    return FusedStep(step, const)
+
+
+def make_epoch_fused_step_mesh(step: Callable, const: EpochConst, mesh
+                               ) -> FusedStep:
+    """JAX ``make_epoch_fused_step_mesh``: ``const`` holds this process's
+    data index's rows [d N_local, (d+1) N_local) of the dataset and its
+    columns d B_local:(d+1) B_local of each step's order (global indices,
+    all within those rows) and plans, so the gather is local: the global
+    index is rebased by d * N_local (d = ``mesh.data_index``).  The model
+    group's processes share the data index, and so the batch."""
+    return FusedStep(step, const, row0=mesh.data_index * const.clips.shape[0])
+
+
+class _PoolGenerators:
+    """A CUDA graph's registered generators, handed out in call order at
+    capture; ``uses`` records the host seed index of each."""
+
+    def __init__(self, pool):
+        self.pool, self.uses = pool, []
+
+    def __call__(self, index: int) -> torch.Generator:
+        if len(self.uses) == len(self.pool):
+            raise RuntimeError("the step asked for more mask generators under "
+                               "capture than in its warm-up")
+        self.uses.append(index)
+        return self.pool[len(self.uses) - 1]
+
+
+class _CountingGenerators(EagerGenerators):
+    def __init__(self, device, host):
+        super().__init__(device, host)
+        self.n = 0
+
+    def __call__(self, index: int) -> torch.Generator:
+        self.n += 1
+        return super().__call__(index)
+
+
+class GraphedStep:
+    """The epoch-fused step on a card: ``fn(i, None, generators)`` (a
+    ``FusedStep`` under its memory guard) runs its first step eagerly on a
+    side stream (kernel builds, cuDNN's and cuBLAS's first calls, NCCL's
+    communicator, the memory guard's first step), is then captured once as
+    a CUDA graph -- zero_grad, forward, backward, the all-reduces, Adam --
+    on that stream, and replayed once a step.
+
+    Before each replay the graph's registered mask generators are seeded
+    with that step's host seeds (a registered generator's seed and offset
+    are read at replay), so replay i draws what the eager step i draws.  The
+    capture runs the wrappers once, so the kernels' launch counts tick at
+    capture only: ``captured_launches`` holds them (per replay).  A capture
+    that fails raises; nothing falls back to the eager step."""
+
+    def __init__(self, fn: Callable, state, const: EpochConst, device,
+                 logger=None):
+        self.fn, self.state, self.const = fn, state, const
+        self.device, self.logger = device, logger
+        self.stream = torch.cuda.Stream(device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.warmed_up = False
+        self.replays = 0
+        self.generators: Optional[_PoolGenerators] = None
+        self._n_generators = 0
+        self.captured_launches: Optional[Dict[str, int]] = None
+        self.capture_seconds: Optional[float] = None
+
+    def ready(self, i: int) -> None:
+        """Capture now if the warm-up is done, so that a trace started next
+        holds replays only."""
+        if self.graph is None and self.warmed_up:
+            self._capture(i)
+
+    def __call__(self, i: int) -> None:
+        if not self.warmed_up:
+            gens = _CountingGenerators(self.device, self.const.host_seeds[i])
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self.stream):
+                self.fn(i, None, gens)
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+            self._n_generators = gens.n
+            self.warmed_up = True
+            return
+        self.ready(i)
+        host = self.const.host_seeds[i]
+        for g, index in zip(self.generators.pool, self.generators.uses):
+            g.manual_seed(int(host[index]))
+        self.graph.replay()
+        self.state._step += 1
+        self.replays += 1
+
+    def _capture(self, i: int) -> None:
+        pool = [torch.Generator(device=self.device)
+                for _ in range(self._n_generators)]
+        graph = torch.cuda.CUDAGraph()
+        for g in pool:
+            graph.register_generator_state(g)
+        gens = _PoolGenerators(pool)
+        before, host_step = ops.launch_counts(), self.state.step
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        # no cyclic collection during the capture: one that freed an older
+        # graph (cudaGraphExecDestroy) or a CUDA object would invalidate it
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=self.stream):
+                self.fn(i, None, gens)
+        finally:
+            gc.enable()
+        torch.cuda.synchronize(self.device)
+        self.capture_seconds = time.perf_counter() - t0
+        # the capture ran the step's Python once and no kernel
+        self.state._step = host_step
+        after = ops.launch_counts()
+        self.captured_launches = {k: after[k] - before[k] for k in after}
+        if len(gens.uses) != len(pool):
+            raise RuntimeError(f"the captured step took {len(gens.uses)} mask "
+                               f"generators, its warm-up {len(pool)}")
+        self.graph, self.generators = graph, gens
+        if self.logger is not None:
+            self.logger.info(f"epoch-fused step captured as a CUDA graph in "
+                             f"{self.capture_seconds:.2f} s; replayed once a "
+                             f"step")

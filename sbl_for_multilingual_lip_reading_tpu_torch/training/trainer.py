@@ -23,6 +23,23 @@ thread (``background_iter``) -> ``prefetch_to_device``; or, with
 ``cache_on_device``, from the uint8 dataset uploaded to the card once and
 gathered there by index, in the same order with the same plans.
 
+The cached dataset has two routes, chosen as JAX chooses them.  By default
+the epoch-fused route (``_train_epoch_fused``): the epoch's order, plans and
+every step's random numbers are uploaded once (``_epoch_const``), and the
+step gathers its batch on the device, indexed by the device step counter
+(``steps.FusedStep``).  On a card (no mesh, or an NCCL one) the whole step
+is captured once as a CUDA graph and replayed once a step
+(``steps.GraphedStep``); on the CPU and on gloo grids, whose collectives a
+graph cannot capture, the same fused step runs eagerly -- the log names
+the route.  ``SBL_NO_EPOCH_FUSED=1`` (JAX's switch) selects the per-step
+route (``_device_batches``), which draws the same batches, plans and random
+numbers.  Under a mesh whose data size divides the batch and the dataset
+(``_mesh_fused_ok``), the fused route keeps only the data index's N/W rows
+of the dataset on its card and draws a permutation per data index (JAX
+``_epoch_const_mesh``: a process's batch columns come from its own rows,
+DistributedSampler's semantics); the per-step route keeps the whole dataset
+and the stripes below.
+
 Data and tensor parallelism (``mesh``, or ``cfg.mesh`` data x model > 1
 under torchrun): one ``Trainer`` a process, each on its card, with the same
 seeds.  Every process builds the whole model from the seed, then keeps its
@@ -42,6 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import os
 import time
 from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -54,6 +72,7 @@ from ..data.pipeline import Batcher, background_iter, prefetch_to_device
 from ..data.sampler import TwoStreamBatchSampler
 from ..data.transforms import make_train_plans
 from ..models import build_model
+from ..models.layers import draw_step_random
 from ..recognize import recognize_batch
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger
@@ -64,7 +83,8 @@ from . import checkpoint as ckpt
 from .memguard import GuardedTrainStep
 from .schedule import make_optimizer
 from .state import TrainState
-from .steps import PLAN_KEYS, make_eval_step, make_train_step
+from .steps import (PLAN_KEYS, EpochConst, GraphedStep, make_epoch_fused_step,
+                    make_epoch_fused_step_mesh, make_eval_step, make_train_step)
 
 
 def attach_plans(batch: Dict, rng: np.random.Generator, cfg) -> Dict:
@@ -114,6 +134,26 @@ class _Scores:
     def finish(self) -> Tuple[float, float]:
         return (wer_compute(self.pred_txt, self.gold_txt),
                 per_compute(self.pred_ph, self.gold_ph))
+
+
+def epoch_order(seed: int, n: int, batch: int, data: int = 1,
+                max_steps: Optional[int] = None) -> np.ndarray:
+    """The epoch-fused route's (n_steps, batch) dataset indices (JAX
+    ``_epoch_const`` / ``_epoch_const_mesh``): from ``default_rng(seed)``
+    one permutation per data index of its n / data rows, data index d's
+    taking batch columns d B/data:(d+1) B/data; at data 1 the single
+    route's permutation of the dataset.  ``max_steps`` truncates."""
+    rng = np.random.default_rng(seed)
+    bl, nl = batch // data, n // data
+    perms = [rng.permutation(nl) + d * nl for d in range(data)]
+    n_steps = nl // bl
+    if max_steps is not None:
+        n_steps = min(n_steps, max_steps)
+    order = np.empty((n_steps, batch), np.int64)
+    for d in range(data):
+        order[:, d * bl:(d + 1) * bl] = perms[d][:n_steps * bl].reshape(
+            n_steps, bl)
+    return order
 
 
 def _stripes(idx, world: int) -> List[np.ndarray]:
@@ -181,6 +221,8 @@ class Trainer:
         self.cache_on_device = cache_on_device
         self._dev_clips: Optional[torch.Tensor] = None
         self._host_small: Optional[Dict[str, np.ndarray]] = None
+        self._cache_block: Optional[Tuple[int, int]] = None
+        self._const: Optional[EpochConst] = None
 
     def reset_optimizer(self) -> None:
         """A fresh Adam and train step at update 0 (after a transfer load,
@@ -191,6 +233,8 @@ class Trainer:
             step, rebuild=(None if self.cfg.remat_frontend
                            else lambda: self._remat_rebuild(step)),
             logger=self.logger)
+        self._step = step
+        self.fused_step = None   # the epoch-fused route's, built at first use
         self.state: TrainState = step.state
         self.eval_step = make_eval_step(self.model, self.cfg)
 
@@ -222,6 +266,8 @@ class Trainer:
         file and keeps its slices).  Returns its epoch."""
         _, epoch, self.best_metric, rng = ckpt.restore_checkpoint(path,
                                                                   self.state)
+        # a captured step holds the optimizer state the load replaced
+        self.fused_step = None
         if rng:
             self.np_rng.bit_generator.state = rng["np"]
             self.generator.set_state(rng["torch"])
@@ -246,16 +292,38 @@ class Trainer:
         return TwoStreamBatchSampler(primary, secondary, self.cfg.batch_size,
                                      sec, seed=self.cfg.seed + epoch)
 
-    def _ensure_device_cache(self) -> None:
-        if self._dev_clips is not None:
+    def _mesh_fused_ok(self) -> bool:
+        """JAX ``_mesh_fused_ok``: the mesh's epoch-fused route needs the
+        batch and the dataset to tile evenly over the data axis (each data
+        index gathers its batches from its own block of the dataset)."""
+        if self.mesh is None:
+            return False
+        return (self.cfg.batch_size % self.mesh.size == 0
+                and len(self.train_dataset) % self.mesh.size == 0)
+
+    def _fused_route(self) -> bool:
+        """The cached dataset's route (JAX ``train_epoch``): epoch-fused
+        unless ``SBL_NO_EPOCH_FUSED`` is set or the mesh does not tile."""
+        return (not os.environ.get("SBL_NO_EPOCH_FUSED")
+                and (self.mesh is None or self._mesh_fused_ok()))
+
+    def _ensure_device_cache(self, shard: bool = False) -> None:
+        """Upload the dataset's clips to the device once: all N, or with
+        ``shard`` (the fused route under a mesh) only the data index's block
+        of N/W rows.  The label-like arrays stay on the host, whole."""
+        W, d = self._world()
+        n = len(self.train_dataset)
+        block = (d * n // W, (d + 1) * n // W) if shard else (0, n)
+        if self._dev_clips is not None and self._cache_block == block:
             return
         ds = self.train_dataset
-        samples = [ds[i] for i in range(len(ds))]
-        clips = np.stack([s["clip_u8"] for s in samples])
+        samples = [ds[i] for i in range(n)]
+        clips = np.stack([samples[i]["clip_u8"] for i in range(*block)])
         self._dev_clips = torch.from_numpy(clips).to(self.device)
         self._host_small = {k: np.stack([s[k] for s in samples])
                             for k in samples[0] if k != "clip_u8"}
-        self.logger.info(f"device cache: {len(ds)} clips "
+        self._cache_block, self._const, self.fused_step = block, None, None
+        self.logger.info(f"device cache: {len(clips)} of {n} clips "
                          f"({clips.nbytes / 1e9:.2f} GB) resident")
 
     def _world(self) -> Tuple[int, int]:
@@ -266,7 +334,7 @@ class Trainer:
         """Batches gathered on the card from the resident dataset, in the
         ``Batcher``'s shuffled order with the same plan draws (with a mesh,
         the process's stripe of each, with its rows of the global plans)."""
-        self._ensure_device_cache()
+        self._ensure_device_cache(shard=False)
         B = self.cfg.batch_size
         W, r = self._world()
         order = np.random.default_rng(self.cfg.seed + epoch).permutation(
@@ -316,37 +384,151 @@ class Trainer:
         n = len(concat) // W
         return dict(local, **{k: plans[k][r * n:(r + 1) * n] for k in PLAN_KEYS})
 
-    def train_epoch(self, epoch: int = 0, max_steps: Optional[int] = None,
-                    history: Optional[List[Dict[str, float]]] = None) -> float:
-        """One epoch (at most ``max_steps`` steps); returns the mean loss and
-        appends each step's metrics to ``history`` when one is given.  A
-        step's loss is read while the next step runs, so the read does not
-        hold the card idle."""
-        losses = AverageMeter()
-        if self.cache_on_device:
-            if self.cfg.secondary_batch_size:
-                raise ValueError(
-                    "cache_on_device uses plain shuffling and would drop the "
-                    "fixed-ratio TwoStreamBatchSampler protocol; unset "
-                    "secondary_batch_size or the device cache")
-            n_batches = len(self.train_dataset) // self.cfg.batch_size
-            it = self._device_batches(epoch)
-        else:
-            W, r = self._world()
-            batcher = Batcher(self.train_dataset, self.cfg.batch_size,
-                              shuffle=True, seed=self.cfg.seed + epoch,
-                              sampler=self._make_sampler(epoch),
-                              process_index=r, process_count=W)
-            n_batches = len(batcher)
-            it = self._host_batches(batcher)
-        if max_steps is not None:
-            # bound the source: the producer and the prefetch pull ahead,
-            # and every pull draws plans from the shared np_rng
-            it = itertools.islice(it, max_steps)
-        it = background_iter(it)
+    def _epoch_plans(self, order: np.ndarray) -> Dict[str, np.ndarray]:
+        """Each step's plans for the global batch ``order[s]``, drawn from
+        ``np_rng`` as JAX's ``_epoch_const`` draws them (each sample's
+        lang_id from its global row), stacked (n_steps, B, ...)."""
+        frame = tuple(self._dev_clips.shape[1:])
+        plans = {k: [] for k in PLAN_KEYS}
+        for idx in order:
+            small = {k: v[idx] for k, v in self._host_small.items()}
+            stub = np.broadcast_to(np.uint8(0), (len(idx),) + frame)
+            batch = attach_plans({**small, "clip_u8": stub}, self.np_rng,
+                                 self.cfg)
+            for k in PLAN_KEYS:
+                plans[k].append(batch[k])
+        return {k: np.stack(v) for k, v in plans.items()}
 
-        def consume(pending):
-            i, step_no, metrics = pending
+    def _load_const(self, order: np.ndarray, plans: Dict[str, np.ndarray],
+                    cols: slice) -> Tuple[EpochConst, int]:
+        """Draw the epoch's steps' random numbers from ``generator`` (one
+        step seed a step, as the per-step route draws it) and copy the
+        epoch into the device buffers, keeping batch columns ``cols``."""
+        step, n_steps = self._step, len(order)
+        rate = getattr(getattr(self.model, "decoder", None),
+                       "teacher_forcing_rate", 0.0)
+        rows = [draw_step_random(
+            int(torch.randint(0, 2 ** 62, (1,), generator=self.generator)),
+            step.layout, rate) for _ in range(n_steps)]
+        seeds = np.stack([r[0] for r in rows]).reshape(n_steps, -1)
+        coins = np.stack([r[1] for r in rows]).reshape(n_steps, -1)
+        if self._const is None:
+            W = self._world()[0] if self._mesh_fused_ok() else 1
+            n, B = len(self.train_dataset), self.cfg.batch_size
+            shapes = {k: (v.shape[2:], torch.from_numpy(v).dtype)
+                      for k, v in plans.items()}
+            per_sample = {k: torch.from_numpy(v[slice(*self._cache_block)]).to(
+                self.device) for k, v in self._host_small.items()}
+            self._const = EpochConst(self._dev_clips, per_sample,
+                                     (n // W) // (B // W), B // W, shapes,
+                                     step.layout, len(step.metric_keys))
+        self._const.load(self.state.step, order[:, cols],
+                         {k: v[:, cols] for k, v in plans.items()}, seeds, coins)
+        return self._const, n_steps
+
+    def _epoch_const(self, epoch: int, max_steps: Optional[int] = None
+                     ) -> Tuple[EpochConst, int]:
+        """JAX ``_epoch_const``: the epoch's shuffle order and every step's
+        plans (and, here, random numbers) for the fused cached step, drawn
+        only for the steps that will run, so a ``max_steps``-truncated epoch
+        advances ``np_rng`` and ``generator`` as far as the per-step route
+        does; the two cached routes draw the same batches.  Returns (the
+        device buffers, n_steps)."""
+        self._ensure_device_cache(shard=False)
+        order = epoch_order(self.cfg.seed + epoch, len(self.train_dataset),
+                            self.cfg.batch_size, 1, max_steps)
+        return self._load_const(order, self._epoch_plans(order), slice(None))
+
+    def _epoch_const_mesh(self, epoch: int, max_steps: Optional[int] = None
+                          ) -> Tuple[EpochConst, int]:
+        """JAX ``_epoch_const_mesh``: a permutation per data index (data
+        index d's batch columns d B/W:(d+1) B/W draw only from its resident
+        rows [d N/W, (d+1) N/W) -- torch DistributedSampler's semantics),
+        the plans drawn on the global rows (``attach_plans`` reads each
+        sample's lang_id); this process keeps its columns of both, and its
+        rows of the dataset on its card."""
+        W, d = self._world()
+        self._ensure_device_cache(shard=True)
+        B = self.cfg.batch_size
+        order = epoch_order(self.cfg.seed + epoch, len(self.train_dataset), B,
+                            W, max_steps)
+        return self._load_const(order, self._epoch_plans(order),
+                                slice(d * B // W, (d + 1) * B // W))
+
+    def _ensure_fused_step(self):
+        """JAX ``_ensure_fused_step``: the epoch-fused step of the workload's
+        body over the epoch buffers, under its own memory guard (whose
+        rebuild turns ``remat_frontend`` on before anything is captured);
+        on a card without a mesh, or with an NCCL one, a ``GraphedStep``,
+        else (the CPU, gloo) the fused step run eagerly."""
+        if self.fused_step is not None:
+            return self.fused_step
+        const = self._const
+        fused = (make_epoch_fused_step(self._step, const) if self.mesh is None
+                 else make_epoch_fused_step_mesh(self._step, const, self.mesh))
+        guarded = GuardedTrainStep(
+            fused, rebuild=(None if self.cfg.remat_frontend
+                            else lambda: self._remat_rebuild(fused)),
+            logger=self.logger)
+        graph = self.device.type == "cuda" and (self.mesh is None
+                                                or self.mesh.graphable)
+        if graph:
+            self.fused_step = GraphedStep(guarded, self.state, const,
+                                          self.device, logger=self.logger)
+            route = "one CUDA graph a step (captured after one eager step)"
+        else:
+            self.fused_step = lambda i: guarded(i, None)
+            route = (f"eager on {self.device.type}"
+                     + ("" if self.mesh is None else f" ({self.mesh.backend})"))
+        if self.is_lead:
+            self.logger.info(f"cached dataset: epoch-fused route, {route}")
+        return self.fused_step
+
+    def _train_epoch_fused(self, epoch: int, max_steps: Optional[int],
+                           history: Optional[List[Dict[str, float]]]) -> float:
+        """JAX ``_train_epoch_fused``: one upload of the epoch's order,
+        plans and random numbers, then one fused step (one graph replay on a
+        card) a step; each step's metrics are read from the ring while the
+        next step runs."""
+        const, n_steps = (self._epoch_const_mesh(epoch, max_steps)
+                          if self.mesh is not None
+                          else self._epoch_const(epoch, max_steps))
+        step_fn = self._ensure_fused_step()
+        consume = self._consumer(epoch, n_steps, history)
+        pending, trace = None, None
+        base_step = self.state.step
+        try:
+            for i in range(n_steps):
+                if self.profile_dir is not None and epoch == 0 and i == 1:
+                    if isinstance(step_fn, GraphedStep):
+                        step_fn.ready(i)   # the trace holds replays only
+                    trace = self._start_trace()
+                with self.timer.step():
+                    step_fn(i)
+                    if pending is not None:
+                        consume(*pending)
+                    pending = (i, base_step + i + 1, const.ring[i])
+                if trace is not None and i >= 3:
+                    self._stop_trace(trace)
+                    trace = None
+            if pending is not None:
+                consume(*pending)
+        finally:
+            if trace is not None:
+                self._stop_trace(trace)
+        return consume.losses.avg
+
+    def _consumer(self, epoch: int, n_batches: int,
+                  history: Optional[List[Dict[str, float]]]):
+        """``consume(i, step_no, metrics)``: read a step's metrics (a dict
+        of device scalars, or a row of the fused route's ring), halt on a
+        non-finite loss, log; ``consume.losses`` is the epoch's meter."""
+        losses = AverageMeter()
+        keys = self._step.metric_keys
+
+        def consume(i, step_no, metrics):
+            if torch.is_tensor(metrics):
+                metrics = dict(zip(keys, metrics.tolist()))
             loss = float(metrics["loss"])
             # a NaN loss halts with a diagnostic instead of corrupting Adam
             if not np.isfinite(loss):
@@ -364,29 +546,67 @@ class Trainer:
                     f"Epoch: [{epoch}][{i}/{n_batches}]\tLoss {losses.val:.5f} "
                     f"({losses.avg:.5f})\t{self.timer.clips_per_sec:.1f} clips/s")
 
+        consume.losses = losses
+        return consume
+
+    def _start_trace(self) -> Trace:
+        # step 0 builds kernels and picks cuDNN algorithms
+        return Trace(self.profile_dir, self.device,
+                     "trace.json" if self.mesh is None else
+                     f"trace_rank{self.mesh.global_rank}.json")
+
+    def train_epoch(self, epoch: int = 0, max_steps: Optional[int] = None,
+                    history: Optional[List[Dict[str, float]]] = None) -> float:
+        """One epoch (at most ``max_steps`` steps); returns the mean loss and
+        appends each step's metrics to ``history`` when one is given.  A
+        step's loss is read while the next step runs, so the read does not
+        hold the card idle."""
+        if self.cache_on_device:
+            if self.cfg.secondary_batch_size:
+                raise ValueError(
+                    "cache_on_device uses plain shuffling and would drop the "
+                    "fixed-ratio TwoStreamBatchSampler protocol; unset "
+                    "secondary_batch_size or the device cache")
+            if self._fused_route():
+                return self._train_epoch_fused(epoch, max_steps, history)
+            n_batches = len(self.train_dataset) // self.cfg.batch_size
+            it = self._device_batches(epoch)
+        else:
+            W, r = self._world()
+            batcher = Batcher(self.train_dataset, self.cfg.batch_size,
+                              shuffle=True, seed=self.cfg.seed + epoch,
+                              sampler=self._make_sampler(epoch),
+                              process_index=r, process_count=W)
+            n_batches = len(batcher)
+            it = self._host_batches(batcher)
+        if max_steps is not None:
+            # bound the source: the producer and the prefetch pull ahead,
+            # and every pull draws plans from the shared np_rng
+            it = itertools.islice(it, max_steps)
+        it = background_iter(it)
+
+        consume = self._consumer(epoch, n_batches, history)
+
         pending, trace = None, None
         base_step = self.state.step
         try:
             for i, batch in enumerate(prefetch_to_device(it, self.device)):
                 if self.profile_dir is not None and epoch == 0 and i == 1:
-                    # step 0 builds kernels and picks cuDNN algorithms
-                    trace = Trace(self.profile_dir, self.device,
-                                  "trace.json" if self.mesh is None else
-                                  f"trace_rank{self.mesh.global_rank}.json")
+                    trace = self._start_trace()
                 with self.timer.step():
                     metrics = self.train_step(batch, self.generator)
                     if pending is not None:
-                        consume(pending)
+                        consume(*pending)
                     pending = (i, base_step + i + 1, metrics)
                 if trace is not None and i >= 3:
                     self._stop_trace(trace)
                     trace = None
             if pending is not None:
-                consume(pending)
+                consume(*pending)
         finally:
             if trace is not None:
                 self._stop_trace(trace)
-        return losses.avg
+        return consume.losses.avg
 
     def _stop_trace(self, trace: Trace) -> None:
         if self.device.type == "cuda":

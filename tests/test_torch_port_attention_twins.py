@@ -241,8 +241,13 @@ def fake_launch(monkeypatch):
     ops.reset_launch_counts()
 
 
-def test_twins_launch_the_flat_kernels_on_views(fake_launch):
+def test_twins_launch_the_flat_kernels_on_views(fake_launch, monkeypatch):
     lib, checked = fake_launch
+    # the kernels read the seed on the card: the wrapper passes the address
+    # ``_seed_arg`` gives it (here a stand-in) for the seed it was given
+    seeds = []
+    monkeypatch.setattr(attention, "_seed_arg", lambda seed, device, drawn=True:
+                        seeds.append((seed, drawn)) or 0x5EED0)
     B, Tq, Tk, H, d = 3, 17, 30, 8, 64
     q = torch.zeros((B, Tq, H, d), device="meta")
     kv = torch.zeros((B, Tk, H, d), device="meta")
@@ -263,7 +268,8 @@ def test_twins_launch_the_flat_kernels_on_views(fake_launch):
     attention.small_mha_dropout_fwd(kv, kv, kv, None, 5, None, 0.1)
     name, args = lib.calls[-1]
     assert name == "sbl_small_mha_dropout_fwd_flat"
-    assert (args[12], args[13], args[15]) == (5, attention.dropout_threshold(0.1), 1)
+    assert (args[12], args[13], args[15]) == (0x5EED0, attention.dropout_threshold(0.1), 1)
+    assert seeds[-1] == (5, True)
     attention.small_mha_dropout_bwd(kv, kv, kv, None, 5, None, 0.1, kv)
     assert lib.calls[-1][0] == "sbl_small_mha_dropout_bwd_flat"
     counts = ops.launch_counts()

@@ -343,7 +343,9 @@ def test_fused_layer_module_matches_its_module_path_and_directions():
     weights; a training call (an rng) and mismatched heads keep the module
     path; a batch-variant mask is refused."""
     from sbl_for_multilingual_lip_reading_tpu_torch.models import init_weights
-    from sbl_for_multilingual_lip_reading_tpu_torch.models.layers import DropoutRNG
+    from sbl_for_multilingual_lip_reading_tpu_torch.models import random_layout
+    from sbl_for_multilingual_lip_reading_tpu_torch.models.layers import (
+        DropoutRNG, step_random)
     on = _SBLLayer(32, 2, 16, 16, 64, use_fused_layer=True, dropout=0.0)
     off = _SBLLayer(32, 2, 16, 16, 64, dropout=0.0)
     g = torch.Generator().manual_seed(8)
@@ -364,7 +366,8 @@ def test_fused_layer_module_matches_its_module_path_and_directions():
         assert (swapped - got).abs().max() > 1e-3
         with pytest.raises(AssertionError, match="batch-invariant"):
             on(h, k2, v2, bias.expand(3, 5, 5))
-    assert not on._fused_eligible(DropoutRNG(0, "cpu"))
+    assert not on._fused_eligible(
+        DropoutRNG(step_random(0, random_layout(on), "cpu"), "cpu"))
     assert not _SBLLayer(32, 2, 8, 8, 64, use_fused_layer=True)._fused_eligible(None)
 
 

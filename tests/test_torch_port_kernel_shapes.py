@@ -33,7 +33,8 @@ import torch
 from sbl_for_multilingual_lip_reading_tpu_torch import config as port_config
 from sbl_for_multilingual_lip_reading_tpu_torch import models, ops
 from sbl_for_multilingual_lip_reading_tpu_torch.models import layers
-from sbl_for_multilingual_lip_reading_tpu_torch.models.layers import DropoutRNG
+from sbl_for_multilingual_lip_reading_tpu_torch.models.layers import (
+    DropoutRNG, RandomLayout, step_random)
 from sbl_for_multilingual_lip_reading_tpu_torch.ops import (
     _build, attention, decoder_layer, resblock)
 
@@ -375,6 +376,13 @@ def meta_as_card(monkeypatch):
     ops.reset_launch_counts()
 
 
+def _one_seed_rng():
+    """A training forward's random numbers holding one attention's seed, its
+    seeds on the stand-in card (its mask generators, unused, on the CPU)."""
+    random = step_random(0, RandomLayout(1, 0, 0, 0), "cpu")
+    return DropoutRNG(random._replace(seeds=random.seeds.to("meta")), "meta")
+
+
 def test_attend_launches_the_kernels_at_the_tiny_preset(meta_as_card):
     """At the tiny preset's d_k = 16 the deterministic attention launches K1
     and the training attention K3 forward and K4 backward, each counted
@@ -393,7 +401,7 @@ def test_attend_launches_the_kernels_at_the_tiny_preset(meta_as_card):
 
     leaf = torch.zeros((6, 9, H * d), device="meta", requires_grad=True)
     out = layers.attend(leaf, leaf, leaf, H, causal, d ** -0.5, use_kernels=True,
-                        rate=0.1, rng=DropoutRNG(0, "cpu"))
+                        rate=0.1, rng=_one_seed_rng())
     assert out.shape == leaf.shape
     assert lib.calls[-1][0] == "sbl_small_mha_dropout_fwd_flat"
     assert lib.calls[-1][1][5:10] == (6, 9, 9, H, d)
@@ -408,7 +416,7 @@ def test_attend_launches_the_kernels_at_the_tiny_preset(meta_as_card):
     calls = len(lib.calls)
     layers.attend(q, q, q, H, causal, d ** -0.5, use_kernels=False)
     layers.attend(q, q, q, H, causal, d ** -0.5, use_kernels=False, rate=0.1,
-                  rng=DropoutRNG(0, "cpu"))
+                  rng=_one_seed_rng())
     assert len(lib.calls) == calls
 
 
@@ -420,7 +428,7 @@ def test_attend_launches_k3_k4_at_every_width_and_length(meta_as_card, d, T):
     lib, checked = meta_as_card
     q = torch.zeros((4, T, 4 * d), device="meta", requires_grad=True)
     out = layers.attend(q, q, q, 4, None, d ** -0.5, use_kernels=True, rate=0.1,
-                        rng=DropoutRNG(0, "cpu"))
+                        rng=_one_seed_rng())
     out.sum().backward()
     assert [c[0] for c in lib.calls] == ["sbl_small_mha_dropout_fwd_flat",
                                          "sbl_small_mha_dropout_bwd_flat"]

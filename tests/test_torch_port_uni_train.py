@@ -54,8 +54,10 @@ from sbl_for_multilingual_lip_reading_tpu.training.state import (
 from sbl_for_multilingual_lip_reading_tpu_torch import cli, ops
 from sbl_for_multilingual_lip_reading_tpu_torch import config as port_config
 from sbl_for_multilingual_lip_reading_tpu_torch.data import SyntheticLipDataset
-from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model, layers
-from sbl_for_multilingual_lip_reading_tpu_torch.models.layers import DropoutRNG
+from sbl_for_multilingual_lip_reading_tpu_torch.models import (
+    build_model, layers, random_layout)
+from sbl_for_multilingual_lip_reading_tpu_torch.models.layers import (
+    DropoutRNG, step_random)
 from sbl_for_multilingual_lip_reading_tpu_torch.training import checkpoint as ckpt
 from sbl_for_multilingual_lip_reading_tpu_torch.training.schedule import (
     make_optimizer, noam_lr)
@@ -250,6 +252,9 @@ def test_decoder_dropout_is_drawn_as_in_jax():
     kept, seeds = [], []
     keep, seed = DropoutRNG.keep, DropoutRNG.seed
 
+    def rng_of(s):
+        return DropoutRNG(step_random(s, random_layout(dec), "cpu"), "cpu")
+
     def spy_keep(self, shape, rate, *batch_dim):
         mask = keep(self, shape, rate, *batch_dim)
         kept.append((rate, mask.float().mean().item(), mask.numel()))
@@ -261,16 +266,16 @@ def test_decoder_dropout_is_drawn_as_in_jax():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(DropoutRNG, "keep", spy_keep)
         mp.setattr(DropoutRNG, "seed", spy_seed)
-        a, gold = dec(labels, enc, rng=DropoutRNG(7, "cpu"))
+        a, gold = dec(labels, enc, rng=rng_of(7))
     L = cfg.dims.n_dec_layers
     # embedding, then per layer the self and cross attention outputs and FFN
     assert len(kept) == 1 + 3 * L and {r for r, _, _ in kept} == {DROPOUT}
     total = sum(n for _, _, n in kept)
     frac = sum(f * n for _, f, n in kept) / total
     assert abs(frac - (1 - DROPOUT)) < 4 * np.sqrt(DROPOUT * (1 - DROPOUT) / total)
-    assert len(seeds) == 2 * L and len(set(seeds)) == 2 * L
-    b, _ = dec(labels, enc, rng=DropoutRNG(7, "cpu"))
-    c, _ = dec(labels, enc, rng=DropoutRNG(8, "cpu"))
+    assert len(seeds) == 2 * L and len({int(s) for s in seeds}) == 2 * L
+    b, _ = dec(labels, enc, rng=rng_of(7))
+    c, _ = dec(labels, enc, rng=rng_of(8))
     assert torch.equal(a, b) and not torch.equal(a, c)
     d1, g1 = dec(labels, enc)
     d2, _ = dec(labels, enc)
@@ -279,7 +284,7 @@ def test_decoder_dropout_is_drawn_as_in_jax():
     for m in dec.modules():
         if hasattr(m, "dropout") and isinstance(m.dropout, float):
             m.dropout = 0.0
-    e, _ = dec(labels, enc, rng=DropoutRNG(7, "cpu"))
+    e, _ = dec(labels, enc, rng=rng_of(7))
     np.testing.assert_allclose(e.detach().numpy(), d1.detach().numpy(), atol=1e-6)
 
 
