@@ -189,6 +189,31 @@ line (phase 2 adds nvcc's per-kernel register report):
      losses bit for bit; one NCCL W = 1 graphed run (its collectives
      captured) against the run without a mesh; a checkpoint written on the
      CPU resumed on the card for two graphed steps against the CPU's own;
+  F1-F3. the last slice's switches and host runtime: F1 FusedBNAct
+     (``ops/bn_relu.py``) and DotBatchNorm (``ops/bn_dot.py``), forward and
+     backward in bf16 at the five BatchNorm shapes of the B=240 step: their
+     statistics against float64 sums (F1_STAT_TOL), each module against the
+     port's BatchNorm (composed with the residual add and the ReLU for
+     FusedBNAct) in y, dx, dscale, dbias, dres (F1_TOL) and the running
+     statistics (F1_RUNNING_TOL), device times of each forward + backward;
+     F2 the full-width ``sbl`` step (bf16, B=240, remat_frontend off,
+     dropout 0, coins injected, the same weights and batch) with the
+     switches off, PALLAS_BN=1, FUSED_BN_ACT=1, DOT_BN=1 and
+     ``grad_accum_bf16``: loss and every gradient against the off step
+     (F2_LOSS_TOL; FUSED_BN_ACT's and DOT_BN's gradients within
+     F2_FLOOR_FACTOR times PALLAS_BN's distance, the noise floor of a
+     BatchNorm whose statistics differ in their last bits, medians within
+     F2_MEDIAN_TOL; grad_accum_bf16's loss bit for bit and its gradients
+     within JAX's 0.05), K2/K3/K4 launched by each, ms/step (median of
+     F2_TIMED after a warm-up) and peak GB allocated and reserved; then the graphed
+     epoch-fused route at the tiny preset with grad_accum_bf16 and
+     FUSED_BN_ACT, and with all three switches, against the per-step
+     route (E9's loss tolerance); F3 the native runtime built with g++,
+     ``levenshtein_native`` against the Python version on F3_PAIRS pairs,
+     ``load_clip_batch`` against ``np.load`` on F3_CLIPS clips and its
+     clips/s at 4 threads (the jpg dataset and its audio stream need
+     OpenCV, which this machine lacks: CPU tests only); the launches of
+     F2's five steps join the kernels line as five more paths;
   11. a JSON line of the seventeen kernels (each with its launches on every
      path, E7's and E8's among them, its error, its time, its plain version's, its bound on the card
      and a library call's time where one PyTorch call computes the same
@@ -409,6 +434,38 @@ K5_ALU = 18 + 3
 K5_RUN = 16
 # launches back to back for queued_ms
 FLOOR_QUEUE = 200
+# F1: FusedBNAct / DotBatchNorm against the port's BatchNorm in bf16 at the
+# B=240 step's BatchNorm shapes.  Their statistics are f32 sums of the same
+# bf16 x in another order: within F1_STAT_TOL of the mean of |x| (and of
+# x^2) of float64 sums, where a bf16 result of the products would be 2^-9
+# off.  Outputs and gradients round f32 values that differ in their last
+# bits to bf16, so a share of the elements sits one bf16 ulp apart: F1_TOL
+# is one ulp (2^-7) as a relative L2 bound; the running statistics move by
+# a tenth of the batch's, F1_RUNNING_TOL.
+F1_STAT_TOL = 1e-5
+F1_TOL = 2.0 ** -7
+F1_RUNNING_TOL = 1e-5
+# F2: the B=240 bf16 step with each switch against the switches off.  A
+# BatchNorm whose statistics differ from the default's in their last f32
+# bits flips bf16 roundings, ReLU routes and max-pool choices, and the
+# frontend's gradients of this step move by up to a quarter of their norm
+# (on an H100 at 700 W: K7/K8's exact sums 0.223, the default's means
+# moved by 4e-6 0.292, DotBatchNorm 0.32; medians 0.002; in f32 at B=16
+# 0.004, 0.022, 0.0045).  So FUSED_BN_ACT and DOT_BN are held to
+# F2_FLOOR_FACTOR times the PALLAS_BN step's distance measured in the same
+# run (or the kernel-vs-plain step's F2_GRAD_TOL), their medians to
+# F2_MEDIAN_TOL; grad_accum_bf16 to JAX's 0.05 of its own test.  ms/step
+# is the median of F2_TIMED steps after a warm-up; the graphed route at
+# the tiny preset runs F2_FUSED_STEPS steps.
+F2_LOSS_TOL = TRAIN_LOSS_TOL["bfloat16"]
+F2_GRAD_TOL = TRAIN_GRAD_TOL["bfloat16"]
+F2_FLOOR_FACTOR = 2.0
+F2_MEDIAN_TOL = 0.01
+F2_TIMED = 3
+F2_FUSED_STEPS = 3
+# F3: random token pairs for levenshtein_native, clips for load_clip_batch
+F3_PAIRS = 2000
+F3_CLIPS = 64
 
 
 def check(ok: bool, msg: str) -> None:
@@ -3717,6 +3774,365 @@ def phase_fused(torch, np, dev):
     return counts, out
 
 
+def _switch_env(names):
+    """Turn on the frontend's BatchNorm switches ``names`` (FUSED_BN_ACT,
+    DOT_BN, PALLAS_BN) for the models built until ``_restore_env``, the
+    others off; returns the environment's values before."""
+    every = ("FUSED_BN_ACT", "DOT_BN", "PALLAS_BN", "NO_FUSED_BN_ACT", "NO_DOT_BN")
+    old = {k: os.environ.pop(k, None) for k in every}
+    os.environ.update({k: "1" for k in names})
+    return old
+
+
+def _restore_env(old):
+    for k, v in old.items():
+        os.environ.pop(k, None)
+        if v is not None:
+            os.environ[k] = v
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def phase_bn_variants(torch, np, dev):
+    """F1: ``ops/bn_relu.py::bn_act_train`` (FusedBNAct) and
+    ``ops/bn_dot.py::bn_train_dot`` (DotBatchNorm), forward and backward in
+    bf16 at the frontend's five BatchNorm shapes of the B=240 step: their
+    statistics against float64 sums of the same x (within F1_STAT_TOL of
+    the mean of |x| and of x^2: an f32 sum in another order, where a bf16
+    or TF32 result would be 2^-9 off), and each module against the port's
+    ``BatchNorm`` on the same x, weights and dy: FusedBNAct against
+    BatchNorm composed with the residual add and the ReLU as the default
+    frontend runs them (the stem without a residual), DotBatchNorm against
+    BatchNorm alone (both f32 out), in y, dx, dscale, dbias and dres
+    (relative L2 within F1_TOL) and the running statistics (within
+    F1_RUNNING_TOL); the device time of each forward + backward."""
+    import torch.nn.functional as F
+    from sbl_for_multilingual_lip_reading_tpu_torch.models.frontend import (
+        BatchNorm, DotBatchNorm, FusedBNAct)
+    from sbl_for_multilingual_lip_reading_tpu_torch.ops.bn_dot import bn_train_dot
+    from sbl_for_multilingual_lip_reading_tpu_torch.ops.bn_relu import bn_act_train
+    bf16 = torch.bfloat16
+    rows = []
+    for name, (C, H, W), _ in BN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(C * H)
+        shape = (BN_FRAMES, C, H, W)
+        x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.7).to(bf16)
+        res = None if name == "stem" else torch.randn(
+            shape, generator=g, device=dev).to(bf16)
+        dy = torch.randn(shape, generator=g, device=dev).to(bf16)
+        scale = torch.randn(C, generator=g, device=dev) * 0.2 + 1
+        bias = torch.randn(C, generator=g, device=dev) * 0.1
+        x64 = x.double()
+        m64, q64 = x64.mean((0, 2, 3)), (x64 * x64).mean((0, 2, 3))
+        ax, aq = x64.abs().mean().item(), q64.mean().item()
+        del x64
+        stat = {}
+        with torch.no_grad():
+            for op, (_, mean, var) in (
+                    ("fused", bn_act_train(x, scale, bias, res, eps=1e-5)),
+                    ("dot", bn_train_dot(x, scale, bias, 1e-5))):
+                stat[op] = max(
+                    (mean.double() - m64).abs().max().item() / ax,
+                    (var.double() + mean.double() ** 2 - q64).abs().max().item() / aq)
+
+        def run(kind, act):
+            """Forward and backward of a fresh ``kind`` module: with ``act``
+            the block's residual add and ReLU after it (FusedBNAct's own)."""
+            m = kind(C).to(dev).train()
+            with torch.no_grad():
+                m.weight.copy_(scale)
+                m.bias.copy_(bias)
+            xr = x.clone().requires_grad_(True)
+            rr = None if res is None or not act else res.clone().requires_grad_(True)
+
+            def fwd_bwd():
+                for t in (xr, rr, m.weight, m.bias):
+                    if t is not None:
+                        t.grad = None
+                if kind is FusedBNAct:
+                    y = m(xr, rr)
+                elif not act:
+                    y = m(xr)
+                elif rr is None:
+                    y = F.relu(m(xr)).to(bf16)
+                else:
+                    y = F.relu(m(xr).to(bf16) + rr)
+                y.backward(dy.to(y.dtype))
+                return y
+            y = fwd_bwd().detach()
+            out = dict(y=y, dx=xr.grad, dscale=m.weight.grad, dbias=m.bias.grad,
+                       running=(m.running_mean.clone(), m.running_var.clone()))
+            if rr is not None:
+                out["dres"] = rr.grad
+            out["ms"] = cuda_ms(torch, fwd_bwd)
+            return out
+
+        row = dict(case=f"{name} ({BN_FRAMES},{C},{H},{W})", stat_err=stat)
+        for op, kind, act in (("fused", FusedBNAct, True), ("dot", DotBatchNorm, False)):
+            want, got = run(BatchNorm, act), run(kind, act)
+            errs = {k: _rel_l2(got[k], want[k])
+                    for k in ("y", "dx", "dscale", "dbias", "dres") if k in want}
+            run_err = max((a - b).abs().max().item()
+                          for a, b in zip(got["running"], want["running"]))
+            row[op] = dict(errs=errs, running_err=run_err, ms=got["ms"],
+                           composed_ms=want["ms"])
+            check(stat[op] <= F1_STAT_TOL, f"F1 {name} {op}: statistics off by "
+                  f"{stat[op]:.3g} of their scale")
+            check(max(errs.values()) <= F1_TOL, f"F1 {name} {op}: {errs}")
+            check(run_err <= F1_RUNNING_TOL, f"F1 {name} {op}: running statistics "
+                  f"off by {run_err:.3g}")
+            del want, got
+        print(f"phase F1 bf16 {row['case']}: statistics vs float64 fused "
+              f"{stat['fused']:.3g}, dot {stat['dot']:.3g} (tol {F1_STAT_TOL}); "
+              + "; ".join(f"{op} vs BatchNorm " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in row[op]["errs"].items())
+                  + f", running {row[op]['running_err']:.3g}"
+                  for op in ("fused", "dot"))
+              + f" (tol {F1_TOL}, {F1_RUNNING_TOL}); fwd+bwd ms: FusedBNAct "
+              f"{row['fused']['ms']:.3f} vs BatchNorm+add+ReLU "
+              f"{row['fused']['composed_ms']:.3f}, DotBatchNorm "
+              f"{row['dot']['ms']:.3f} vs BatchNorm {row['dot']['composed_ms']:.3f}")
+        rows.append(row)
+        del x, res, dy
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _switch_step(torch, np, dev, cfg, batch, switches, coins):
+    """F2's one variant: the model built under ``switches``, one step under
+    deterministic algorithms (loss, gradients, launch counts), a warm-up
+    step, then F2_TIMED timed steps (median ms/step, peak GB allocated and
+    reserved over them)."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.schedule import (
+        make_optimizer)
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.steps import (
+        make_sbl_train_step)
+    _release(torch)
+    old = _switch_env(switches)
+    try:
+        model = build_model(cfg, dev, seed=0)
+    finally:
+        _restore_env(old)
+    step = make_sbl_train_step(model, make_optimizer(model, cfg.optim), cfg)
+    gen = torch.Generator().manual_seed(5)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with _deterministic(torch):
+        loss = step(batch, gen, use_gold=coins)["loss"].item()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    step(batch, gen, use_gold=coins)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(F2_TIMED):
+        t0 = time.perf_counter()
+        step(batch, gen, use_gold=coins)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    kinds = sorted({type(m).__name__ for m in model.frontend.modules()
+                    if hasattr(m, "running_mean")})
+    out = dict(loss=loss, grads=grads, counts=counts, kinds=kinds,
+               ms_per_step=statistics.median(times), ms_all=times,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+    del model, step
+    _release(torch)
+    return out
+
+
+def phase_switch_steps(torch, np, dev):
+    """F2: one full-width ``sbl`` step (``config.sbl()``, bf16, B=240,
+    remat_frontend off, every dropout rate 0, the coins injected, the same
+    weights and batch each time) five ways: the switches off, PALLAS_BN=1
+    (the noise floor below), FUSED_BN_ACT=1, DOT_BN=1 and
+    ``grad_accum_bf16``; against the off step the loss (F2_LOSS_TOL;
+    grad_accum_bf16, whose forward is the default's at init, bit for bit)
+    and every parameter's gradient by relative L2: grad_accum_bf16 within
+    JAX's bound of 0.05; FUSED_BN_ACT and DOT_BN at most F2_FLOOR_FACTOR
+    times as far as the PALLAS_BN step (K7/K8's statistics, exact sums) is
+    from the off step, or F2_GRAD_TOL, with the median within
+    F2_MEDIAN_TOL; each step's K2/K3/K4 launches, and ms/step (median of
+    F2_TIMED after a warm-up) with peak memory allocated and reserved.
+    Then the graphed epoch-fused route at the tiny preset with the
+    switches on (``_switched_fused``)."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch.data import SyntheticLipDataset
+    base = C.sbl()
+    cfg = dataclasses.replace(
+        base, batch_size=TRAIN_BATCH, remat_frontend=False,
+        dims=dataclasses.replace(base.dims, dropout=0.0),
+        frontend=dataclasses.replace(base.frontend, dropout=0.0))
+    accum = dataclasses.replace(cfg, decoder=dataclasses.replace(
+        cfg.decoder, grad_accum_bf16=True))
+    data = SyntheticLipDataset(size=TRAIN_BATCH, frames=cfg.data.frames,
+                               raw_size=cfg.data.raw_size, seed=0)
+    batch = train_batch(torch, np, dev, cfg, data, TRAIN_BATCH, 1)
+    coins = [i % 3 != 2 for i in range(cfg.decoder.maxlen)]
+    _set_switches(False)
+    runs = {}
+    for name, c, switches in (("off", cfg, ()), ("PALLAS_BN", cfg, ("PALLAS_BN",)),
+                              ("FUSED_BN_ACT", cfg, ("FUSED_BN_ACT",)),
+                              ("DOT_BN", cfg, ("DOT_BN",)),
+                              ("grad_accum_bf16", accum, ())):
+        runs[name] = _switch_step(torch, np, dev, c, batch, switches, coins)
+    off = runs["off"]
+    floor = max(_grad_errors(runs["PALLAS_BN"]["grads"], off["grads"]).values())
+    out, launches = {"floor": floor}, {}
+    for name, r in runs.items():
+        for k in ("stack_frames", "small_mha_dropout_fwd_flat",
+                  "small_mha_dropout_bwd_flat"):
+            check(r["counts"][k] > 0, f"F2 {name}: {k} never launched")
+        launches[name] = r["counts"]
+        errs = _grad_errors(r["grads"], off["grads"]) if name != "off" else {}
+        worst = max(errs, key=errs.get) if errs else None
+        rec = {k: r[k] for k in ("loss", "ms_per_step", "ms_all", "peak_gb",
+                                 "peak_reserved_gb", "kinds")}
+        rec.update(grad_err=errs[worst] if worst else 0.0, grad_err_at=worst)
+        out[name] = rec
+        tol = (0.05 if name == "grad_accum_bf16" else
+               max(F2_GRAD_TOL, F2_FLOOR_FACTOR * floor))
+        print(f"phase F2 sbl bf16 B={TRAIN_BATCH} {name} (frontend "
+              f"{'/'.join(r['kinds'])}): loss {r['loss']:.6f} vs off "
+              f"{off['loss']:.6f}; gradient rel err max "
+              + (f"{errs[worst]:.3g} at {worst}, median "
+                 f"{statistics.median(errs.values()):.3g} (tol {tol})"
+                 if worst else "-")
+              + f"; {r['ms_per_step']:.1f} ms/step (median of {F2_TIMED}: "
+              f"{', '.join(f'{t:.1f}' for t in r['ms_all'])}), peak "
+              f"{r['peak_gb']:.2f} GB allocated, {r['peak_reserved_gb']:.2f} GB "
+              f"reserved; K2 {r['counts']['stack_frames']}, K3 "
+              f"{r['counts']['small_mha_dropout_fwd_flat']}, K4 "
+              f"{r['counts']['small_mha_dropout_bwd_flat']}")
+        if name == "grad_accum_bf16":
+            check(r["loss"] == off["loss"], "F2 grad_accum_bf16: the forward at "
+                  "init differs from the default's")
+        elif name != "off":
+            check(abs(r["loss"] - off["loss"]) <= F2_LOSS_TOL,
+                  f"F2 {name}: loss {r['loss']} vs {off['loss']}")
+            check(statistics.median(errs.values()) <= F2_MEDIAN_TOL,
+                  f"F2 {name}: median gradient error "
+                  f"{statistics.median(errs.values())}")
+        if worst and name != "PALLAS_BN":
+            check(errs[worst] <= tol, f"F2 {name}: gradient of {worst} differs "
+                  f"by {errs[worst]}")
+    check(runs["FUSED_BN_ACT"]["kinds"] == ["FusedBNAct"]
+          and runs["DOT_BN"]["kinds"] == ["DotBatchNorm"]
+          and runs["PALLAS_BN"]["kinds"] == ["FastBatchNorm"],
+          "F2: the switches did not build their BatchNorms")
+    del runs
+    _release(torch)
+    out["graphed"] = _switched_fused(torch, np, dev)
+    return launches, out
+
+
+def _switched_fused(torch, np, dev):
+    """The epoch-fused cached route at the tiny ``sbl`` preset (f32, every
+    dropout rate 0, deterministic algorithms), graphed against the per-step
+    route over F2_FUSED_STEPS steps, with grad_accum_bf16 and FUSED_BN_ACT,
+    then with all three switches (DOT_BN=1, which takes precedence over
+    FUSED_BN_ACT): the same losses within E9_LOSS_RTOL, the graph captured
+    once and replayed once a step, as E9 checks."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.data import SyntheticLipDataset
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.trainer import Trainer
+    tiny = C.tiny_test("sbl")
+    cfg = dataclasses.replace(
+        tiny, batch_size=TINY_BATCH, compute_dtype="float32",
+        dims=dataclasses.replace(tiny.dims, dropout=0.0),
+        frontend=dataclasses.replace(tiny.frontend, dropout=0.0),
+        decoder=dataclasses.replace(tiny.decoder, grad_accum_bf16=True))
+    data = SyntheticLipDataset(size=F2_FUSED_STEPS * TINY_BATCH,
+                               frames=cfg.data.frames, raw_size=cfg.data.raw_size,
+                               seed=0)
+    out = {}
+    for label, switches, kind in (
+            ("FUSED_BN_ACT + grad_accum_bf16", ("FUSED_BN_ACT",), "FusedBNAct"),
+            ("all three", ("FUSED_BN_ACT", "DOT_BN"), "DotBatchNorm")):
+        old = _switch_env(switches)
+        try:
+            losses = {}
+            for route in (True, False):
+                tr = Trainer(cfg, data, device=dev, cache_on_device=True)
+                kinds = {type(m).__name__ for m in tr.model.frontend.modules()
+                         if hasattr(m, "running_mean")}
+                check(kinds == {kind} and tr.model.decoder.grad_accum_bf16,
+                      f"F2 graphed {label}: built {kinds}")
+                with _deterministic(torch):
+                    losses[route] = _fused_run(torch, ops, tr, route,
+                                               F2_FUSED_STEPS)["losses"]
+                if route:
+                    _check_graphed(tr, cfg, f"F2 graphed {label}", F2_FUSED_STEPS - 1)
+                del tr
+                _release(torch)
+        finally:
+            _restore_env(old)
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses[True], losses[False]))
+        print(f"phase F2 graphed epoch-fused route, tiny sbl f32 B={TINY_BATCH}, "
+              f"{label}: losses {losses[True]} vs per-step route "
+              f"{losses[False]} (rel err max {err:.3g}, tol {E9_LOSS_RTOL})")
+        check(len(losses[True]) == F2_FUSED_STEPS and err <= E9_LOSS_RTOL,
+              f"F2 graphed {label}: the routes' losses differ")
+        out[label] = dict(losses=losses[True], per_step=losses[False], rel_err=err)
+    return out
+
+
+def phase_native(torch, np, dev):
+    """F3: the native host runtime built with g++ from csrc/sbl_native.cc
+    (a build that fails fails the phase): ``levenshtein_native`` against
+    the Python ``levenshtein`` on F3_PAIRS seeded random pairs (empty ones
+    among them), and ``load_clip_batch`` on F3_CLIPS temporary .npy clips of
+    the LRW shape (29, 96, 96) uint8 into (30, 96, 96) against ``np.load``,
+    with its clips/s at 4 threads (median of 5 loads; the files are in the
+    page cache: a warm read).  The machine has no OpenCV, so the jpg-based
+    ``Lrw1000Dataset`` and its audio stream are checked on the CPU tests
+    only."""
+    import tempfile
+    from sbl_for_multilingual_lip_reading_tpu_torch.utils import metrics, native
+    t0 = time.perf_counter()
+    check(native.build(verbose=True), "F3: the native runtime did not build")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    pairs = [([], []), ([], [1, 2]), ([3], [])] + [
+        (rng.integers(0, 58, rng.integers(0, 20)).tolist(),
+         rng.integers(0, 58, rng.integers(0, 20)).tolist())
+        for _ in range(F3_PAIRS - 3)]
+    bad = [(a, b) for a, b in pairs
+           if native.levenshtein_native(a, b) != metrics.levenshtein(a, b)]
+    check(not bad, f"F3: levenshtein_native differs on {bad[:3]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        clips, paths = [], []
+        for i in range(F3_CLIPS):
+            clip = rng.integers(0, 256, (29, 96, 96), dtype=np.uint8)
+            paths.append(str(Path(tmp) / f"clip{i}.npy"))
+            np.save(paths[-1], clip)
+            clips.append(clip)
+        out = native.load_clip_batch(paths, 30, 96, 96, nthreads=4)
+        want = np.zeros_like(out)
+        for i, p in enumerate(paths):
+            want[i, :29] = np.load(p)
+        check(np.array_equal(out, want), "F3: load_clip_batch differs from np.load")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            native.load_clip_batch(paths, 30, 96, 96, nthreads=4)
+            times.append(time.perf_counter() - t0)
+    rate = F3_CLIPS / statistics.median(times)
+    print(f"phase F3 native runtime built in {build_s:.1f} s "
+          f"({native.library_path().name}); levenshtein_native == levenshtein "
+          f"on {len(pairs)} pairs; load_clip_batch of {F3_CLIPS} clips "
+          f"(29,96,96) uint8 == np.load, {rate:.0f} clips/s at 4 threads (warm "
+          f"page cache); Lrw1000Dataset and its audio stream: CPU tests only "
+          f"(no OpenCV on this machine)")
+    return dict(build_s=build_s, pairs=len(pairs), clips_per_s=rate)
+
+
 def _bf16_rows(rows):
     return {r["case"]: {k: r[k] for k in ("ms", "plain_ms", "module_ms", "bound_ms",
                                           "max_abs_err")}
@@ -3945,7 +4361,10 @@ def main() -> int:
     tp_launches, path_e["tp"] = timed("E7", phase_tp, torch, np, dev)
     tpt_launches, path_e["tp_trainer"] = timed("E8", phase_tp_trainer, torch, np, dev)
     fused_launches, path_e["fused"] = timed("E9", phase_fused, torch, np, dev)
-    print(f"phases 1-10 and E1-E9 took {time.perf_counter() - t_start:.1f} s")
+    switches = dict(bn_variants=timed("F1", phase_bn_variants, torch, np, dev))
+    f2_launches, switches["steps"] = timed("F2", phase_switch_steps, torch, np, dev)
+    switches["native"] = timed("F3", phase_native, torch, np, dev)
+    print(f"phases 1-10, E1-E9 and F1-F3 took {time.perf_counter() - t_start:.1f} s")
     # every kernel of the eval and training paths was launched on its path
     for kernel in ("stack_frames_u8", "fused_resblock", "fused_decoder_layer",
                    "small_mha_flat"):
@@ -3980,7 +4399,8 @@ def main() -> int:
                "uni_eval": b_launches, "uni_train": c_launches,
                "classify": d_launches, "path_e": e_launches,
                "tp_step": tp_launches, "tp_trainer": tpt_launches,
-               "fused_route": fused_launches}
+               "fused_route": fused_launches,
+               **{f"switch_step_{k}": v for k, v in f2_launches.items()}}
 
     csrc = "sbl_for_multilingual_lip_reading_tpu_torch/csrc/"
     jax_ops = "sbl_for_multilingual_lip_reading_tpu/ops/"
@@ -4104,7 +4524,7 @@ def main() -> int:
                       "recognize_clips_per_s": rate, "train": train,
                       "entry_point": entry, "path_a": path_a, "path_b": path_b,
                       "path_c": path_c, "path_d": path_d, "path_e": path_e,
-                      "tiny": tiny}))
+                      "tiny": tiny, "switches": switches}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

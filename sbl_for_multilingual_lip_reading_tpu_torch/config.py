@@ -54,6 +54,9 @@ class DecoderConfig:
     fusion_mode: str = "symmetric"      # or "reference_aliased"
     teacher_forcing_rate: float = 0.5   # P(gold token) per decode step
     decode_segments: int = 8
+    # the decode steps' parameter gradients summed in bf16 within each
+    # decode segment (models/decoder_sbl.py); off, as in JAX
+    grad_accum_bf16: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

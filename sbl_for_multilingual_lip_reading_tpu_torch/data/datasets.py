@@ -6,9 +6,11 @@ Samples are dicts of numpy arrays in the form of ``SyntheticLipDataset``'s
 (``word_id`` and ``lang_id`` are the ``classify`` labels): clips stay uint8
 on the host, and crop, flip and normalization run on the device.  ``vocab``
 names the labels' token table ('sbl', 'lrw' or 'lrw1000', as in JAX).
-LRW-1000's optional audio stream (JAX ``wav_root``: log-mel fbank features
-for the reference's audio-visual variants) is not ported: no workload of
-either package reads it.
+``Lrw1000Dataset(wav_root=...)`` adds LRW-1000's audio stream (the
+reference's audio-visual variants): each sample's ``audio`` is its wav's
+80-dim log-mel fbank with LFR stacking (``data/audio.py``), zero-padded to
+``audio_pad_frames`` frames; a wav that is missing or unreadable gives
+zeros.  No workload of either package reads it.
 OpenCV decodes the LRW-1000 jpgs and is imported only when such a dataset
 is built, so the rest of the port runs without it.
 """
@@ -16,11 +18,13 @@ from __future__ import annotations
 
 import glob
 import os
+import wave
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..vocab import encode_pinyin_ids, encode_word_ids, word_class_id
+from .audio import build_lfr_features, extract_fbank
 from .manifest import Lrw1000Entry, read_manifest
 from .synthetic import _pad_labels
 
@@ -85,7 +89,9 @@ class Lrw1000Dataset:
 
     def __init__(self, images_root: str, manifest_path: str,
                  frames: int = 30, raw_size: int = 96, pad_len: int = 14,
-                 limit: Optional[int] = None, vocab: str = "sbl"):
+                 limit: Optional[int] = None, wav_root: Optional[str] = None,
+                 audio_dim: int = 80, lfr_m: int = 4, lfr_n: int = 3,
+                 audio_pad_frames: int = 88, vocab: str = "sbl"):
         try:
             import cv2
         except ImportError as e:
@@ -95,6 +101,10 @@ class Lrw1000Dataset:
         self.frames = frames
         self.raw = raw_size
         self.pad_len = pad_len
+        self.wav_root = wav_root
+        self.audio_dim = audio_dim
+        self.lfr_m, self.lfr_n = lfr_m, lfr_n
+        self.audio_pad_frames = audio_pad_frames
         self.vocab = vocab
         self.entries: List[Lrw1000Entry] = read_manifest(manifest_path,
                                                          limit=limit)
@@ -123,11 +133,14 @@ class Lrw1000Dataset:
             clip[t] = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
             t += 1
         ids = encode_pinyin_ids(e.pinyins, self.vocab)
-        return {"clip_u8": clip, "labels": _pad_labels(ids, self.pad_len),
-                "labels_reverse": _pad_labels(ids[::-1], self.pad_len),
-                "lang_id": np.int32(1),
-                "word_id": np.int32(word_class_id(" ".join(e.pinyins))),
-                "n_frames": np.int32(t)}
+        out = {"clip_u8": clip, "labels": _pad_labels(ids, self.pad_len),
+               "labels_reverse": _pad_labels(ids[::-1], self.pad_len),
+               "lang_id": np.int32(1),
+               "word_id": np.int32(word_class_id(" ".join(e.pinyins))),
+               "n_frames": np.int32(t)}
+        if self.wav_root is not None:
+            out["audio"] = self._load_audio(e)
+        return out
 
     def labels_only(self, i: int) -> np.ndarray:
         """Label ids without decoding any jpg."""
@@ -137,6 +150,28 @@ class Lrw1000Dataset:
     def lang_ids(self) -> np.ndarray:
         """Every sample's lang_id (1) without decoding a jpg."""
         return np.ones(len(self), np.int32)
+
+    def _load_audio(self, e: Lrw1000Entry) -> np.ndarray:
+        """(audio_pad_frames, audio_dim * lfr_m) f32 fbank + LFR features of
+        ``<wav_root>/<wav_id>.wav`` (16-bit PCM), zeros where it is missing,
+        unreadable or empty."""
+        d = self.audio_dim * self.lfr_m
+        out = np.zeros((self.audio_pad_frames, d), dtype=np.float32)
+        path = os.path.join(self.wav_root, e.wav_id + ".wav")
+        try:
+            with wave.open(path, "rb") as w:
+                sr = w.getframerate()
+                raw = w.readframes(w.getnframes())
+            y = np.frombuffer(raw, dtype=np.int16).astype(np.float32) / 32768.0
+            if len(y) == 0:
+                return out
+            feat = extract_fbank(y, sr=sr, dim=self.audio_dim)
+            feat = build_lfr_features(feat, self.lfr_m, self.lfr_n)
+            n = min(len(feat), self.audio_pad_frames)
+            out[:n] = feat[:n]
+        except (OSError, wave.Error):
+            pass
+        return out
 
 
 class MixedBilingualDataset:

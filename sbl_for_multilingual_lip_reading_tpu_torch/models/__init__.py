@@ -92,8 +92,12 @@ def build_model(cfg, device=None, seed: Optional[int] = None,
     ``cfg.use_pallas_attention`` selects the hand-written kernels or their
     plain PyTorch versions, as it selects the Pallas kernels in the JAX
     package; ``PALLAS_BN`` in the environment builds the frontend with
-    ``FastBatchNorm`` (K7, K8), as it does in JAX.  Two eval-side switches,
-    both off by default as in JAX: ``cfg.use_fused_decoder_layer`` (K11 on
+    ``FastBatchNorm`` (K7, K8), ``DOT_BN`` with ``DotBatchNorm`` and
+    ``FUSED_BN_ACT`` with ``FusedBNAct``, in JAX's order of precedence, and
+    ``cfg.decoder.grad_accum_bf16`` sums the SBL decoder's per-step
+    gradients in bf16, all as in JAX and all off by default.  Two
+    eval-side switches, both off by default as in JAX:
+    ``cfg.use_fused_decoder_layer`` (K11 on
     the deterministic SBL decode) and ``use_pallas_resblock`` (K10 on the
     eligible ResNet blocks in eval mode; a field of the frontend modules in
     JAX, which no config carries).  ``cfg.remat_frontend`` checkpoints the
@@ -132,6 +136,7 @@ def build_model(cfg, device=None, seed: Optional[int] = None,
                 teacher_forcing_rate=d.teacher_forcing_rate,
                 remat=cfg.remat_decoder,
                 use_fused_layer=getattr(cfg, "use_fused_decoder_layer", False),
+                grad_accum_bf16=getattr(d, "grad_accum_bf16", False),
                 **common)
             model = SBLTransformer(frontend, encoder, decoder)
         else:

@@ -40,6 +40,17 @@ direction; here both directions fold into one launch of 2B rows, and the
 batch row in the kernels' Philox counter (and the (2, B, ...) shape of the
 elementwise masks) gives each direction its own mask.
 
+``grad_accum_bf16`` (JAX's field of the same name, off by default): while
+gradients are taken, each decode segment runs its steps on bf16 copies of
+the step's f32 parameters, made once at the segment's start (embedding,
+every layer's projections, FFN and LayerNorms, the output heads; not the
+hoisted ``cross_kv``), through ``torch.func.functional_call``; a
+checkpointed step takes them as inputs.  So the steps' gradients of a
+parameter sum in bf16, in autograd's buffer of the copy, last step first
+as JAX's scan backward sums them, and the cast back to f32 adds the
+segments in f32.  The LayerNorm weights are rounded to bf16 as in JAX.  A
+forward without autograd (evaluation, K11) runs on the f32 parameters.
+
 Tensor parallelism (``parallel.shard_model``): each layer's attention and
 FFN shard on the trailing dims of their direction-stacked weights, as JAX's
 ``param_spec`` right-aligns its rules.  K11 (``use_fused_decoder_layer``)
@@ -55,6 +66,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import masks as M
@@ -228,10 +240,11 @@ class SBLDecoder(nn.Module):
                  decode_segments: int = 4, dtype=torch.float32,
                  use_kernels: bool = True, dropout: float = 0.1,
                  teacher_forcing_rate: float = 0.5, remat: bool = True,
-                 use_fused_layer: bool = False):
+                 use_fused_layer: bool = False, grad_accum_bf16: bool = False):
         super().__init__()
         self.maxlen, self.decode_segments = maxlen, decode_segments
         self.use_fused_layer = use_fused_layer
+        self.grad_accum_bf16 = grad_accum_bf16
         self.n_layers, self.dtype, self.vocab_size = n_layers, dtype, vocab_size
         self.teacher_forcing_rate, self.remat = teacher_forcing_rate, remat
         self.step = _SBLStep(vocab_size, d_model, n_layers, n_head, d_k, d_v,
@@ -284,22 +297,38 @@ class SBLDecoder(nn.Module):
                 return self._loop(enc_output, gold, use_gold, None)
         return self._loop(enc_output, gold, use_gold, rng)
 
+    def _bf16_step_params(self):
+        """bf16 copies of the decode step's f32 parameters (JAX's
+        ``map_variables`` ``to_bf16``), by name."""
+        return {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+                for n, p in self.step.named_parameters()}
+
+    def _run_step(self, params, *args):
+        """The decode step on its own parameters, or on ``params``."""
+        if params is None:
+            return self.step(*args)
+        return functional_call(self.step, params, args)
+
     def _loop(self, enc_output, gold, use_gold, rng):
         B = enc_output.shape[0]
         ys = torch.full((DIRS, B, self.maxlen + 1), SOS_ID, dtype=torch.int64,
                         device=enc_output.device)
         enc_kv = self.compute_cross_kv(enc_output)
+        grad = torch.is_grad_enabled()
         logits = []
         for a, b in self._segments():
+            params = (self._bf16_step_params()
+                      if self.grad_accum_bf16 and grad else None)
             for step in range(a, b):
                 args = (ys[:, :, :b + 1], enc_kv, step,
                         None if rng is None else rng.child(),
                         None if rng is None else rng.rows)
-                if self.remat and torch.is_grad_enabled():
-                    lg = checkpoint(self.step, *args, use_reentrant=False,
+                if self.remat and grad:
+                    lg = checkpoint(self._run_step, params, *args,
+                                    use_reentrant=False,
                                     preserve_rng_state=False)
                 else:
-                    lg = self.step(*args)
+                    lg = self._run_step(params, *args)
                 nxt = lg.detach().argmax(-1)
                 if gold is not None:
                     nxt = torch.where(use_gold[step], gold[:, :, step], nxt)

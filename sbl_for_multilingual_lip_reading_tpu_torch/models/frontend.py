@@ -14,15 +14,27 @@ are f32 and convs run in the compute dtype; BatchNorm runs in f32 (batch
 statistics in training, running statistics in eval) and its output is
 rounded to the compute dtype, as in JAX.
 
-``FastBatchNorm`` takes the train-mode statistics from kernels K7/K8
-(``ops/batchnorm.py::bn_train``) instead of torch reductions.  As in JAX it
-replaces every BatchNorm of the frontend (the stem's ``bn3d`` and each
-block's ``bn1``, ``bn2`` and ``downsample_bn``) when the module's
-``use_pallas_bn`` field or ``PALLAS_BN`` in the environment asks for it
-(read when the frontend is built); both default off.  JAX gives
-``DotBatchNorm`` and ``GroupedBatchNorm`` precedence over it, and
-``FastBatchNorm`` precedence over ``FusedBNAct``: none of the three is
-ported, so the choice here is between the two.
+Three other BatchNorms replace the default one, each behind a module
+field or an environment switch read when the frontend is built, all off by
+default as in JAX; each keeps ``BatchNorm``'s parameters and buffers, so
+checkpoints interchange:
+
+* ``FastBatchNorm`` (``use_pallas_bn`` / ``PALLAS_BN``) takes the train-mode
+  statistics from kernels K7/K8 (``ops/batchnorm.py::bn_train``);
+* ``DotBatchNorm`` (``use_dot_bn`` / ``DOT_BN``, off under ``NO_DOT_BN``)
+  takes them as matrix products (``ops/bn_dot.py``), with an f32 output;
+* ``FusedBNAct`` (``use_fused_bn_act`` / ``FUSED_BN_ACT``, off under
+  ``NO_FUSED_BN_ACT``) runs BatchNorm, the block's residual add and the
+  ReLU as one autograd function that keeps only the conv output and
+  per-channel statistics for the backward (``ops/bn_relu.py``).
+
+The choice follows JAX's order: ``DotBatchNorm``, then ``FastBatchNorm``,
+then ``FusedBNAct``, then the plain ``BatchNorm``; it replaces every
+BatchNorm of the frontend (the stem's ``bn3d`` and each block's ``bn1``,
+``bn2`` and ``downsample_bn``).  JAX's ``GroupedBatchNorm`` (per-replica
+statistics inside one program) has no module here: a data-parallel process
+is a replica, and ``parallel.set_sync_batchnorm`` chooses per-process or
+synchronised statistics for every one of these classes.
 
 ``use_pallas_resblock`` (default False, as in JAX) sends every eligible
 BasicBlock in eval mode through kernel K10 (``ops/resblock.py``): stride 1
@@ -51,6 +63,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.batchnorm import bn_train
+from ..ops.bn_dot import bn_train_dot
+from ..ops.bn_relu import bn_act_train
 from ..ops.resblock import fold_bn, fused_resblock, fused_resblock_plain
 from ..ops.stem import stack_frames, stack_frames_plain
 from .layers import DropoutRNG, dropout
@@ -196,17 +210,98 @@ class FastBatchNorm(BatchNorm):
         return y
 
 
+def _c(v: torch.Tensor) -> torch.Tensor:
+    return v[:, None, None]
+
+
+class DotBatchNorm(BatchNorm):
+    """``BatchNorm`` whose train-mode statistics and their gradients are
+    matrix products (``ops/bn_dot.py::bn_train_dot``; JAX
+    ``DotBatchNorm``).  Its output is f32 in both modes; the caller casts.
+    Eval mode is JAX's formula x * inv + (bias - mean * inv) with
+    inv = rsqrt(running_var + eps) * scale."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            y, mean, var = bn_train_dot(x, self.weight, self.bias, self.eps,
+                                        self.sync)
+            _update_running(self, mean, var)
+            return y
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return (x.to(torch.float32) * _c(inv)
+                + _c(self.bias - self.running_mean * inv))
+
+
+class FusedBNAct(BatchNorm):
+    """BatchNorm (+ residual add) (+ ReLU) in one step
+    (``ops/bn_relu.py::bn_act_train`` in training; JAX ``FusedBNAct``): the
+    output is in x's dtype, ``res`` is added in x's dtype after the
+    normalisation, and ``relu`` (set when the frontend is built) ends it
+    with a ReLU.  Eval mode is JAX's formula, cast to x's dtype before the
+    residual and the ReLU."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9,
+                 relu: bool = True):
+        super().__init__(channels, eps, momentum)
+        self.relu = relu
+
+    def forward(self, x: torch.Tensor,
+                res: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.training:
+            y, mean, var = bn_act_train(x, self.weight, self.bias, res,
+                                        eps=self.eps, relu=self.relu,
+                                        mesh=self.sync)
+            _update_running(self, mean, var)
+            return y
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.to(torch.float32) * _c(inv)
+             + _c(self.bias - self.running_mean * inv)).to(x.dtype)
+        if res is not None:
+            y = y + res.to(x.dtype)
+        return F.relu(y) if self.relu else y
+
+
 def pallas_bn_on(field: bool) -> bool:
     """The frontend's BatchNorms are ``FastBatchNorm`` (JAX
     ``_pallas_bn_on``): the module's field, or ``PALLAS_BN`` set."""
     return field or bool(os.environ.get("PALLAS_BN"))
 
 
-def make_batchnorm(channels: int, eps: float, momentum: float,
-                   use_pallas_bn: bool, use_kernels: bool) -> BatchNorm:
+def dot_bn_on(field: bool) -> bool:
+    """``DotBatchNorm`` asked for (JAX ``_dot_bn_on``): ``NO_DOT_BN`` turns it
+    off, the module's field or ``DOT_BN`` on."""
+    if os.environ.get("NO_DOT_BN"):
+        return False
+    return field or bool(os.environ.get("DOT_BN"))
+
+
+def fused_bn_act_on(field: bool) -> bool:
+    """``FusedBNAct`` asked for (JAX ``_fused_bn_act_on``): ``NO_FUSED_BN_ACT``
+    turns it off, the module's field or ``FUSED_BN_ACT`` on."""
+    if os.environ.get("NO_FUSED_BN_ACT"):
+        return False
+    return field or bool(os.environ.get("FUSED_BN_ACT"))
+
+
+def batchnorm_kind(use_pallas_bn: bool = False, use_dot_bn: bool = False,
+                   use_fused_bn_act: bool = False) -> type:
+    """The frontend's BatchNorm class, in JAX's order of precedence."""
+    if dot_bn_on(use_dot_bn):
+        return DotBatchNorm
     if pallas_bn_on(use_pallas_bn):
+        return FastBatchNorm
+    if fused_bn_act_on(use_fused_bn_act):
+        return FusedBNAct
+    return BatchNorm
+
+
+def make_batchnorm(channels: int, eps: float, momentum: float, kind: type,
+                   use_kernels: bool, relu: bool = True) -> BatchNorm:
+    if kind is FastBatchNorm:
         return FastBatchNorm(channels, eps, momentum, use_kernels)
-    return BatchNorm(channels, eps, momentum)
+    if kind is FusedBNAct:
+        return FusedBNAct(channels, eps, momentum, relu)
+    return kind(channels, eps, momentum)
 
 
 class Conv2d(nn.Conv2d):
@@ -228,16 +323,19 @@ class BasicBlock(nn.Module):
     def __init__(self, c_in: int, filters: int, stride: int = 1,
                  bn_epsilon: float = 1e-5, dtype=torch.float32,
                  bn_momentum: float = 0.9, use_pallas_bn: bool = False,
-                 use_kernels: bool = True, use_pallas_resblock: bool = False):
+                 use_kernels: bool = True, use_pallas_resblock: bool = False,
+                 use_dot_bn: bool = False, use_fused_bn_act: bool = False):
         super().__init__()
         self.dtype = dtype
         self.stride, self.bn_epsilon = stride, bn_epsilon
         self.use_kernels = use_kernels
         self.use_pallas_resblock = use_pallas_resblock
+        kind = batchnorm_kind(use_pallas_bn, use_dot_bn, use_fused_bn_act)
+        self.fused_bn_act = kind is FusedBNAct
 
-        def bn():
-            return make_batchnorm(filters, bn_epsilon, bn_momentum,
-                                  use_pallas_bn, use_kernels)
+        def bn(relu=True):
+            return make_batchnorm(filters, bn_epsilon, bn_momentum, kind,
+                                  use_kernels, relu)
         self.conv1 = Conv2d(c_in, filters, 3, stride, dtype)
         self.bn1 = bn()
         self.conv2 = Conv2d(filters, filters, 3, 1, dtype)
@@ -245,7 +343,7 @@ class BasicBlock(nn.Module):
         self.has_downsample = stride != 1 or c_in != filters
         if self.has_downsample:
             self.downsample_conv = Conv2d(c_in, filters, 1, stride, dtype)
-            self.downsample_bn = bn()
+            self.downsample_bn = bn(relu=False)
 
     def init_weights(self, g: torch.Generator) -> None:
         for conv in (self.conv1, self.conv2):
@@ -272,12 +370,24 @@ class BasicBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._fused_eligible(x):
             return self._fused_eval(x)
+        if self.fused_bn_act:
+            return self._fused_bn_act_path(x)
         y = F.relu(self.bn1(self.conv1(x)).to(self.dtype))
         y = self.bn2(self.conv2(y)).to(self.dtype)
         residual = x
         if self.has_downsample:
             residual = self.downsample_bn(self.downsample_conv(x)).to(self.dtype)
         return F.relu(y + residual)
+
+    def _fused_bn_act_path(self, x: torch.Tensor) -> torch.Tensor:
+        """JAX ``BasicBlock._fused_bn_act_path``: bn1 with its ReLU,
+        downsample_bn without one, bn2 with the residual and the ReLU, each
+        a ``FusedBNAct`` whose output is in the compute dtype."""
+        y = self.conv2(self.bn1(self.conv1(x)))
+        residual = x
+        if self.has_downsample:
+            residual = self.downsample_bn(self.downsample_conv(x))
+        return self.bn2(y, residual)
 
 
 class ResNetTrunk(nn.Module):
@@ -290,7 +400,8 @@ class ResNetTrunk(nn.Module):
                  blocks: Sequence[int] = (2, 2, 2, 2), bn_epsilon: float = 1e-5,
                  dtype=torch.float32, bn_momentum: float = 0.9,
                  use_pallas_bn: bool = False, use_kernels: bool = True,
-                 use_pallas_resblock: bool = False, remat: bool = False):
+                 use_pallas_resblock: bool = False, remat: bool = False,
+                 use_dot_bn: bool = False, use_fused_bn_act: bool = False):
         super().__init__()
         self.dtype, self.remat = dtype, remat
         self.names = []
@@ -298,10 +409,10 @@ class ResNetTrunk(nn.Module):
             for b in range(nblocks):
                 stride = 2 if (stage > 0 and b == 0) else 1
                 name = f"layer{stage + 1}_block{b}"
-                self.add_module(name, BasicBlock(c_in, ch, stride, bn_epsilon,
-                                                 dtype, bn_momentum,
-                                                 use_pallas_bn, use_kernels,
-                                                 use_pallas_resblock))
+                self.add_module(name, BasicBlock(
+                    c_in, ch, stride, bn_epsilon, dtype, bn_momentum,
+                    use_pallas_bn, use_kernels, use_pallas_resblock,
+                    use_dot_bn, use_fused_bn_act))
                 self.names.append(name)
                 c_in = ch
 
@@ -328,18 +439,22 @@ class VisualFrontend(nn.Module):
                  dtype=torch.float32, use_kernels: bool = True,
                  dropout: float = 0.5, bn_momentum: float = 0.9,
                  use_pallas_bn: bool = False,
-                 use_pallas_resblock: bool = False, remat: bool = False):
+                 use_pallas_resblock: bool = False, remat: bool = False,
+                 use_dot_bn: bool = False, use_fused_bn_act: bool = False):
         super().__init__()
         self.dtype, self.use_kernels = dtype, use_kernels
         self.feature_dim, self.dropout = feature_dim, dropout
         self.conv3d_weight = nn.Parameter(torch.empty(
             (conv3d_channels, STEM_KT, 7, 7)))
-        self.bn3d = make_batchnorm(conv3d_channels, bn_epsilon, bn_momentum,
-                                   use_pallas_bn, use_kernels)
+        self.bn3d = make_batchnorm(
+            conv3d_channels, bn_epsilon, bn_momentum,
+            batchnorm_kind(use_pallas_bn, use_dot_bn, use_fused_bn_act),
+            use_kernels)
         self.resnet = ResNetTrunk(conv3d_channels, resnet_channels,
                                   resnet_blocks, bn_epsilon, dtype, bn_momentum,
                                   use_pallas_bn, use_kernels,
-                                  use_pallas_resblock, remat)
+                                  use_pallas_resblock, remat, use_dot_bn,
+                                  use_fused_bn_act)
 
     def init_weights(self, g: torch.Generator) -> None:
         _he_normal_fan_out(self.conv3d_weight, g)
@@ -359,7 +474,10 @@ class VisualFrontend(nn.Module):
         B, T, kt, H, W = xs.shape
         xs = xs.reshape(B * T, kt, H, W)
         y = F.conv2d(xs, self.conv3d_weight.to(self.dtype), stride=2, padding=3)
-        y = F.relu(self.bn3d(y)).to(self.dtype)
+        if isinstance(self.bn3d, FusedBNAct):
+            y = self.bn3d(y)
+        else:
+            y = F.relu(self.bn3d(y)).to(self.dtype)
         # the reference's MaxPool3d(k=(1,3,3), s=(1,2,2), p=(0,1,1)) with
         # time folded into batch (JAX ops/maxpool.py; both give a tie's
         # gradient to the row-major-first maximum)

@@ -58,7 +58,7 @@ from .. import ops
 from ..config import model_kind
 from ..data.ingest import device_ingest
 from ..models import random_layout
-from ..models.frontend import pallas_bn_on
+from ..models.frontend import FastBatchNorm, batchnorm_kind
 from ..models.layers import (DropoutRNG, EagerGenerators, StepRandom,
                              cast_dense_weights, step_random)
 from ..ops.ingest import MAX_OFFSET, ingest_train, ingest_train_plain
@@ -128,9 +128,10 @@ def expected_launches(cfg) -> Dict[str, int]:
     one parallel pass; ``classify``: none); K4 once per K3 of the forward;
     no K1, K5 or layout twin; K6 once under ``PALLAS_INGEST``; K7 once per
     frontend BatchNorm in the forward and K8 once per BatchNorm in the
-    backward under ``PALLAS_BN`` (as the environment stands when this is
-    called); with ``remat_frontend`` K7 once more for each BatchNorm of the
-    ResNet blocks (every one but the stem's), in the recompute."""
+    backward under ``PALLAS_BN`` unless ``DOT_BN`` takes precedence (as the
+    environment stands when this is called); with ``remat_frontend`` K7
+    once more for each BatchNorm of the ResNet blocks (every one but the
+    stem's), in the recompute."""
     enc = cfg.dims.n_enc_layers
     d = cfg.decoder
     if d is None:
@@ -140,7 +141,8 @@ def expected_launches(cfg) -> Dict[str, int]:
         dec_fwd = dec_bwd * (2 if cfg.remat_decoder else 1)
     else:
         dec_fwd = dec_bwd = 2 * cfg.dims.n_dec_layers
-    bns = frontend_bn_count(cfg.frontend) if pallas_bn_on(False) else 0
+    bns = (frontend_bn_count(cfg.frontend)
+           if batchnorm_kind() is FastBatchNorm else 0)
     recomputed = bns - 1 if bns and getattr(cfg, "remat_frontend", False) else 0
     return dict(dict.fromkeys(ops.launch_counts(), 0), stack_frames=1,
                 small_mha_dropout_fwd_flat=enc + dec_fwd,

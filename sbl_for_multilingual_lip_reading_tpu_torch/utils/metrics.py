@@ -1,6 +1,7 @@
-"""Evaluation metrics: WER / PER via edit distance, and a running mean
-(a copy of the JAX package's ``utils/metrics.py``, which needs no JAX; the
-reference's metric helpers, SBL train.py:28-42 and utils.py:36-75).
+"""Evaluation metrics: WER / PER via edit distance, top-k accuracy, and a
+running mean (a copy of the JAX package's ``utils/metrics.py``, which
+needs no JAX; the reference's metric helpers, SBL train.py:28-42 and
+utils.py:36-75).
 
 Protocol notes kept for parity:
 * ``wer_compute`` receives *joined* phoneme strings (the reference's
@@ -52,6 +53,13 @@ def per_compute(predict: List[Sequence[str]], truth: List[Sequence[str]]) -> flo
         return float("nan")   # empty eval must not look like a perfect score
     pers = [levenshtein(p, t) / len(t) for p, t in zip(predict, truth)]
     return float(np.mean(pers))
+
+
+def topk_accuracy(scores: np.ndarray, targets: np.ndarray, k: int = 1) -> float:
+    """Percent top-k accuracy (reference utils.py:69-75)."""
+    topk = np.argsort(-scores, axis=1)[:, :k]
+    correct = np.any(topk == targets[:, None], axis=1)
+    return float(correct.mean() * 100.0)
 
 
 class AverageMeter:

@@ -76,6 +76,24 @@ trainer.Trainer(cli.config_from_args(cli.build_argparser().parse_args(uni)),
 out = cli.run_test(["--checkpoint", save + "_uni", "--beam-size", "2",
                     "--bigram-lm"] + uni)
 assert set(out) == {"lrw1000"} and set(out["lrw1000"]) == {"l2r_wer", "l2r_per"}
+# the last slice: both BatchNorm variants with grad_accum_bf16 in a step,
+# the audio stream, the manifest tools, the native runtime, topk_accuracy
+import dataclasses, os
+import numpy as np
+from sbl_for_multilingual_lip_reading_tpu_torch.data import audio, manifest
+from sbl_for_multilingual_lip_reading_tpu_torch.utils import metrics, native
+acc = dataclasses.replace(cfg, decoder=dataclasses.replace(
+    cfg.decoder, grad_accum_bf16=True))
+for switch in ("FUSED_BN_ACT", "DOT_BN"):
+    os.environ[switch] = "1"
+    result = trainer.train_steps(acc, data, 1, "cpu", seed=0)
+    assert result.history[0]["loss"] > 0
+    del os.environ[switch]
+feat = audio.build_lfr_features(audio.extract_fbank(
+    np.sin(np.arange(4000) / 7.0).astype(np.float32)))
+assert feat.shape[1] == 320 and manifest.wav_is_silent(save + "_none.wav")
+assert metrics.topk_accuracy(np.eye(3), np.arange(3)) == 100.0
+assert native.levenshtein_native([1, 2], [2]) in (1, None)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "flax", "sbl_for_multilingual_lip_reading_tpu"))
 assert not loaded, loaded
@@ -92,7 +110,9 @@ def _run(args, cwd):
 def test_port_never_imports_jax(tmp_path):
     # every module of the port, recognize, a train step, a tiny
     # `cli train --cpu` then `cli test --cpu`, and
-    # `cli test --cpu --workload lrw1000 --beam-size 2 --bigram-lm`
+    # `cli test --cpu --workload lrw1000 --beam-size 2 --bigram-lm`; a
+    # step with each BatchNorm variant and grad_accum_bf16, the audio
+    # stream, the manifest tools, the native runtime, topk_accuracy
     res = _run([sys.executable, "-c", _NO_JAX_SCRIPT, str(tmp_path / "ckpt")],
                REPO)
     assert res.returncode == 0, res.stderr[-2000:]
