@@ -1626,6 +1626,8 @@ def kernel_vs_plain_step(torch, dev, cfg, small, label):
 def time_train_step(torch, np, step, batch, B, label):
     """TRAIN_WARMUP + TRAIN_TIMED steps on one resident batch: ms/step,
     clips/s, peak memory and the stage split of one more step."""
+    from sbl_for_multilingual_lip_reading_tpu_torch.training.steps import TRAIN_STAGES
+    from sbl_for_multilingual_lip_reading_tpu_torch.utils.profiler import stage_split
     gen = torch.Generator().manual_seed(3)
     for _ in range(TRAIN_WARMUP):
         step(batch, gen)
@@ -1638,14 +1640,11 @@ def time_train_step(torch, np, step, batch, B, label):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [x.item() for x in losses]
     check(all(np.isfinite(losses)), f"{label}: non-finite losses {losses}")
-    marks = []
-    step(batch, gen, marks=marks)
-    torch.cuda.synchronize()
-    stages = {name: a.elapsed_time(b) for (_, a), (name, b) in zip(marks, marks[1:])}
+    stages = stage_split(lambda: step(batch, gen), TRAIN_STAGES)
     print(f"{label} bf16 B={B}: {dt * 1e3:.1f} ms/step, {B / dt:.1f} clips/s over "
           f"{TRAIN_TIMED} steps, peak memory {peak_gb:.2f} GB; losses "
-          f"{', '.join(f'{x:.4f}' for x in losses)}; stage split (device "
-          f"timeline, ms per step): "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; stage split (device ms "
+          f"of the kernels each train.* span launched): "
           + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
     return dict(ms_per_step=dt * 1e3, clips_per_s=B / dt, peak_gb=peak_gb,
                 stages=stages)

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from ..config import DataConfig
+from ..utils import profiler
 
 # ColorNormalize constants (reference cvtransforms.py:44-48)
 MEAN = DataConfig.mean
@@ -49,6 +50,13 @@ def device_ingest(clips_u8: torch.Tensor, crop: int,
     if clips_u8.dim() != 4 or clips_u8.dtype != torch.uint8:
         raise ValueError(f"clips must be (B, T, H, W) uint8; got "
                          f"{tuple(clips_u8.shape)} {clips_u8.dtype}")
+    # outside a training step an evaluation batch begins here
+    with profiler.span("ingest", batch=profiler.NEXT):
+        return _ingest(clips_u8, crop, dtype, n_frames, offsets, flip, frame_map)
+
+
+def _ingest(clips_u8: torch.Tensor, crop: int, dtype: torch.dtype,
+            n_frames, offsets, flip, frame_map) -> torch.Tensor:
     B, T, H, W = clips_u8.shape
     clips = clips_u8
     if frame_map is not None:

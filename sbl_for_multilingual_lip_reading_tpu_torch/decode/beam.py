@@ -23,6 +23,7 @@ import torch
 
 from ..models.decoder_uni import make_uni_cache
 from ..models.layers import cast_dense_weights
+from ..utils.profiler import span
 from ..vocab import EOS_ID, SOS_ID
 
 NEG_INF = -1e9
@@ -123,15 +124,21 @@ def beam_search_cached(step_fn: Callable, cache0, batch_size: int,
     tokens, scores, finished = _start(B, K, L, sos_id, device)
     cache = cache0
     for step in range(maxlen):
-        last = tokens[:, :, step]
-        logits, cache = step_fn(last.reshape(B * K), cache, step)
-        logp = torch.log_softmax(logits.to(torch.float32), dim=-1).reshape(B, K, V)
-        tokens, scores, finished, parent = _advance(
-            tokens, scores, finished, logp, step, last, bigram_logp, eos_id)
-        # the surviving hypotheses' caches are their parents'
-        flat_parent = (torch.arange(B, device=parent.device)[:, None] * K
-                       + parent).reshape(-1)
-        cache = tuple(tuple(c[flat_parent] for c in layer) for layer in cache)
+        with span("decode.step", pos=step):
+            last = tokens[:, :, step]
+            logits, cache = step_fn(last.reshape(B * K), cache, step)
+            with span("beam.advance"):
+                logp = torch.log_softmax(logits.to(torch.float32),
+                                         dim=-1).reshape(B, K, V)
+                tokens, scores, finished, parent = _advance(
+                    tokens, scores, finished, logp, step, last, bigram_logp,
+                    eos_id)
+            # the surviving hypotheses' caches are their parents'
+            with span("beam.regather"):
+                flat_parent = (torch.arange(B, device=parent.device)[:, None]
+                               * K + parent).reshape(-1)
+                cache = tuple(tuple(c[flat_parent] for c in layer)
+                              for layer in cache)
     return _sorted_by_score(scores, tokens)
 
 
@@ -191,14 +198,15 @@ def make_sbl_beam_decoder(model, beam_size: int = 5) -> Callable:
         with torch.inference_mode(), cast_dense_weights(model):
             enc = model.encode(video)
             B = enc.shape[0]
-            enc_kv = dec.compute_cross_kv(
-                enc.repeat_interleave(beam_size, dim=0))    # (2, B*K, T, D)
+            with span("decode"):
+                enc_kv = dec.compute_cross_kv(
+                    enc.repeat_interleave(beam_size, dim=0))  # (2, B*K, T, D)
 
-            def step_fn(ys_l, ys_r, step):
-                return dec.step_logits_cached(ys_l, ys_r, enc_kv, step)
+                def step_fn(ys_l, ys_r, step):
+                    return dec.step_logits_cached(ys_l, ys_r, enc_kv, step)
 
-            return sbl_beam_search(step_fn, B, beam_size, dec.maxlen,
-                                   dec.vocab_size, device=enc.device)
+                return sbl_beam_search(step_fn, B, beam_size, dec.maxlen,
+                                       dec.vocab_size, device=enc.device)
 
     return decode
 
@@ -219,24 +227,26 @@ def make_uni_beam_decoder(model, beam_size: int = 5,
             K = beam_size
             big = None if bigram_logp is None else torch.as_tensor(
                 bigram_logp, dtype=torch.float32, device=enc.device)
-            # cross-attention K/V projected once for the whole search
-            enc_kv = dec.compute_cross_kv(enc.repeat_interleave(K, dim=0))
-            if kv_cache:
-                cache0 = make_uni_cache(B * K, dec.maxlen + 1, dec.n_layers,
-                                        *dec.cache_widths(), dec.dtype,
-                                        enc.device)
+            with span("decode"):
+                # cross-attention K/V projected once for the whole search
+                enc_kv = dec.compute_cross_kv(enc.repeat_interleave(K, dim=0))
+                if kv_cache:
+                    cache0 = make_uni_cache(B * K, dec.maxlen + 1,
+                                            dec.n_layers, *dec.cache_widths(),
+                                            dec.dtype, enc.device)
 
-                def step_fn_kv(tok, cache, step):
-                    return dec.decode_step_cached(tok, cache, enc_kv, step)
+                    def step_fn_kv(tok, cache, step):
+                        return dec.decode_step_cached(tok, cache, enc_kv, step)
 
-                return beam_search_cached(step_fn_kv, cache0, B, K, dec.maxlen,
-                                          dec.vocab_size, bigram_logp=big,
-                                          device=enc.device)
+                    return beam_search_cached(step_fn_kv, cache0, B, K,
+                                              dec.maxlen, dec.vocab_size,
+                                              bigram_logp=big,
+                                              device=enc.device)
 
-            def step_fn(ys, step):
-                return dec.step_logits_cached(ys, enc_kv, step)
+                def step_fn(ys, step):
+                    return dec.step_logits_cached(ys, enc_kv, step)
 
-            return beam_search(step_fn, enc, K, dec.maxlen, dec.vocab_size,
-                               bigram_logp=big)
+                return beam_search(step_fn, enc, K, dec.maxlen, dec.vocab_size,
+                                   bigram_logp=big)
 
     return decode

@@ -73,6 +73,7 @@ from ..ops import masks as M
 from ..ops.attention import mask_to_bias
 from ..ops.decoder_layer import (fused_decoder_layer, fused_decoder_layer_plain,
                                  layer_params_to_args)
+from ..utils.profiler import span
 from ..vocab import EOS_ID, IGNORE_ID, SOS_ID
 from .layers import (CachedCrossAttention, CrossKV, Dense, DropoutRNG,
                      MultiHeadAttention, PositionwiseFeedForward, dropout,
@@ -320,23 +321,24 @@ class SBLDecoder(nn.Module):
             params = (self._bf16_step_params()
                       if self.grad_accum_bf16 and grad else None)
             for step in range(a, b):
-                args = (ys[:, :, :b + 1], enc_kv, step,
-                        None if rng is None else rng.child(),
-                        None if rng is None else rng.rows)
-                if self.remat and grad:
-                    lg = checkpoint(self._run_step, params, *args,
-                                    use_reentrant=False,
-                                    preserve_rng_state=False)
-                else:
-                    lg = self._run_step(params, *args)
-                nxt = lg.detach().argmax(-1)
-                if gold is not None:
-                    nxt = torch.where(use_gold[step], gold[:, :, step], nxt)
-                # a new buffer: the embedding (and a checkpoint) keep this
-                # step's view of the old one for the backward
-                ys = ys.clone()
-                ys[:, :, step + 1] = nxt
-                logits.append(lg)
+                with span("decode.step", pos=step):
+                    args = (ys[:, :, :b + 1], enc_kv, step,
+                            None if rng is None else rng.child(),
+                            None if rng is None else rng.rows)
+                    if self.remat and grad:
+                        lg = checkpoint(self._run_step, params, *args,
+                                        use_reentrant=False,
+                                        preserve_rng_state=False)
+                    else:
+                        lg = self._run_step(params, *args)
+                    nxt = lg.detach().argmax(-1)
+                    if gold is not None:
+                        nxt = torch.where(use_gold[step], gold[:, :, step], nxt)
+                    # a new buffer: the embedding (and a checkpoint) keep
+                    # this step's view of the old one for the backward
+                    ys = ys.clone()
+                    ys[:, :, step + 1] = nxt
+                    logits.append(lg)
         return ys, torch.stack(logits, dim=2)
 
     def forward(self, enc_output: torch.Tensor, labels_l2r: torch.Tensor,
@@ -367,7 +369,8 @@ class SBLDecoder(nn.Module):
         """Greedy decode.  Returns (ys_l2r, ys_r2l, logits_l2r, logits_r2l):
         token ids (B, maxlen+1) with the leading sos, and f32 logits
         (B, maxlen, V) of every step."""
-        ys, lg = self._run(enc_output, None, None, None)
+        with span("decode"):
+            ys, lg = self._run(enc_output, None, None, None)
         return ys[0], ys[1], lg[0], lg[1]
 
     def recognize(self, enc_output: torch.Tensor):

@@ -34,6 +34,7 @@ from torch import nn
 
 from ..ops import masks as M
 from ..ops.attention import mask_to_bias
+from ..utils.profiler import span
 from ..vocab import EOS_ID, IGNORE_ID, SOS_ID
 from .layers import (CachedCrossAttention, CrossKV, Dense, DropoutRNG,
                      MultiHeadAttention, PositionwiseFeedForward, dropout,
@@ -235,14 +236,16 @@ class UniDecoder(nn.Module):
         steps = self.maxlen if maxlen is None else maxlen
         B, dev = enc_output.shape[0], enc_output.device
         L = steps + 1
-        enc_kv = self.compute_cross_kv(enc_output)
-        cache = make_uni_cache(B, L, self.n_layers, *self.cache_widths(),
-                               self.dtype, dev)
-        ys = torch.full((B, L), SOS_ID, dtype=torch.int64, device=dev)
-        for step in range(steps):
-            logits, cache = self.decode_step_cached(ys[:, step], cache, enc_kv,
-                                                    step)
-            ys[:, step + 1] = logits.argmax(dim=-1)
+        with span("decode"):
+            enc_kv = self.compute_cross_kv(enc_output)
+            cache = make_uni_cache(B, L, self.n_layers, *self.cache_widths(),
+                                   self.dtype, dev)
+            ys = torch.full((B, L), SOS_ID, dtype=torch.int64, device=dev)
+            for step in range(steps):
+                with span("decode.step", pos=step):
+                    logits, cache = self.decode_step_cached(ys[:, step], cache,
+                                                            enc_kv, step)
+                    ys[:, step + 1] = logits.argmax(dim=-1)
         return ys
 
     def step_logits(self, ys: torch.Tensor, enc_output: torch.Tensor,

@@ -8,11 +8,25 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..utils.profiler import backward_span, span
 from .decoder_sbl import SBLDecoder
 from .decoder_uni import UniDecoder
 from .encoder import Encoder
 from .frontend import VisualFrontend
 from .layers import DropoutRNG
+
+
+def encode(model, video: torch.Tensor, rng: Optional[DropoutRNG] = None
+           ) -> torch.Tensor:
+    """frontend -> encoder, each in its span (and, in a training forward
+    under the recorder, its backward's)."""
+    with span("frontend"):
+        x = model.frontend(video, rng)
+    backward_span(x, "frontend")
+    with span("encoder"):
+        enc = model.encoder(x, rng=rng)
+    backward_span(enc, "encoder")
+    return enc
 
 
 class SBLTransformer(nn.Module):
@@ -32,13 +46,18 @@ class SBLTransformer(nn.Module):
         step's random numbers (dropout, teacher-forcing coins); use_gold:
         injected coins.  BatchNorm follows the module's train/eval mode.
         Returns (pred_l2r, gold_l2r, pred_r2l, gold_r2l)."""
-        enc = self.encoder(self.frontend(video, rng), rng=rng)
-        return self.decoder(enc, labels_l2r, labels_r2l, rng, use_gold)
+        enc = self.encode(video, rng)
+        with span("decoder"):
+            out = self.decoder(enc, labels_l2r, labels_r2l, rng, use_gold)
+        backward_span(out[0], "decoder")
+        backward_span(out[2], "decoder")
+        return out
 
-    def encode(self, video: torch.Tensor) -> torch.Tensor:
+    def encode(self, video: torch.Tensor, rng: Optional[DropoutRNG] = None
+               ) -> torch.Tensor:
         """video: (B, T, H, W) normalized grayscale -> encoder output
         (B, T, d_model)."""
-        return self.encoder(self.frontend(video))
+        return encode(self, video, rng)
 
     def decode(self, video: torch.Tensor):
         """Greedy bidirectional decode with the per-step logits:
@@ -65,13 +84,17 @@ class UniTransformer(nn.Module):
         is given: dropout in frontend, encoder and decoder).  BatchNorm
         follows the module's train/eval mode.  Returns (f32 logits
         (B, maxlen, V), IGNORE-padded gold)."""
-        enc = self.encoder(self.frontend(video, rng), rng=rng)
-        return self.decoder(labels, enc, rng=rng)
+        enc = self.encode(video, rng)
+        with span("decoder"):
+            out = self.decoder(labels, enc, rng=rng)
+        backward_span(out[0], "decoder")
+        return out
 
-    def encode(self, video: torch.Tensor) -> torch.Tensor:
+    def encode(self, video: torch.Tensor, rng: Optional[DropoutRNG] = None
+               ) -> torch.Tensor:
         """video: (B, T, H, W) normalized grayscale -> encoder output
         (B, T, d_model)."""
-        return self.encoder(self.frontend(video))
+        return encode(self, video, rng)
 
     def recognize(self, video: torch.Tensor,
                   maxlen: Optional[int] = None) -> torch.Tensor:

@@ -138,7 +138,7 @@ def report(title, smi, batch, stages, profiled, json_path=None) -> None:
     print(f"{title}: wall {totals['wall_ms']:.1f} ms, device "
           f"{totals['device_ms']:.1f} ms, idle share {totals['idle_share']:.3f},"
           f" {totals['launches']} kernel launches")
-    print("stage split (CUDA events, ms): " + ", ".join(
+    print("stage split (ms): " + ", ".join(
         f"{k} {v:.2f}" for k, v in stages.items()))
     print(f"\ntop {TOP} kernels by device time:")
     for name, n, ms in kernels[:TOP]:

@@ -7,8 +7,9 @@ Builds ``config.sbl()`` at full width with seeded random weights (bf16, the
 kernel path, dropout on, each decode step checkpointed), runs two warm-up
 steps on one batch of synthetic clips with their augmentation plans, then:
 
-* stage split: CUDA events at the step's stage boundaries (ingest, forward,
-  backward, optimizer), device-timeline time, gaps included;
+* stage split: one step under ``torch.profiler`` with the program's spans
+  recorded, each kernel's device time counted under the ``train.*`` span
+  (ingest, forward, backward, optimizer) that launched it, gaps left out;
 * one step under ``torch.profiler``: the tables and totals that
   ``profile_recognize`` prints (device time per kernel and per ``aten`` op,
   launches, wall time, the device's idle share).
@@ -29,8 +30,9 @@ from .data import Batcher, SyntheticLipDataset
 from .models import build_model
 from .profile_recognize import card_name, profile_call, report
 from .training.schedule import make_optimizer
-from .training.steps import make_sbl_train_step
+from .training.steps import TRAIN_STAGES, make_sbl_train_step
 from .training.trainer import attach_plans
+from .utils.profiler import stage_split
 
 WARMUP_STEPS = 2
 
@@ -55,11 +57,7 @@ def main(argv=None) -> int:
     generator = torch.Generator().manual_seed(args.seed)
     for _ in range(WARMUP_STEPS):
         step(batch, generator)
-    marks = []
-    step(batch, generator, marks=marks)
-    torch.cuda.synchronize()
-    stages = {name: a.elapsed_time(b)
-              for (_, a), (name, b) in zip(marks, marks[1:])}
+    stages = stage_split(lambda: step(batch, generator), TRAIN_STAGES)
     trace = None
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)

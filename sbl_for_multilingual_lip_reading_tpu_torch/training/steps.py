@@ -49,7 +49,7 @@ from __future__ import annotations
 import gc
 import os
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -63,6 +63,7 @@ from ..models.layers import (DropoutRNG, EagerGenerators, StepRandom,
                              cast_dense_weights, step_random)
 from ..ops.ingest import MAX_OFFSET, ingest_train, ingest_train_plain
 from ..recognize import recognize_batch
+from ..utils.profiler import span
 from .loss import cal_performance, classify_terms, token_count
 from .state import TrainState
 
@@ -152,11 +153,9 @@ def expected_launches(cfg) -> Dict[str, int]:
                 channel_sums=bns + recomputed, channel_sums_pair=bns)
 
 
-def _mark(marks: Optional[List], name: str) -> None:
-    if marks is not None:
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        marks.append((name, event))
+# the spans of a train step's stages, in order
+TRAIN_STAGES = ("train.ingest", "train.forward", "train.backward",
+                "train.optimizer")
 
 
 def _global_loss(mesh, terms, metrics):
@@ -204,42 +203,39 @@ def _make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     set_sync_batchnorm(model, mesh if sync_bn else None)
     layout = random_layout(model)
 
-    def body(batch, random: StepRandom, marks: Optional[List] = None,
-             **kw) -> Dict[str, torch.Tensor]:
+    def body(batch, random: StepRandom, **kw) -> Dict[str, torch.Tensor]:
         model.train()
         step.updating = False
-        _mark(marks, "start")
-        video = ingest_train_batch(batch, crop, dtype, kernels)
-        _mark(marks, "ingest")
+        with span("train.ingest"):
+            video = ingest_train_batch(batch, crop, dtype, kernels)
         rng = DropoutRNG(random, device, None if mesh is None
                          else mesh.rows(video.shape[0]))
-        loss, metrics, terms = forward_loss(video, batch, rng, **kw)
-        objective = loss
-        if mesh is not None:
-            objective, loss, metrics = _global_loss(mesh, terms, metrics)
-        _mark(marks, "forward")
-        optimizer.zero_grad(set_to_none=True)
-        objective.backward()
-        if mesh is not None:
-            mesh.all_reduce_grads_(model.parameters())
-        freeze_grads(model, freeze)
-        _mark(marks, "backward")
-        step.updating = True   # for the memory guard: parameters now move
-        state.apply_gradients()
-        step.updating = False
-        if mesh is not None and not sync_bn:
-            # per-process statistics: process 0's running ones are kept
-            mesh.broadcast_(running_stats(model))
-        _mark(marks, "optimizer")
+        with span("train.forward"):
+            loss, metrics, terms = forward_loss(video, batch, rng, **kw)
+            objective = loss
+            if mesh is not None:
+                objective, loss, metrics = _global_loss(mesh, terms, metrics)
+        with span("train.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            objective.backward()
+            if mesh is not None:
+                mesh.all_reduce_grads_(model.parameters())
+            freeze_grads(model, freeze)
+        with span("train.optimizer"):
+            step.updating = True   # for the memory guard: parameters now move
+            state.apply_gradients()
+            step.updating = False
+            if mesh is not None and not sync_bn:
+                # per-process statistics: process 0's running ones are kept
+                mesh.broadcast_(running_stats(model))
         return {"loss": loss.detach(), **metrics}
 
-    def step(batch, generator: torch.Generator, marks: Optional[List] = None,
-             **kw) -> Dict[str, torch.Tensor]:
+    def step(batch, generator: torch.Generator, **kw) -> Dict[str, torch.Tensor]:
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
         dec = getattr(model, "decoder", None)
         random = step_random(seed, layout, device,
                              getattr(dec, "teacher_forcing_rate", 0.0))
-        return body(batch, random, marks, **kw)
+        return body(batch, random, **kw)
 
     step.body, step.state, step.layout, step.mesh = body, state, layout, mesh
     step.metric_keys = METRIC_KEYS[model_kind(cfg)]
@@ -249,14 +245,14 @@ def _make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
 def make_sbl_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                         cfg, mesh=None) -> Callable:
-    """``step(batch, generator, marks=None, use_gold=None) -> metrics``.
+    """``step(batch, generator, use_gold=None) -> metrics``.
 
     batch: tensors on the model's device -- clip_u8 (B, T, H, W) uint8,
     labels and labels_reverse (B, P), the plans offsets/flip/frame_map,
     optional n_frames.  generator: a ``torch.Generator`` for the step's
     random numbers.  use_gold: optional injected teacher-forcing coins.
-    marks: a list to receive (stage, CUDA event) pairs at the ingest,
-    forward, backward and optimizer boundaries.  Returns f32 scalar tensors
+    The stages open the spans ``train.ingest``, ``train.forward``,
+    ``train.backward`` and ``train.optimizer``.  Returns f32 scalar tensors
     (loss, loss_l2r, loss_r2l) and counts (n_correct_l2r, n_correct_r2l),
     left on the device.  ``step.state`` is the TrainState.  ``mesh``: a
     data-parallel process's step (``_make_train_step``)."""
@@ -278,7 +274,7 @@ def make_sbl_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer
 
 def make_uni_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                         cfg, mesh=None) -> Callable:
-    """``step(batch, generator, marks=None) -> metrics`` for a
+    """``step(batch, generator) -> metrics`` for a
     ``UniTransformer`` (JAX ``make_uni_train_body``): the batch of
     ``make_sbl_train_step`` without ``labels_reverse``; the teacher-forced
     forward with dropout, one label-smoothed loss.  Returns the f32 loss and
@@ -297,7 +293,7 @@ def make_uni_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer
 def make_classify_train_step(model: torch.nn.Module,
                              optimizer: torch.optim.Optimizer, cfg,
                              mesh=None) -> Callable:
-    """``step(batch, generator, marks=None) -> metrics`` for a
+    """``step(batch, generator) -> metrics`` for a
     ``ClassifyTransformer`` (JAX ``make_classify_train_body``): the batch
     carries word_id and lang_id (B,) instead of labels; the loss is the word
     CE plus ``cfg.language_loss_weight`` times the language CE, samples with

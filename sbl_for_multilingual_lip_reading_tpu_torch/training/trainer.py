@@ -77,7 +77,7 @@ from ..recognize import recognize_batch
 from ..utils.device import resolve_device
 from ..utils.logging import get_logger
 from ..utils.metrics import AverageMeter, per_compute, wer_compute
-from ..utils.profiler import StepTimer, Trace
+from ..utils.profiler import StepTimer, Trace, span
 from ..vocab import EOS_ID, IGNORE_ID, SOS_ID, TOTAL_PHONEMES
 from . import checkpoint as ckpt
 from .memguard import GuardedTrainStep
@@ -434,10 +434,12 @@ class Trainer:
         advances ``np_rng`` and ``generator`` as far as the per-step route
         does; the two cached routes draw the same batches.  Returns (the
         device buffers, n_steps)."""
-        self._ensure_device_cache(shard=False)
-        order = epoch_order(self.cfg.seed + epoch, len(self.train_dataset),
-                            self.cfg.batch_size, 1, max_steps)
-        return self._load_const(order, self._epoch_plans(order), slice(None))
+        with span("train.epoch_const", epoch=epoch):
+            self._ensure_device_cache(shard=False)
+            order = epoch_order(self.cfg.seed + epoch, len(self.train_dataset),
+                                self.cfg.batch_size, 1, max_steps)
+            return self._load_const(order, self._epoch_plans(order),
+                                    slice(None))
 
     def _epoch_const_mesh(self, epoch: int, max_steps: Optional[int] = None
                           ) -> Tuple[EpochConst, int]:
@@ -448,12 +450,13 @@ class Trainer:
         sample's lang_id); this process keeps its columns of both, and its
         rows of the dataset on its card."""
         W, d = self._world()
-        self._ensure_device_cache(shard=True)
-        B = self.cfg.batch_size
-        order = epoch_order(self.cfg.seed + epoch, len(self.train_dataset), B,
-                            W, max_steps)
-        return self._load_const(order, self._epoch_plans(order),
-                                slice(d * B // W, (d + 1) * B // W))
+        with span("train.epoch_const", epoch=epoch):
+            self._ensure_device_cache(shard=True)
+            B = self.cfg.batch_size
+            order = epoch_order(self.cfg.seed + epoch, len(self.train_dataset),
+                                B, W, max_steps)
+            return self._load_const(order, self._epoch_plans(order),
+                                    slice(d * B // W, (d + 1) * B // W))
 
     def _ensure_fused_step(self):
         """JAX ``_ensure_fused_step``: the epoch-fused step of the workload's
@@ -504,7 +507,8 @@ class Trainer:
                         step_fn.ready(i)   # the trace holds replays only
                     trace = self._start_trace()
                 with self.timer.step():
-                    step_fn(i)
+                    with span("train.step", step=i):
+                        step_fn(i)
                     if pending is not None:
                         consume(*pending)
                     pending = (i, base_step + i + 1, const.ring[i])
@@ -528,7 +532,8 @@ class Trainer:
 
         def consume(i, step_no, metrics):
             if torch.is_tensor(metrics):
-                metrics = dict(zip(keys, metrics.tolist()))
+                with span("train.read"):
+                    metrics = dict(zip(keys, metrics.tolist()))
             loss = float(metrics["loss"])
             # a NaN loss halts with a diagnostic instead of corrupting Adam
             if not np.isfinite(loss):
@@ -594,7 +599,8 @@ class Trainer:
                 if self.profile_dir is not None and epoch == 0 and i == 1:
                     trace = self._start_trace()
                 with self.timer.step():
-                    metrics = self.train_step(batch, self.generator)
+                    with span("train.step", step=i):
+                        metrics = self.train_step(batch, self.generator)
                     if pending is not None:
                         consume(*pending)
                     pending = (i, base_step + i + 1, metrics)

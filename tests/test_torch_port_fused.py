@@ -42,6 +42,7 @@ Torch runs on one thread here and in the workers.  One JAX Trainer a
 configuration.
 """
 import dataclasses
+import json
 import os
 import socket
 import subprocess
@@ -383,7 +384,18 @@ def test_cli_train_cache_on_device_takes_the_fused_route_and_traces(
             "--profile-dir", str(trace), "--save-dir", str(tmp_path / "ck")])
     assert tr.fused_step is not None and tr.state.step == 4
     assert "epoch-fused route, eager on cpu" in caplog.text
-    assert (trace / "trace.json").is_file()
+    # the program's spans of steps 1-3 over the profiler's events, on its
+    # timeline
+    events = json.loads((trace / "trace.json").read_text())["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    steps = sorted(e["args"]["step"] for e in spans if e["name"] == "train.step")
+    assert steps == [1, 2, 3]
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    first = min(e["ts"] for e in spans if e["name"] == "train.step")
+    last = max(e["ts"] + e["dur"] for e in spans if e["name"] == "train.step")
+    assert any(first <= e["ts"] <= last for e in ops)
+    assert {"train.forward", "train.backward", "frontend", "decoder"} <= {
+        e["name"] for e in spans}
 
 
 # ---------------------------------------------------------------------------
