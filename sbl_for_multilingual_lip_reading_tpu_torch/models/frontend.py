@@ -42,6 +42,19 @@ and equal input and output widths, five of ResNet-18's eight blocks.
 ``forward_stacked`` takes the already stacked and normalized output of K9
 (``ops/stem.py::stack_frames_u8``) in place of a clip.
 
+In eval mode with autograd recording nothing (``torch.inference_mode()`` or
+``torch.no_grad()``), every frontend BatchNorm of any of these classes runs
+as ``bn_eval_``: one pass that reads the conv output once, computes JAX's
+folded affine x * a + b in f32 and writes the compute dtype over it, where
+the module path widens it to f32 and makes a pass per operation.  The ReLU
+and the residual add follow in place in the compute dtype, so the rounding
+points stay the module path's (JAX's ``fold_bn`` form, as ``FusedBNAct``
+and ``DotBatchNorm`` compute it; the plain ``BatchNorm``'s (x - mean) *
+inv + bias can differ from it by an f32 ulp before the rounding).  The
+stem pools first and normalises the pooled quarter, which gives the same
+values (``VisualFrontend._one_pass_stem``).  Training and eval with
+gradients keep the module path.
+
 ``remat`` (the config's ``remat_frontend``, JAX ``nn.remat(BasicBlock)``)
 checkpoints each ResNet block in training: the backward runs the block's
 forward again (``torch.utils.checkpoint``, non-reentrant) instead of
@@ -261,6 +274,36 @@ class FusedBNAct(BatchNorm):
         return F.relu(y) if self.relu else y
 
 
+def one_pass_eval(m: nn.Module) -> bool:
+    """``m`` in eval mode with autograd recording nothing: its BatchNorms
+    take ``bn_eval_``."""
+    return not m.training and not torch.is_grad_enabled()
+
+
+def bn_eval_(bn: BatchNorm, x: torch.Tensor,
+             negated: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eval BatchNorm in one pass written over ``x``: y = x * a + b with JAX
+    ``fold_bn``'s (a, b) from the running statistics, computed in f32 and
+    rounded once to x's dtype (one read and one write of x; no f32 copy).
+    ``x`` is a conv output the caller owns, outside autograd; where the
+    (C,) bool ``negated`` holds, x's channel is the conv output negated and
+    takes -a.  ``bn_eval_.calls`` counts the BatchNorms it ran."""
+    a, b = fold_bn(bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+    if negated is not None:
+        a = torch.where(negated, -a, a)
+    bn_eval_.calls += 1
+    # x as rows of C*H*W against one plane of a and b: the elementwise
+    # kernel then walks two dims, not three (an index division less)
+    plane = math.prod(x.shape[2:])
+    rows = x.view(x.shape[0], x.shape[1] * plane)
+    torch.addcmul(b.repeat_interleave(plane), rows, a.repeat_interleave(plane),
+                  out=rows)
+    return x
+
+
+bn_eval_.calls = 0
+
+
 def pallas_bn_on(field: bool) -> bool:
     """The frontend's BatchNorms are ``FastBatchNorm`` (JAX
     ``_pallas_bn_on``): the module's field, or ``PALLAS_BN`` set."""
@@ -370,6 +413,8 @@ class BasicBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._fused_eligible(x):
             return self._fused_eval(x)
+        if one_pass_eval(self):
+            return self._one_pass_eval(x)
         if self.fused_bn_act:
             return self._fused_bn_act_path(x)
         y = F.relu(self.bn1(self.conv1(x)).to(self.dtype))
@@ -378,6 +423,16 @@ class BasicBlock(nn.Module):
         if self.has_downsample:
             residual = self.downsample_bn(self.downsample_conv(x)).to(self.dtype)
         return F.relu(y + residual)
+
+    def _one_pass_eval(self, x: torch.Tensor) -> torch.Tensor:
+        """The path below with each BatchNorm as ``bn_eval_`` and the ReLUs
+        and the residual add in place, in the compute dtype."""
+        y = torch.relu_(bn_eval_(self.bn1, self.conv1(x)))
+        y = bn_eval_(self.bn2, self.conv2(y))
+        residual = x
+        if self.has_downsample:
+            residual = bn_eval_(self.downsample_bn, self.downsample_conv(x))
+        return torch.relu_(y.add_(residual))
 
     def _fused_bn_act_path(self, x: torch.Tensor) -> torch.Tensor:
         """JAX ``BasicBlock._fused_bn_act_path``: bn1 with its ReLU,
@@ -467,23 +522,44 @@ class VisualFrontend(nn.Module):
         return self.forward_stacked(stack(x.to(self.dtype).contiguous(), STEM_KT),
                                     rng)
 
+    def _one_pass_stem(self, xs: torch.Tensor) -> torch.Tensor:
+        """Stem conv, BatchNorm, ReLU and max pool with the pool first.  The
+        BatchNorm's rounded affine y = x * a + b and the ReLU are
+        non-decreasing in x where a >= 0, so they give the same values
+        after the max as before it; a channel with a < 0 (a negative scale)
+        takes its conv weights negated, which negates its conv output
+        exactly, and -a.  ``bn_eval_`` and the ReLU then make one pass each
+        over the pooled quarter."""
+        negated = self.bn3d.weight < 0
+        w = self.conv3d_weight.to(self.dtype)
+        w = torch.where(negated[:, None, None, None], -w, w)
+        y = _stem_pool(F.conv2d(xs, w, stride=2, padding=3))
+        return torch.relu_(bn_eval_(self.bn3d, y, negated))
+
     def forward_stacked(self, xs: torch.Tensor,
                         rng: Optional[DropoutRNG] = None) -> torch.Tensor:
         """The frontend from the stacked stem input on: xs is (B, T, kt, S,
         S) in the compute dtype, K2's or K9's output."""
         B, T, kt, H, W = xs.shape
         xs = xs.reshape(B * T, kt, H, W)
-        y = F.conv2d(xs, self.conv3d_weight.to(self.dtype), stride=2, padding=3)
-        if isinstance(self.bn3d, FusedBNAct):
-            y = self.bn3d(y)
+        if one_pass_eval(self):
+            y = self._one_pass_stem(xs)
         else:
-            y = F.relu(self.bn3d(y)).to(self.dtype)
-        # the reference's MaxPool3d(k=(1,3,3), s=(1,2,2), p=(0,1,1)) with
-        # time folded into batch (JAX ops/maxpool.py; both give a tie's
-        # gradient to the row-major-first maximum)
-        y = F.max_pool2d(y, 3, 2, 1)
+            y = F.conv2d(xs, self.conv3d_weight.to(self.dtype), stride=2, padding=3)
+            if isinstance(self.bn3d, FusedBNAct):
+                y = self.bn3d(y)
+            else:
+                y = F.relu(self.bn3d(y)).to(self.dtype)
+            y = _stem_pool(y)
         y = dropout(self.resnet(y), self.dropout, rng)
         return y.reshape(B, T, self.feature_dim)
+
+
+def _stem_pool(y: torch.Tensor) -> torch.Tensor:
+    """The reference's MaxPool3d(k=(1,3,3), s=(1,2,2), p=(0,1,1)) with time
+    folded into batch (JAX ops/maxpool.py; both give a tie's gradient to
+    the row-major-first maximum)."""
+    return F.max_pool2d(y, 3, 2, 1)
 
 
 def frontend_from_config(cfg, dtype=torch.float32, use_kernels: bool = True,
