@@ -234,6 +234,29 @@ Any failed phase raises, so the script exits non-zero without the result
 line; so it does when torch sees no CUDA device, and when the port's
 package is not beside it.
 
+With --auto-avsr it runs instead phases 1, 2 and 11a: first K12 and K1
+against their plain versions, f32 and bf16 within K1_TOL, at the shapes
+the auto_avsr_vsr path gives them (AVSR_KERNEL_BATCH utterances padded to
+the longest and the shortest of AVSR_LENGTHS: K12 at (B, 12, T, 64) with
+a rel-shifted positional term and MASK_FILL padded keys as its per-head
+f32 bias, K1 as the beam's cross-attention, 40 query rows an utterance
+over its T padded frames); then the preset (~250 M parameters, every
+published width) through the normal path, ``build_model`` ->
+``device_ingest`` with lengths -> the joint CTC/attention beam of
+``decode.beam.make_ctc_attention_beam_decoder`` (beam 40, 32 steps), on
+AVSR_BATCH utterances of AVSR_LENGTHS frames, in f32 (TF32 off) and in
+bf16, with the longest and the shortest utterance judged by the
+benchmark's own judge (``port_bench/core/judge_ctc.py``, against the
+float32 reference on the card, each alone at its own length: CTC
+log-probabilities, the decoder's logits at every step given the served
+prefixes, the CTC prefix scores against the reference scorer on the
+reference's and on the served log-probabilities, the frontier rule,
+duplicates and order), f32 within AVSR_F32_TOL, bf16 within the cell's
+limits (``port_bench/limits/auto_avsr_vsr.ctcbeam40.b64.json``); the
+launches a batch (K2 1, K12 12, K1 6 x 32); then the bf16 search's ms a
+batch at B = 64 (AVSR_TIMED batches after a warm-up) and its peak memory.
+Phase 11a also runs after F3 in the full run.
+
 With --compare-eval it runs instead phase 3d and phase 7 (the eval-side
 kernels K9-K11 against their plain versions, with their device times, and
 path A), with --compare-bn phase 3c and phase 6 (K6-K8 against their plain
@@ -4301,6 +4324,158 @@ def compare_turns(phase_set: str, parent: str) -> int:
     return 0
 
 
+AVSR_BATCH = 4
+AVSR_LENGTHS = (155, 38, 97, 120)
+# f32 (TF32 off) against the reference: summation order only
+AVSR_F32_TOL = {"ctc_logit_err": 2e-3, "step_logit_err": 2e-3, "ctc_prefix_err": 2e-2,
+                "ctc_prefix_self": 2e-2, "frontier_self": 1e-3, "dup_hyps": 0,
+                "order_off": 0}
+AVSR_TIMED = 3
+AVSR_KERNEL_BATCH = 64
+
+
+def avsr_kernel_checks(torch, dev):
+    """K12 and K1 against their plain versions at the shapes the auto_avsr
+    path gives them, B = AVSR_KERNEL_BATCH utterances padded to T frames:
+    K12 as the Conformer's relative-position self-attention, (B, 12, T, 64)
+    with a per-head f32 bias of the rel-shifted positional term and
+    MASK_FILL at the padded keys; K1 as the beam's cross-attention, the 40
+    hypotheses of an utterance as query rows over its T padded frames."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C, ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.models.conformer import rel_shift
+    from sbl_for_multilingual_lip_reading_tpu_torch.ops.masks import \
+        key_pad_mask_from_lengths
+    cfg = C.auto_avsr_vsr()
+    B, H, d, K = AVSR_KERNEL_BATCH, cfg.dims.n_head, cfg.dims.d_k, cfg.conformer.beam_size
+    scale = 1.0 / d ** 0.5
+    g = torch.Generator(device=dev).manual_seed(12)
+    out = {}
+    for T in (max(AVSR_LENGTHS), min(AVSR_LENGTHS)):
+        lengths = torch.randint(min(AVSR_LENGTHS), T + 1, (B,), generator=g, device=dev)
+        lengths[0] = T
+        pad = key_pad_mask_from_lengths(lengths, T)                       # (B, 1, T)
+        key_bias = ops.mask_to_bias(pad, 1, T)[:, None]                   # (B, 1, 1, T)
+        qv = torch.randn((B, H, T, d), generator=g, device=dev)
+        p = torch.randn((H, d, 2 * T - 1), generator=g, device=dev)
+        rel = torch.add(key_bias, rel_shift(torch.matmul(qv, p)), alpha=scale).contiguous()
+        mem_bias = ops.mask_to_bias(pad, K, T)                            # (B, K, T)
+        for dt in (torch.float32, torch.bfloat16):
+            name_dt = str(dt).split(".")[-1]
+            q, k, v = (torch.randn((B, H, T, d), generator=g, device=dev, dtype=dt)
+                       for _ in range(3))
+            got = ops.fused_mha(q, k, v, rel, scale)
+            want = ops.fused_mha_plain(q, k, v, rel, scale)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            check(err <= K1_TOL[name_dt] and bool(torch.isfinite(got).all()),
+                  f"11a K12 rel-pos ({B},{H},{T},{d}) {name_dt}: max abs err {err}")
+            out[f"K12 T={T} {name_dt}"] = err
+            q = torch.randn((B, K, H * d), generator=g, device=dev, dtype=dt)
+            k, v = (torch.randn((B, T, H * d), generator=g, device=dev, dtype=dt)
+                    for _ in range(2))
+            got = ops.small_mha_flat(q, k, v, H, bias=mem_bias)
+            want = ops.small_mha_flat_plain(q, k, v, H, bias=mem_bias)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            check(err <= K1_TOL[name_dt] and bool(torch.isfinite(got).all()),
+                  f"11a K1 beam cross ({B},{K})x({B},{T}) {name_dt}: max abs err {err}")
+            out[f"K1 T={T} {name_dt}"] = err
+            del q, k, v, got, want
+    print(f"11a kernels: {json.dumps(out)}", flush=True)
+    return out
+
+
+def phase_auto_avsr(torch, np, dev):
+    """Phase 11a (see the module's doc)."""
+    from sbl_for_multilingual_lip_reading_tpu_torch import config as C, ops
+    from sbl_for_multilingual_lip_reading_tpu_torch.data.ingest import device_ingest
+    from sbl_for_multilingual_lip_reading_tpu_torch.decode.beam import \
+        make_ctc_attention_beam_decoder
+    from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
+    from port_bench.core import judge_ctc
+    root = Path(__file__).resolve().parent
+    model_cfg = json.loads((root / "port_bench/configs/auto_avsr_vsr.json").read_text())["model"]
+    limits = json.loads((root / "port_bench/limits/auto_avsr_vsr.ctcbeam40.b64.json").read_text())
+    out = {"kernels": avsr_kernel_checks(torch, dev)}
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def clips_of(lengths):
+        T = max(lengths)
+        x = torch.randint(0, 256, (len(lengths), T, 96, 96), generator=g, device=dev,
+                          dtype=torch.uint8)
+        for i, n in enumerate(lengths):
+            x[i, n:] = 0
+        return x, torch.tensor(lengths, device=dev)
+
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(C.auto_avsr_vsr(), compute_dtype=dtype)
+        model = build_model(cfg, device=dev)
+        with torch.no_grad():      # no BatchNorm or LayerNorm left an identity
+            for name, t in model.state_dict().items():
+                if name.endswith(("running_mean", "bias")) and t.dim() == 1:
+                    t.add_(0.1 * torch.randn(t.shape, generator=g, device=dev))
+                elif name.endswith("running_var"):
+                    t.mul_(torch.exp(0.2 * torch.randn(t.shape, generator=g, device=dev)))
+        clips, lengths = clips_of(list(AVSR_LENGTHS[:AVSR_BATCH]))
+        beam = make_ctc_attention_beam_decoder(model, cfg)
+        rows = (int(lengths.argmax()), int(lengths.argmin()))
+        seen, ctc = {r: [] for r in rows}, {}
+        beam.watch = lambda rec: [seen[r].append(judge_ctc.row_of(rec, r, beam.K))
+                                  for r in rows]
+        log_probs = model.ctc_log_probs
+
+        def watched(enc):
+            lp = log_probs(enc)
+            ctc.update({r: lp[r].float() for r in rows})
+            return lp
+        model.ctc_log_probs = watched
+        video = device_ingest(clips, cfg.data.crop_size, model.frontend.dtype,
+                              n_frames=lengths, mean=cfg.data.mean, std=cfg.data.std)
+        ops.reset_launch_counts()
+        toks, scores = beam(video, lengths)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        want = {"stack_frames": 1, "fused_mha": cfg.dims.n_enc_layers,
+                "small_mha_flat": cfg.dims.n_dec_layers * cfg.decoder.maxlen}
+        check(launches == want, f"11a {dtype}: launches {launches}, want {want}")
+        check(bool((scores[:, 1:] <= scores[:, :-1]).all()), f"11a {dtype}: order")
+        model.ctc_log_probs = log_probs
+        # the benchmark's judge, on the two utterances alone at their lengths
+        utterances = [judge_ctc.utterance(clips[r, :int(lengths[r])], toks[r], scores[r],
+                                          ctc[r][:int(lengths[r])], seen[r]) for r in rows]
+        state = {k: v.float() for k, v in model.state_dict().items()}
+        err = judge_ctc.judge(dict(model_cfg, compute_dtype=dtype), state, utterances, dev)
+        tol = AVSR_F32_TOL if dtype == "float32" else {
+            k: v["limit"] for k, v in limits.items() if k in err}
+        for k, t in tol.items():
+            check(err[k] <= t, f"11a {dtype}: {k} {err[k]:.3g} > {t}")
+        out[dtype] = dict(err, launches=launches)
+        print(f"11a {dtype}: {json.dumps(out[dtype])}", flush=True)
+        if dtype == "bfloat16":
+            beam.watch = None
+            del video, seen, ctc, utterances
+            lengths64 = np.random.default_rng(11).integers(38, 156, size=64).tolist()
+            clips, lengths = clips_of(lengths64)
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for i in range(1 + AVSR_TIMED):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                video = device_ingest(clips, cfg.data.crop_size, model.frontend.dtype,
+                                      n_frames=lengths, mean=cfg.data.mean, std=cfg.data.std)
+                beam(video, lengths)
+                b.record()
+                b.synchronize()
+                if i:
+                    ms.append(a.elapsed_time(b))
+            out["b64_ms"] = ms
+            out["b64_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            print(f"11a bf16 B=64 ms {ms}, peak {out['b64_peak_gb']:.2f} GB", flush=True)
+        del model, beam
+        _release(torch)
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--turn-child"]:
         print(json.dumps(turn_child(sys.argv[2], sys.argv[3])), flush=True)
@@ -4321,6 +4496,14 @@ def main() -> int:
     if sys.argv[1:2] == ["--tp-worker"]:
         return tp_worker(torch, np, dev, sys.argv[2], int(sys.argv[3]),
                          int(sys.argv[4]), sys.argv[5])
+    if sys.argv[1:2] == ["--auto-avsr"]:
+        smi, name = phase_card(torch)
+        phase_build()
+        avsr = phase_auto_avsr(torch, np, dev)
+        print(json.dumps({"auto_avsr": avsr, "card": smi}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        return 0
     compare = {"--compare-eval": "eval", "--compare-bn": "bn",
                "--compare-ingest-mask": "ingest_mask"}
     if sys.argv[1:2] and sys.argv[1] in compare:
@@ -4363,7 +4546,8 @@ def main() -> int:
     switches = dict(bn_variants=timed("F1", phase_bn_variants, torch, np, dev))
     f2_launches, switches["steps"] = timed("F2", phase_switch_steps, torch, np, dev)
     switches["native"] = timed("F3", phase_native, torch, np, dev)
-    print(f"phases 1-10, E1-E9 and F1-F3 took {time.perf_counter() - t_start:.1f} s")
+    avsr = timed("11a", phase_auto_avsr, torch, np, dev)
+    print(f"phases 1-10, E1-E9, F1-F3 and 11a took {time.perf_counter() - t_start:.1f} s")
     # every kernel of the eval and training paths was launched on its path
     for kernel in ("stack_frames_u8", "fused_resblock", "fused_decoder_layer",
                    "small_mha_flat"):
@@ -4523,7 +4707,7 @@ def main() -> int:
                       "recognize_clips_per_s": rate, "train": train,
                       "entry_point": entry, "path_a": path_a, "path_b": path_b,
                       "path_c": path_c, "path_d": path_d, "path_e": path_e,
-                      "tiny": tiny, "switches": switches}))
+                      "tiny": tiny, "switches": switches, "auto_avsr": avsr}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -11,6 +11,13 @@ Every workload is ported, for training and evaluation: ``sbl`` (and
 ``sbl_stage2``, the same model with teacher forcing annealed to 0.1), the
 unidirectional ``lrw`` and ``lrw1000``, and ``classify``, the stage-1
 pretraining of frontend and encoder (no decoder: ``decoder`` is None).
+
+One preset has no JAX counterpart: ``auto_avsr_vsr``, the Auto-AVSR visual
+speech recognition model (Ma et al., ICASSP 2023; ResNet-18 frontend with
+Swish, 12 Conformer blocks, a CTC head and a 6-layer pre-LN decoder, joint
+CTC/attention beam search), evaluation only.  Its settings that no JAX
+field carries sit in ``CTCAttentionConfig``, a subclass, so that the shared
+dataclasses keep exactly the JAX fields.
 """
 from __future__ import annotations
 
@@ -214,15 +221,57 @@ def tiny_test(name: str = "sbl") -> WorkloadConfig:
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class ConformerConfig:
+    """What the Conformer CTC/attention model adds to the shared fields
+    (ESPnet's ``e2e_asr_conformer`` as Auto-AVSR configures it)."""
+    cnn_module_kernel: int = 31         # depthwise conv of each block
+    layer_norm_eps: float = 1e-12       # ESPnet's LayerNorm
+    frontend_activation: str = "swish"  # the ResNet's and the stem's
+    blank_id: int = 0                   # sos = eos = vocab_size - 1
+    ctc_weight: float = 0.1             # of the CTC prefix score in the search
+    beam_size: int = 40
+    pre_beam_ratio: float = 1.5         # CTC-scored candidates a hypothesis
+
+
+@dataclasses.dataclass(frozen=True)
+class CTCAttentionConfig(WorkloadConfig):
+    """A ``WorkloadConfig`` with a ``conformer``: the kind ``ctc_attention``
+    (``models/conformer.py``).  ``data.frames`` is the longest utterance a
+    batch may hold; shorter ones pass their lengths."""
+    conformer: ConformerConfig = ConformerConfig()
+
+
+def auto_avsr_vsr() -> CTCAttentionConfig:
+    """Auto-AVSR's VSR model at its published widths (~250 M parameters):
+    d_model 768, 12 heads of 64, FFN 3072, 12 Conformer blocks, 6 decoder
+    layers, 5,049 ids (blank 0, 5,000 SentencePiece units, sos = eos =
+    5,048), 88 x 88 crops of 96 x 96 frames normalised with 0.421 / 0.165,
+    up to 155 frames (6.2 s at 25 fps), beam 40 for 32 steps."""
+    return CTCAttentionConfig(
+        name="auto_avsr_vsr",
+        dims=TransformerDims(d_model=768, n_head=12, d_k=64, d_v=64,
+                             d_inner=3072, n_enc_layers=12, n_dec_layers=6),
+        decoder=DecoderConfig(vocab_size=5049, maxlen=32, target_pad_len=32,
+                              bidirectional=False, tie_embedding=False),
+        data=dataclasses.replace(DataConfig(), frames=155, mean=0.421,
+                                 std=0.165),
+        batch_size=64)
+
+
 PRESETS = {"sbl": sbl, "sbl_stage2": sbl_stage2, "lrw": lrw_seq2seq,
-           "lrw1000": lrw1000_seq2seq, "classify": classify}
+           "lrw1000": lrw1000_seq2seq, "classify": classify,
+           "auto_avsr_vsr": auto_avsr_vsr}
 
 
 def model_kind(cfg: WorkloadConfig) -> str:
     """The model, steps, validation and best-model metric ``cfg`` takes:
-    ``"classify"`` (no decoder), ``"sbl"`` (a bidirectional decoder) or
-    ``"uni"`` (``lrw`` / ``lrw1000``).  The one place the port decides it;
-    a decoder-less config of another workload is refused."""
+    ``"classify"`` (no decoder), ``"sbl"`` (a bidirectional decoder),
+    ``"uni"`` (``lrw`` / ``lrw1000``) or ``"ctc_attention"`` (a config
+    with a ``conformer``).  The one place the port decides it; a
+    decoder-less config of another workload is refused."""
+    if getattr(cfg, "conformer", None) is not None:
+        return "ctc_attention"
     if cfg.decoder is None:
         if cfg.name != "classify":
             raise ValueError(f"workload {cfg.name!r} has no decoder; only "

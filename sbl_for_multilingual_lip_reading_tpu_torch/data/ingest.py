@@ -38,10 +38,13 @@ def device_ingest(clips_u8: torch.Tensor, crop: int,
                   n_frames: Optional[torch.Tensor] = None,
                   offsets: Optional[torch.Tensor] = None,
                   flip: Optional[torch.Tensor] = None,
-                  frame_map: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  frame_map: Optional[torch.Tensor] = None,
+                  mean: float = MEAN, std: float = STD) -> torch.Tensor:
     """clips_u8: (B, T, H, W) uint8 raw frames; n_frames: optional (B,)
     valid-frame counts, whose time-pad slots are zeroed AFTER
-    normalization (the reference pads the normalized clip with 0.0);
+    normalization (the reference pads the normalized clip with 0.0, so
+    the temporal stem sees past a clip's end what the clip alone would);
+    mean, std: the normalization's (a config's ``data.mean``, ``data.std``);
     offsets: (B, T, 2) per-frame (y, x) crop offsets, or None for the center
     crop; flip: (B,) bool whole-clip horizontal flip, or None; frame_map:
     (B, T) source frame of each output slot (FrameRemoval), or None.
@@ -52,11 +55,12 @@ def device_ingest(clips_u8: torch.Tensor, crop: int,
                          f"{tuple(clips_u8.shape)} {clips_u8.dtype}")
     # outside a training step an evaluation batch begins here
     with profiler.span("ingest", batch=profiler.NEXT):
-        return _ingest(clips_u8, crop, dtype, n_frames, offsets, flip, frame_map)
+        return _ingest(clips_u8, crop, dtype, n_frames, offsets, flip, frame_map,
+                       mean, std)
 
 
 def _ingest(clips_u8: torch.Tensor, crop: int, dtype: torch.dtype,
-            n_frames, offsets, flip, frame_map) -> torch.Tensor:
+            n_frames, offsets, flip, frame_map, mean=MEAN, std=STD) -> torch.Tensor:
     B, T, H, W = clips_u8.shape
     clips = clips_u8
     if frame_map is not None:
@@ -72,7 +76,7 @@ def _ingest(clips_u8: torch.Tensor, crop: int, dtype: torch.dtype,
         # in uint8, before the normalization, which commutes with it
         cropped = torch.where(flip[:, None, None, None], cropped.flip(-1), cropped)
     x = cropped.to(torch.float32) * (1.0 / 255.0)
-    x = (x - MEAN) / STD
+    x = (x - mean) / std
     if n_frames is not None:
         valid = torch.arange(T, device=x.device)[None, :] < n_frames[:, None]
         x = torch.where(valid[:, :, None, None], x, 0.0)

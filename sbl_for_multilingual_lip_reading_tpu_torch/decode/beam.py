@@ -14,6 +14,13 @@ eos at zero cost.  After maxlen steps every hypothesis is eos-terminated.
 Ties: ``jax.lax.top_k`` and ``jnp.argsort`` give equal values in order of
 ascending index; ``torch.topk`` promises no order, so ``top_k`` here is the
 head of a stable descending sort.  Scores are not touched.
+
+``make_ctc_attention_beam_decoder`` is the joint CTC/attention search of the
+Auto-AVSR model (ESPnet's ``BatchBeamSearch`` with a ``CTCPrefixScorer``, no
+LM, no length bonus), on the same frontier: each hypothesis's candidates
+are its decoder's ``pre_beam`` best labels and eos, scored (1 - w) x the
+decoder's log-probability + w x the gain of the CTC prefix score
+(``decode/ctc_prefix.py``), and one (B, K x C) top-k keeps K.
 """
 from __future__ import annotations
 
@@ -23,8 +30,11 @@ import torch
 
 from ..models.decoder_uni import make_uni_cache
 from ..models.layers import cast_dense_weights
+from ..ops.attention import mask_to_bias
+from ..ops.masks import key_pad_mask_from_lengths
 from ..utils.profiler import span
 from ..vocab import EOS_ID, SOS_ID
+from . import ctc_prefix as P
 
 NEG_INF = -1e9
 
@@ -58,6 +68,30 @@ def _sorted_by_score(scores: torch.Tensor, *tokens: torch.Tensor):
     return (*out, torch.take_along_dim(scores, order, dim=1))
 
 
+def _select(tokens: torch.Tensor, finished: torch.Tensor, cand: torch.Tensor,
+            ids: Optional[torch.Tensor], step: int, eos_id: int):
+    """The frontier's choice: the K best of the (B, K, C) candidate scores
+    ``cand`` (B, K*C top-k), the parents gathered, the chosen labels
+    (``ids`` (B, K, C), or the slot itself where None) written at ``step +
+    1``.  Returns (tokens, scores, finished, parent, slot)."""
+    B, K, C = cand.shape
+    new_scores, idx = top_k(cand.reshape(B, K * C), K)
+    parent, slot = idx // C, idx % C
+    tok = slot if ids is None else torch.take_along_dim(
+        ids.reshape(B, K * C), idx, dim=1)
+    tokens = torch.take_along_dim(tokens, parent[..., None], dim=1)
+    tokens[:, :, step + 1] = tok
+    finished = torch.take_along_dim(finished, parent, dim=1) | (tok == eos_id)
+    return tokens, new_scores, finished, parent, slot
+
+
+def _regather(cache, parent: torch.Tensor, K: int):
+    """The surviving hypotheses' per-layer caches: their parents'."""
+    B = parent.shape[0]
+    flat = (torch.arange(B, device=parent.device)[:, None] * K + parent).reshape(-1)
+    return tuple(tuple(c[flat] for c in layer) for layer in cache), flat
+
+
 def _advance(tokens: torch.Tensor, scores: torch.Tensor, finished: torch.Tensor,
              logp: torch.Tensor, step: int, last: torch.Tensor,
              bigram_logp: Optional[torch.Tensor], eos_id: int):
@@ -65,20 +99,13 @@ def _advance(tokens: torch.Tensor, scores: torch.Tensor, finished: torch.Tensor,
     bias, freezing of finished hypotheses (eos-only continuation at zero
     cost), (B, K*V) top-k, parent gather, token write at ``step + 1``.
     Returns (tokens, scores, finished, parent)."""
-    B, K, _ = tokens.shape
     V = logp.shape[-1]
     if bigram_logp is not None:
         logp = logp + bigram_logp[last]
     logp = torch.where(finished[..., None],
                        _eos_only(V, eos_id, logp.device)[None, None, :], logp)
     cand = scores[..., None] + logp                      # (B, K, V)
-    new_scores, idx = top_k(cand.reshape(B, K * V), K)
-    parent = idx // V
-    tok = idx % V
-    tokens = torch.take_along_dim(tokens, parent[..., None], dim=1)
-    tokens[:, :, step + 1] = tok
-    finished = torch.take_along_dim(finished, parent, dim=1) | (tok == eos_id)
-    return tokens, new_scores, finished, parent
+    return _select(tokens, finished, cand, None, step, eos_id)[:4]
 
 
 def beam_search(step_fn: Callable[[torch.Tensor, int], torch.Tensor],
@@ -133,12 +160,8 @@ def beam_search_cached(step_fn: Callable, cache0, batch_size: int,
                 tokens, scores, finished, parent = _advance(
                     tokens, scores, finished, logp, step, last, bigram_logp,
                     eos_id)
-            # the surviving hypotheses' caches are their parents'
             with span("beam.regather"):
-                flat_parent = (torch.arange(B, device=parent.device)[:, None]
-                               * K + parent).reshape(-1)
-                cache = tuple(tuple(c[flat_parent] for c in layer)
-                              for layer in cache)
+                cache, _ = _regather(cache, parent, K)
     return _sorted_by_score(scores, tokens)
 
 
@@ -250,3 +273,102 @@ def make_uni_beam_decoder(model, beam_size: int = 5,
                                    bigram_logp=big)
 
     return decode
+
+
+class CTCAttentionBeam:
+    """The batched joint CTC/attention beam search of a
+    ``CTCAttentionTransformer`` (``make_ctc_attention_beam_decoder``):
+    ``(video, lengths) -> (tokens (B, K, maxlen+1) with the leading sos,
+    scores (B, K))``, best first.
+
+    Semantics (ESPnet's ``BatchBeamSearch`` with the decoder at 1 - w and
+    ``CTCPrefixScorer`` at w, pre-beam on the decoder's scores), on the
+    port's frontier: a fixed ``maxlen`` steps; a hypothesis that emitted
+    eos is frozen (its one continuation is eos at zero cost); a live one's
+    candidates are its decoder's ``pre_beam`` best labels, scored
+    (1 - w) log p_dec + w (psi(g.c) - psi(g)), and eos, scored with the
+    CTC probability of the whole prefix (another slot, also when eos is
+    not in the pre-beam; the pre-beam's own eos is dropped).  The blank
+    scores NEG.  The first step expands hypothesis 0 alone.
+
+    Per batch the memory's cross-attention K/V are projected once per
+    utterance; the self-attention caches and the CTC states are
+    regathered by parent after every step.  ``prefix_score`` (the CTC
+    scorer) is an attribute, and ``watch`` (None) is called after every
+    step with its numbers, for a caller that records the search."""
+
+    def __init__(self, model, beam_size: int, ctc_weight: float, pre_beam: int):
+        self.model, self.K = model, beam_size
+        self.ctc_weight, self.pre_beam = ctc_weight, pre_beam
+        self.maxlen = model.decoder.maxlen
+        self.prefix_score = P.ctc_prefix
+        self.watch = None
+
+    def __call__(self, video: torch.Tensor, lengths: Optional[torch.Tensor] = None):
+        model = self.model
+        model.eval()
+        with torch.inference_mode(), cast_dense_weights(model):
+            enc = model.encode(video, lengths)
+            with span("decode"):
+                return self._search(enc, lengths)
+
+    def _search(self, enc: torch.Tensor, lengths: Optional[torch.Tensor]):
+        model, dec, K, w = self.model, self.model.decoder, self.K, self.ctc_weight
+        B, T, _ = enc.shape
+        dev = enc.device
+        N, L = B * K, self.maxlen + 1
+        blank, eos = model.blank_id, model.eos_id
+        if lengths is None:
+            lengths = torch.full((B,), T, dtype=torch.int64, device=dev)
+        x = P.frames_first(model.ctc_log_probs(enc), lengths, blank)
+        state = P.initial_state(x, K, blank)
+        enc_kv = dec.compute_cross_kv(enc)
+        mem_bias = mask_to_bias(key_pad_mask_from_lengths(lengths, T), K, T)
+        cache = make_uni_cache(N, L, dec.n_layers, *dec.cache_widths(), dec.dtype, dev)
+        tokens, scores, finished = _start(B, K, L, model.sos_id, dev)
+        eos_col = torch.full((N, 1), eos, dtype=torch.int64, device=dev)
+        C = self.pre_beam + 1
+        # a finished hypothesis's one continuation: eos, in the last slot
+        frozen = torch.full((C,), NEG_INF, dtype=torch.float32, device=dev)
+        frozen[-1] = 0.0
+        for step in range(self.maxlen):
+            with span("decode.step", pos=step):
+                last = tokens[:, :, step].reshape(N)
+                logits, cache = dec.decode_step_cached(last, cache, enc_kv, step, mem_bias)
+                logp = torch.log_softmax(logits, dim=-1)
+                pre = torch.topk(logp, self.pre_beam, dim=-1).indices
+                ids = torch.cat([pre, eos_col], dim=1)                  # (N, C)
+                with span("ctc.prefix", pos=step):
+                    psi, rec = self.prefix_score(x, lengths, state, last, ids, step,
+                                                 blank, eos)
+                with span("beam.advance"):
+                    gain = psi - state.psi[:, None]
+                    cand = ((1.0 - w) * logp.gather(1, ids) + w * gain).view(B, K, C)
+                    cand = scores[..., None] + cand
+                    dup_eos = torch.zeros_like(ids, dtype=torch.bool)
+                    dup_eos[:, :-1] = pre == eos
+                    cand = cand.masked_fill(dup_eos.view(B, K, C), NEG_INF)
+                    cand = torch.where(finished[..., None],
+                                       scores[..., None] + frozen, cand)
+                    new = _select(tokens, finished, cand, ids.view(B, K, C), step, eos)
+                if self.watch is not None:
+                    self.watch(dict(step=step, tokens=tokens, scores=scores,
+                                    finished=finished, logits=logits, ids=ids.view(B, K, C),
+                                    psi=psi.view(B, K, C), psi_prev=state.psi.view(B, K),
+                                    cand=cand, parent=new[3], slot=new[4],
+                                    new_scores=new[1]))
+                tokens, scores, finished, parent, slot = new
+                with span("beam.regather"):
+                    cache, flat = _regather(cache, parent, K)
+                    state = P.select(rec, psi, step, flat, slot.reshape(-1))
+        return _sorted_by_score(scores, tokens)
+
+
+def make_ctc_attention_beam_decoder(model, cfg) -> CTCAttentionBeam:
+    """The joint CTC/attention beam of a ``CTCAttentionTransformer`` with
+    ``cfg.conformer``'s settings (Auto-AVSR's ``get_beam_search_decoder``:
+    beam 40, CTC weight 0.1, a pre-beam of int(1.5 x 40) = 60) over the
+    decoder's maxlen steps."""
+    cc = cfg.conformer
+    return CTCAttentionBeam(model, cc.beam_size, cc.ctc_weight,
+                            int(cc.pre_beam_ratio * cc.beam_size))

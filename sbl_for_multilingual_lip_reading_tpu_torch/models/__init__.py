@@ -1,5 +1,6 @@
 """Models of the PyTorch port: the bidirectional ``sbl`` / ``sbl_stage2``
-workloads, the unidirectional ``lrw`` / ``lrw1000`` ones, and ``classify``."""
+workloads, the unidirectional ``lrw`` / ``lrw1000`` ones, ``classify``, and
+the Conformer CTC/attention model of ``auto_avsr_vsr`` (evaluation only)."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -12,6 +13,7 @@ from ..ops.attention import HEAD_DIMS, train_kernels_fit
 from ..ops.decoder_layer import MAX_ROWS, decoder_layer_fits
 from ..utils.device import resolve_device
 from .classify import ClassifyTransformer
+from .conformer import CTCAttentionTransformer, ctc_attention_from_config
 from .decoder_sbl import SBLDecoder
 from .decoder_uni import UniDecoder
 from .encoder import encoder_from_config
@@ -20,25 +22,46 @@ from .layers import CachedCrossAttention, MultiHeadAttention, RandomLayout
 from .sbl import SBLTransformer, UniTransformer
 
 
+def trained(cfg) -> bool:
+    """Whether the port trains the model of ``cfg``: every kind but
+    ``ctc_attention``, which runs in evaluation only."""
+    return model_kind(cfg) != "ctc_attention"
+
+
 def check_kernel_shapes(cfg) -> None:
     """Raise ValueError where a kernel that ``cfg`` selects does not take the
     shapes its model gives it, before anything runs on the card.  The
-    attention kernels (``use_pallas_attention``) are built for head widths
-    in HEAD_DIMS, and the training ones (K3/K4) take the longest sequence
-    of the workload (its frames, or the decoder's maxlen + 1 positions)
-    within their shared memory; K11 (``use_fused_decoder_layer``) takes a
-    decode segment of at most MAX_ROWS positions and d_inner a multiple of
-    d_model.  Tensor parallelism changes none of this: a process launches
+    evaluation attention kernels (K1, K12) are built for head widths in
+    HEAD_DIMS and take any lengths (``check_eval_kernel_shapes``).  For a
+    model the port trains, the training ones (K3/K4) take the longest
+    sequence of the workload (its frames, or the decoder's maxlen + 1
+    positions) within their shared memory, and K11
+    (``use_fused_decoder_layer``) takes a decode segment of at most MAX_ROWS
+    positions and d_inner a multiple of d_model
+    (``check_train_kernel_shapes``); a ``ctc_attention`` model launches
+    neither.  Tensor parallelism changes none of this: a process launches
     the attention kernels on its heads, of the same width, and K11 on the
     whole layer."""
+    check_eval_kernel_shapes(cfg)
+    if trained(cfg):
+        check_train_kernel_shapes(cfg)
+
+
+def check_eval_kernel_shapes(cfg) -> None:
+    """K1/K12 (``use_pallas_attention``): a head width in HEAD_DIMS."""
+    dims = cfg.dims
+    if cfg.use_pallas_attention and dims.d_k not in HEAD_DIMS:
+        raise ValueError(
+            f"d_k={dims.d_k} (d_model {dims.d_model} / n_head "
+            f"{dims.n_head}): the attention kernels are built for head "
+            f"widths {HEAD_DIMS}; choose one of them, or run with "
+            f"use_pallas_attention=False")
+
+
+def check_train_kernel_shapes(cfg) -> None:
+    """K3/K4 at the workload's longest sequence, and K11's segment."""
     dims, dec = cfg.dims, cfg.decoder
     if cfg.use_pallas_attention:
-        if dims.d_k not in HEAD_DIMS:
-            raise ValueError(
-                f"d_k={dims.d_k} (d_model {dims.d_model} / n_head "
-                f"{dims.n_head}): the attention kernels are built for head "
-                f"widths {HEAD_DIMS}; choose one of them, or run with "
-                f"use_pallas_attention=False")
         longest = max([cfg.data.frames] + (
             [] if dec is None else [dec.maxlen + 1, dec.target_pad_len + 2]))
         if not train_kernels_fit(dims.d_k, longest, longest):
@@ -83,7 +106,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_model(cfg, device=None, seed: Optional[int] = None,
                 use_pallas_resblock: bool = False
-                ) -> Union[SBLTransformer, UniTransformer, ClassifyTransformer]:
+                ) -> Union[SBLTransformer, UniTransformer, ClassifyTransformer,
+                           CTCAttentionTransformer]:
     """Construct the eval-mode model for a WorkloadConfig (the port's, or the
     JAX package's: the fields read are the same) with f32 weights drawn
     from ``seed`` (default ``cfg.seed``) on the CPU, then moved to
@@ -104,7 +128,10 @@ def build_model(cfg, device=None, seed: Optional[int] = None,
     frontend's ResNet blocks in training.  A bidirectional decoder config gives an
     ``SBLTransformer``, a unidirectional one a ``UniTransformer``, and the
     ``classify`` workload (no decoder) a ``ClassifyTransformer`` whose
-    language slot is the last frame.  On the card, a config whose shapes a
+    language slot is the last frame, and a config with a ``conformer``
+    (``auto_avsr_vsr``) a ``CTCAttentionTransformer`` with a Swish frontend
+    (evaluation only; its search is
+    ``decode.beam.make_ctc_attention_beam_decoder``).  On the card, a config whose shapes a
     selected kernel does not take raises (``check_kernel_shapes``)."""
     kind = model_kind(cfg)
     device = resolve_device(device)
@@ -113,13 +140,18 @@ def build_model(cfg, device=None, seed: Optional[int] = None,
     dtype = getattr(torch, cfg.compute_dtype)
     kernels = cfg.use_pallas_attention
     dims, d = cfg.dims, cfg.decoder
+    conformer = getattr(cfg, "conformer", None)
     frontend = frontend_from_config(cfg.frontend, dtype=dtype,
                                     use_kernels=kernels,
                                     use_pallas_resblock=use_pallas_resblock,
-                                    remat=getattr(cfg, "remat_frontend", False))
-    encoder = encoder_from_config(dims, d_input=cfg.frontend.feature_dim,
-                                  dtype=dtype, use_kernels=kernels)
-    if kind == "classify":
+                                    remat=getattr(cfg, "remat_frontend", False),
+                                    activation=("relu" if conformer is None
+                                                else conformer.frontend_activation))
+    encoder = None if kind == "ctc_attention" else encoder_from_config(
+        dims, d_input=cfg.frontend.feature_dim, dtype=dtype, use_kernels=kernels)
+    if kind == "ctc_attention":
+        model = ctc_attention_from_config(cfg, frontend, dtype, kernels)
+    elif kind == "classify":
         model = ClassifyTransformer(frontend, encoder, dims.d_model,
                                     num_word_classes=cfg.num_word_classes,
                                     num_languages=cfg.num_languages,

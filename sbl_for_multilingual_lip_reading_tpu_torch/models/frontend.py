@@ -55,6 +55,13 @@ stem pools first and normalises the pooled quarter, which gives the same
 values (``VisualFrontend._one_pass_stem``).  Training and eval with
 gradients keep the module path.
 
+``activation`` is ReLU (the SBL models) or Swish, x * sigmoid(x) (Auto-AVSR's
+frontend, ``config.ConformerConfig.frontend_activation``), after the stem's
+BatchNorm and in every block.  Under Swish the one-pass stem runs BatchNorm,
+Swish, then the pool (Swish is not monotone, so the max pool does not
+commute with it), and neither K10 nor ``FusedBNAct``, whose epilogue is a
+ReLU, is taken: ``FusedBNAct`` falls back to ``BatchNorm``.
+
 ``remat`` (the config's ``remat_frontend``, JAX ``nn.remat(BasicBlock)``)
 checkpoints each ResNet block in training: the backward runs the block's
 forward again (``torch.utils.checkpoint``, non-reentrant) instead of
@@ -274,6 +281,18 @@ class FusedBNAct(BatchNorm):
         return F.relu(y) if self.relu else y
 
 
+ACTIVATIONS = ("relu", "swish")
+
+
+def activation(x: torch.Tensor, swish: bool) -> torch.Tensor:
+    return F.silu(x) if swish else F.relu(x)
+
+
+def activation_(x: torch.Tensor, swish: bool) -> torch.Tensor:
+    """The activation written over ``x`` (outside autograd)."""
+    return F.silu(x, inplace=True) if swish else torch.relu_(x)
+
+
 def one_pass_eval(m: nn.Module) -> bool:
     """``m`` in eval mode with autograd recording nothing: its BatchNorms
     take ``bn_eval_``."""
@@ -327,13 +346,14 @@ def fused_bn_act_on(field: bool) -> bool:
 
 
 def batchnorm_kind(use_pallas_bn: bool = False, use_dot_bn: bool = False,
-                   use_fused_bn_act: bool = False) -> type:
-    """The frontend's BatchNorm class, in JAX's order of precedence."""
+                   use_fused_bn_act: bool = False, swish: bool = False) -> type:
+    """The frontend's BatchNorm class, in JAX's order of precedence;
+    ``FusedBNAct`` (a ReLU epilogue) never under Swish."""
     if dot_bn_on(use_dot_bn):
         return DotBatchNorm
     if pallas_bn_on(use_pallas_bn):
         return FastBatchNorm
-    if fused_bn_act_on(use_fused_bn_act):
+    if not swish and fused_bn_act_on(use_fused_bn_act):
         return FusedBNAct
     return BatchNorm
 
@@ -367,13 +387,15 @@ class BasicBlock(nn.Module):
                  bn_epsilon: float = 1e-5, dtype=torch.float32,
                  bn_momentum: float = 0.9, use_pallas_bn: bool = False,
                  use_kernels: bool = True, use_pallas_resblock: bool = False,
-                 use_dot_bn: bool = False, use_fused_bn_act: bool = False):
+                 use_dot_bn: bool = False, use_fused_bn_act: bool = False,
+                 swish: bool = False):
         super().__init__()
         self.dtype = dtype
         self.stride, self.bn_epsilon = stride, bn_epsilon
         self.use_kernels = use_kernels
         self.use_pallas_resblock = use_pallas_resblock
-        kind = batchnorm_kind(use_pallas_bn, use_dot_bn, use_fused_bn_act)
+        self.swish = swish
+        kind = batchnorm_kind(use_pallas_bn, use_dot_bn, use_fused_bn_act, swish)
         self.fused_bn_act = kind is FusedBNAct
 
         def bn(relu=True):
@@ -398,7 +420,7 @@ class BasicBlock(nn.Module):
         """JAX ``BasicBlock._fused_eligible``: the switch, eval mode,
         stride 1, equal widths."""
         return (self.use_pallas_resblock and not self.training
-                and self.stride == 1
+                and not self.swish and self.stride == 1
                 and x.shape[1] == self.conv2.weight.shape[0])
 
     def _fused_eval(self, x: torch.Tensor) -> torch.Tensor:
@@ -417,22 +439,22 @@ class BasicBlock(nn.Module):
             return self._one_pass_eval(x)
         if self.fused_bn_act:
             return self._fused_bn_act_path(x)
-        y = F.relu(self.bn1(self.conv1(x)).to(self.dtype))
+        y = activation(self.bn1(self.conv1(x)).to(self.dtype), self.swish)
         y = self.bn2(self.conv2(y)).to(self.dtype)
         residual = x
         if self.has_downsample:
             residual = self.downsample_bn(self.downsample_conv(x)).to(self.dtype)
-        return F.relu(y + residual)
+        return activation(y + residual, self.swish)
 
     def _one_pass_eval(self, x: torch.Tensor) -> torch.Tensor:
-        """The path below with each BatchNorm as ``bn_eval_`` and the ReLUs
-        and the residual add in place, in the compute dtype."""
-        y = torch.relu_(bn_eval_(self.bn1, self.conv1(x)))
+        """The path below with each BatchNorm as ``bn_eval_`` and the
+        activations and the residual add in place, in the compute dtype."""
+        y = activation_(bn_eval_(self.bn1, self.conv1(x)), self.swish)
         y = bn_eval_(self.bn2, self.conv2(y))
         residual = x
         if self.has_downsample:
             residual = bn_eval_(self.downsample_bn, self.downsample_conv(x))
-        return torch.relu_(y.add_(residual))
+        return activation_(y.add_(residual), self.swish)
 
     def _fused_bn_act_path(self, x: torch.Tensor) -> torch.Tensor:
         """JAX ``BasicBlock._fused_bn_act_path``: bn1 with its ReLU,
@@ -456,7 +478,8 @@ class ResNetTrunk(nn.Module):
                  dtype=torch.float32, bn_momentum: float = 0.9,
                  use_pallas_bn: bool = False, use_kernels: bool = True,
                  use_pallas_resblock: bool = False, remat: bool = False,
-                 use_dot_bn: bool = False, use_fused_bn_act: bool = False):
+                 use_dot_bn: bool = False, use_fused_bn_act: bool = False,
+                 swish: bool = False):
         super().__init__()
         self.dtype, self.remat = dtype, remat
         self.names = []
@@ -467,7 +490,7 @@ class ResNetTrunk(nn.Module):
                 self.add_module(name, BasicBlock(
                     c_in, ch, stride, bn_epsilon, dtype, bn_momentum,
                     use_pallas_bn, use_kernels, use_pallas_resblock,
-                    use_dot_bn, use_fused_bn_act))
+                    use_dot_bn, use_fused_bn_act, swish))
                 self.names.append(name)
                 c_in = ch
 
@@ -495,21 +518,25 @@ class VisualFrontend(nn.Module):
                  dropout: float = 0.5, bn_momentum: float = 0.9,
                  use_pallas_bn: bool = False,
                  use_pallas_resblock: bool = False, remat: bool = False,
-                 use_dot_bn: bool = False, use_fused_bn_act: bool = False):
+                 use_dot_bn: bool = False, use_fused_bn_act: bool = False,
+                 activation: str = "relu"):
         super().__init__()
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"activation {activation!r}: one of {ACTIVATIONS}")
+        self.swish = swish = activation == "swish"
         self.dtype, self.use_kernels = dtype, use_kernels
         self.feature_dim, self.dropout = feature_dim, dropout
         self.conv3d_weight = nn.Parameter(torch.empty(
             (conv3d_channels, STEM_KT, 7, 7)))
         self.bn3d = make_batchnorm(
             conv3d_channels, bn_epsilon, bn_momentum,
-            batchnorm_kind(use_pallas_bn, use_dot_bn, use_fused_bn_act),
+            batchnorm_kind(use_pallas_bn, use_dot_bn, use_fused_bn_act, swish),
             use_kernels)
         self.resnet = ResNetTrunk(conv3d_channels, resnet_channels,
                                   resnet_blocks, bn_epsilon, dtype, bn_momentum,
                                   use_pallas_bn, use_kernels,
                                   use_pallas_resblock, remat, use_dot_bn,
-                                  use_fused_bn_act)
+                                  use_fused_bn_act, swish)
 
     def init_weights(self, g: torch.Generator) -> None:
         _he_normal_fan_out(self.conv3d_weight, g)
@@ -529,7 +556,11 @@ class VisualFrontend(nn.Module):
         after the max as before it; a channel with a < 0 (a negative scale)
         takes its conv weights negated, which negates its conv output
         exactly, and -a.  ``bn_eval_`` and the ReLU then make one pass each
-        over the pooled quarter."""
+        over the pooled quarter.  Under Swish: conv, ``bn_eval_`` and Swish
+        in place, then the pool."""
+        if self.swish:
+            y = F.conv2d(xs, self.conv3d_weight.to(self.dtype), stride=2, padding=3)
+            return _stem_pool(activation_(bn_eval_(self.bn3d, y), True))
         negated = self.bn3d.weight < 0
         w = self.conv3d_weight.to(self.dtype)
         w = torch.where(negated[:, None, None, None], -w, w)
@@ -549,7 +580,7 @@ class VisualFrontend(nn.Module):
             if isinstance(self.bn3d, FusedBNAct):
                 y = self.bn3d(y)
             else:
-                y = F.relu(self.bn3d(y)).to(self.dtype)
+                y = activation(self.bn3d(y), self.swish).to(self.dtype)
             y = _stem_pool(y)
         y = dropout(self.resnet(y), self.dropout, rng)
         return y.reshape(B, T, self.feature_dim)
@@ -564,7 +595,8 @@ def _stem_pool(y: torch.Tensor) -> torch.Tensor:
 
 def frontend_from_config(cfg, dtype=torch.float32, use_kernels: bool = True,
                          use_pallas_resblock: bool = False,
-                         remat: bool = False) -> VisualFrontend:
+                         remat: bool = False,
+                         activation: str = "relu") -> VisualFrontend:
     return VisualFrontend(
         conv3d_channels=cfg.conv3d_channels,
         resnet_channels=tuple(cfg.resnet_channels),
@@ -577,4 +609,5 @@ def frontend_from_config(cfg, dtype=torch.float32, use_kernels: bool = True,
         bn_momentum=cfg.bn_momentum,
         use_pallas_resblock=use_pallas_resblock,
         remat=remat,
+        activation=activation,
     )

@@ -470,8 +470,13 @@ def _batch_dim(dense: Dense) -> int:
     return 0 if dense.dirs is None else 1
 
 
-def _post_ln(ln: LayerNorm, out: torch.Tensor, residual: torch.Tensor,
+def _post_ln(ln: Optional[LayerNorm], out: torch.Tensor, residual: torch.Tensor,
              dtype) -> torch.Tensor:
+    """LayerNorm(out + residual) in f32, rounded to ``dtype``; without a
+    LayerNorm (a pre-LN layer's sublayer, ``post_ln=False``) ``out`` alone,
+    the caller adding the residual."""
+    if ln is None:
+        return out
     return ln(out.to(torch.float32) + residual.to(torch.float32)).to(dtype)
 
 
@@ -482,12 +487,14 @@ def _qk_std(d_model: int, d: int) -> float:
 
 class MultiHeadAttention(_Sharded, nn.Module):
     """Post-LN multi-head attention; submodule names match the JAX module
-    (w_qs/w_ks/w_vs/fc/layer_norm)."""
+    (w_qs/w_ks/w_vs/fc/layer_norm).  ``post_ln=False`` leaves out the
+    LayerNorm and the residual (a pre-LN layer adds them itself)."""
     COLUMN, ROW = ("w_qs", "w_ks", "w_vs"), ("fc",)
 
     def __init__(self, d_model: int, n_head: int, d_k: int, d_v: int,
                  dtype=torch.float32, use_kernels: bool = True,
-                 dirs: Optional[int] = None, dropout: float = 0.1):
+                 dirs: Optional[int] = None, dropout: float = 0.1,
+                 post_ln: bool = True):
         super().__init__()
         if d_k != d_v:
             raise ValueError("flat attention needs d_k == d_v")
@@ -500,7 +507,7 @@ class MultiHeadAttention(_Sharded, nn.Module):
         self.w_vs = Dense(d_model, n_head * d_v, std=_qk_std(d_model, d_v), **kw)
         self.fc = Dense(n_head * d_v, d_model, dirs=dirs, dtype=dtype,
                         init="xavier_normal")
-        self.layer_norm = LayerNorm(d_model, dirs)
+        self.layer_norm = LayerNorm(d_model, dirs) if post_ln else None
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,
@@ -570,12 +577,14 @@ class CrossKV(_Sharded, nn.Module):
 
 class CachedCrossAttention(_Sharded, nn.Module):
     """Multi-head cross-attention over precomputed ``CrossKV`` outputs:
-    ``MultiHeadAttention`` minus the per-call K/V projections."""
+    ``MultiHeadAttention`` minus the per-call K/V projections (and, with
+    ``post_ln=False``, minus its LayerNorm and residual)."""
     COLUMN, ROW = ("w_qs",), ("fc",)
 
     def __init__(self, d_model: int, n_head: int, d_k: int, d_v: int,
                  dtype=torch.float32, use_kernels: bool = True,
-                 dirs: Optional[int] = None, dropout: float = 0.1):
+                 dirs: Optional[int] = None, dropout: float = 0.1,
+                 post_ln: bool = True):
         super().__init__()
         if d_k != d_v:
             raise ValueError("flat attention needs d_k == d_v")
@@ -586,7 +595,7 @@ class CachedCrossAttention(_Sharded, nn.Module):
                           init="normal", std=_qk_std(d_model, d_k))
         self.fc = Dense(n_head * d_v, d_model, dirs=dirs, dtype=dtype,
                         init="xavier_normal")
-        self.layer_norm = LayerNorm(d_model, dirs)
+        self.layer_norm = LayerNorm(d_model, dirs) if post_ln else None
 
     def forward(self, q: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor,
                 bias: Optional[torch.Tensor] = None,

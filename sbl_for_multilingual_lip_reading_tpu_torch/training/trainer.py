@@ -179,6 +179,13 @@ class Trainer:
                  model: Optional[torch.nn.Module] = None, mesh=None,
                  tensorboard_dir: Optional[str] = None,
                  profile_dir: Optional[str] = None):
+        if model_kind(cfg) == "ctc_attention":
+            raise ValueError(
+                f"workload {cfg.name!r}: the Conformer CTC/attention model runs "
+                f"in evaluation only (decode.beam.make_ctc_attention_beam_decoder); "
+                f"the port has no training step for it (K3/K4 stage at most 116 "
+                f"positions at d_k 64, the relative-position bias takes no "
+                f"gradient, and the CTC + attention loss is not written)")
         self.cfg = cfg
         mesh_cfg = getattr(cfg, "mesh", None)
         if mesh is None and mesh_cfg is not None and (mesh_cfg.data > 1
