@@ -108,7 +108,8 @@ line (phase 2 adds nvcc's per-kernel register report):
   8. path B, the unidirectional workloads through `cli test` at the full
      width: a seeded lrw1000 model saved as a checkpoint, evaluated greedily
      and with --beam-size 5 --bigram-lm at the preset's batch (WER/PER equal
-     to the in-memory model's), beam 1 == greedy tokens, `lrw` greedy, `sbl`
+     to the in-memory model's; K13 launched a decoder layer and step of each
+     eval batch), beam 1 == greedy tokens, `lrw` greedy, `sbl`
      --beam-size 5; clips/s of greedy and beam 5;
   3e. the layout twins and K12 vs their plain versions, d = 64, f32 and
      bf16: fused_small_mha at (1024,17,8,64) causal, bit-identical to K1 on
@@ -121,6 +122,16 @@ line (phase 2 adds nvcc's per-kernel register report):
      (512,8,17,64) and (512,8,30,64) with per-head, head-broadcast and no
      bias within K1_TOL; times of each, its plain version and the
      scaled_dot_product_attention forward or backward;
+  3f. K13 cached_attention_step vs its plain version at each cached
+     decoder's shape (K13_SHAPES: the CTC beam's (2560, 33, 12x64), the
+     lrw1000 beam's (2560, 17, 8x64) and greedy decoder's (512, 17, 8x64)),
+     f32 and bf16 within K1_TOL at steps 0, L // 2 and L - 1, on caches
+     full of values: afterwards the caches equal the plain version's bit
+     for bit (slot ``step`` holds k_new / v_new, no other slot written);
+     in bf16 its time at those steps beside its bytes bound, the plain
+     version's and one scaled_dot_product_attention call on the sliced
+     cache, and its time summed over every step and layer of a batch
+     against the summed bound (phase 8 and 11a count its launches);
   9. path C, `lrw1000` training at the full width, bf16, B=240: kernel path
      vs plain path for one step at B=TRAIN_CHECK_BATCH (phase 5's
      tolerances); `cli train --workload lrw1000` for two steps and a
@@ -214,7 +225,7 @@ line (phase 2 adds nvcc's per-kernel register report):
      clips/s at 4 threads (the jpg dataset and its audio stream need
      OpenCV, which this machine lacks: CPU tests only); the launches of
      F2's five steps join the kernels line as five more paths;
-  11. a JSON line of the seventeen kernels (each with its launches on every
+  11. a JSON line of the eighteen kernels (each with its launches on every
      path, E7's and E8's among them, its error, its time, its plain version's, its bound on the card
      and a library call's time where one PyTorch call computes the same
      function), then the result line {"ok": true, "device": {...}}.
@@ -234,7 +245,7 @@ Any failed phase raises, so the script exits non-zero without the result
 line; so it does when torch sees no CUDA device, and when the port's
 package is not beside it.
 
-With --auto-avsr it runs instead phases 1, 2 and 11a: first K12 and K1
+With --auto-avsr it runs instead phases 1, 2, 3f and 11a: first K12 and K1
 against their plain versions, f32 and bf16 within K1_TOL, at the shapes
 the auto_avsr_vsr path gives them (AVSR_KERNEL_BATCH utterances padded to
 the longest and the shortest of AVSR_LENGTHS: K12 at (B, 12, T, 64) with
@@ -253,7 +264,8 @@ prefixes, the CTC prefix scores against the reference scorer on the
 reference's and on the served log-probabilities, the frontier rule,
 duplicates and order), f32 within AVSR_F32_TOL, bf16 within the cell's
 limits (``port_bench/limits/auto_avsr_vsr.ctcbeam40.b64.json``); the
-launches a batch (K2 1, K12 12, K1 6 x 32); then the bf16 search's ms a
+launches a batch (K2 1, K12 12, K1 6 x 32, K13 6 x 32 over the
+hypotheses' slots 0..step); then the bf16 search's ms a
 batch at B = 64 (AVSR_TIMED batches after a warm-up) and its peak memory.
 Phase 11a also runs after F3 in the full run.
 
@@ -792,6 +804,14 @@ def phase_build():
                   f"{', batch-row map' if mapped == '1' else ''}): {used}; {spill}{extra}")
             if "0 bytes spill stores, 0 bytes spill loads" not in spill:
                 spills.append(f"dropout_keep_mask_kernel<{mapped}>: {spill}")
+        # K13: one body per dtype and head width
+        found = ptxas_report(text, r"cached_attention_step_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+        check(len(found) == 8, f"ptxas report of cached_attention_step_kernel: {sorted(found)}")
+        for (dt, width), (used, spill) in sorted(found.items()):
+            variant = f"K13 {'f32' if dt == 'f' else 'bf16'} d={width}"
+            print(f"phase 2 cached_attention_step_kernel ({variant}): {used}; {spill}")
+            if "0 bytes spill stores, 0 bytes spill loads" not in spill:
+                spills.append(f"cached_attention_step_kernel ({variant}): {spill}")
         pattern = r"ingest_train_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E"
         found, sass = ptxas_report(text, pattern), sass_counts(pattern)
         check(len(found) == 4 and sorted(found) == sorted(sass),
@@ -1490,6 +1510,105 @@ def phase_twin_kernels(torch, dev, timing=True):
                   f"{r['plain_ms']:.4f} ms, library {lib}, bound "
                   f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
+
+
+# K13 at each path's shape: (label, rows, slots L, heads, steps a batch
+# runs, decoder layers); d = 64.  The CTC beam runs 32 steps of L = 33,
+# the lrw1000 decoders 16 of L = 17, each step once a layer.
+K13_SHAPES = (("CTC beam (2560,33,12x64)", 2560, 33, 12, 32, 6),
+              ("lrw1000 beam5 (2560,17,8x64)", 2560, 17, 8, 16, 6),
+              ("lrw1000 greedy (512,17,8x64)", 512, 17, 8, 16, 6))
+
+
+def k13_bytes(N, HD, item, step):
+    """Bytes K13 must move at one step: q, k_new and v_new read, slots
+    0..step-1 of both caches read, slot ``step`` of both and the output
+    written."""
+    return N * HD * item * (2 * step + 6)
+
+
+def phase_cached_attention(torch, dev, timing=True):
+    """Phase 3f: K13 cached_attention_step against its plain version at
+    each path's shape (K13_SHAPES), f32 and bf16, at steps 0, L // 2 and
+    L - 1, on caches whose every slot holds values: the output within
+    K1_TOL, the caches afterwards bit-identical to the plain version's
+    (slot ``step`` = k_new / v_new exactly, every other slot untouched).
+    With ``timing``, in bf16: cuda_ms of every step a batch runs, summed
+    over the steps and layers against the bytes bound (k13_bytes), and at
+    the three steps the plain version's time and one
+    F.scaled_dot_product_attention call on the sliced cache (a yardstick;
+    it writes no slot)."""
+    import torch.nn.functional as F
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
+    g = torch.Generator(device=dev).manual_seed(13)
+    d = 64
+    out = {"rows": [], "per_batch": {}}
+    for label, N, L, H, steps, layers in K13_SHAPES:
+        HD = H * d
+        for dt in (torch.float32, torch.bfloat16):
+            name_dt = str(dt).split(".")[-1]
+            item = torch.tensor([], dtype=dt).element_size()
+            kc, vc = (torch.randn((N, L, HD), generator=g, device=dev, dtype=dt)
+                      for _ in range(2))
+            q, k_new, v_new = (torch.randn((N, HD), generator=g, device=dev, dtype=dt)
+                               for _ in range(3))
+            for step in (0, L // 2, L - 1):
+                kk, vk, kp, vp = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+                before = ops.cached_attention_step.launches
+                got = ops.cached_attention_step(q, k_new, v_new, kk, vk, step, H)
+                want = ops.cached_attention_step_plain(q, k_new, v_new, kp, vp, step, H)
+                torch.cuda.synchronize()
+                check(ops.cached_attention_step.launches == before + 1,
+                      f"3f K13 {label}: not launched")
+                err = (got.float() - want.float()).abs().max().item()
+                check(err <= K1_TOL[name_dt] and bool(torch.isfinite(got).all()),
+                      f"3f K13 {label} {name_dt} step {step}: max abs err {err}")
+                check(torch.equal(kk, kp) and torch.equal(vk, vp),
+                      f"3f K13 {label} {name_dt} step {step}: caches differ from "
+                      f"the plain version's")
+                check(torch.equal(kk[:, step + 1:], kc[:, step + 1:])
+                      and torch.equal(kk[:, :step], kc[:, :step])
+                      and torch.equal(vk[:, step + 1:], vc[:, step + 1:])
+                      and torch.equal(vk[:, :step], vc[:, :step]),
+                      f"3f K13 {label} {name_dt} step {step}: a slot other than "
+                      f"{step} was written")
+                row = dict(case=label, dtype=name_dt, step=step, max_abs_err=err)
+                if timing and dt == torch.bfloat16:
+                    bound_ms = k13_bytes(N, HD, item, step) / HBM_BYTES_S * 1e3
+                    kv = (kc[:, :step + 1].view(N, step + 1, H, d).transpose(1, 2),
+                          vc[:, :step + 1].view(N, step + 1, H, d).transpose(1, 2))
+                    lib = library_time(
+                        torch, lambda: F.scaled_dot_product_attention(
+                            q.view(N, H, 1, d), *kv, scale=d ** -0.5),
+                        "F.scaled_dot_product_attention on the sliced cache")
+                    row.update(
+                        ms=cuda_ms(torch, lambda: ops.cached_attention_step(
+                            q, k_new, v_new, kk, vk, step, H)),
+                        plain_ms=cuda_ms(torch, lambda: ops.cached_attention_step_plain(
+                            q, k_new, v_new, kp, vp, step, H)),
+                        bound_ms=bound_ms, bound_by="bytes", library_ms=lib[0],
+                        library_call=lib[1])
+                    row["roofline"] = bound_ms / row["ms"]
+                out["rows"].append(row)
+                print(f"3f K13 {json.dumps(row)}", flush=True)
+                del kk, vk, kp, vp, got, want
+            if timing and dt == torch.bfloat16:
+                kk, vk = kc.clone(), vc.clone()
+                ms = [cuda_ms(torch, lambda s=s: ops.cached_attention_step(
+                    q, k_new, v_new, kk, vk, s, H)) for s in range(steps)]
+                bound_ms = [k13_bytes(N, HD, item, s) / HBM_BYTES_S * 1e3
+                            for s in range(steps)]
+                out["per_batch"][label] = dict(
+                    launches=steps * layers, ms=layers * sum(ms),
+                    bound_ms=layers * sum(bound_ms), roofline=sum(bound_ms) / sum(ms),
+                    step_ms=ms)
+                print(f"3f K13 {label} per batch ({steps} steps x {layers} layers): "
+                      f"{layers * sum(ms):.3f} ms, bound {layers * sum(bound_ms):.3f} ms, "
+                      f"{100 * sum(bound_ms) / sum(ms):.1f}% of it", flush=True)
+                del kk, vk
+            del kc, vc, q, k_new, v_new
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_slice(torch, np, dev):
@@ -2551,6 +2670,7 @@ def phase_path_b(torch, np, dev):
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     results = {}
     launches = None
+    k13_counts = {}
     for workload, preset, runs in (
             ("lrw1000", C.lrw1000_seq2seq, ([], ["--beam-size", str(UNI_BEAM),
                                                  "--bigram-lm"])),
@@ -2574,11 +2694,13 @@ def phase_path_b(torch, np, dev):
                              + np.float32(1e-10))
             torch.cuda.synchronize()
             ops.reset_launch_counts()
+            ops.cached_attention_step.launches = 0
             t0 = time.perf_counter()
             got = cli.run_test(common + ["--checkpoint", path] + extra)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             counts = ops.launch_counts()
+            k13_launches = ops.cached_attention_step.launches
             want = {k: tr.validate_seq2seq(ds, 1, beam_size=beam, bigram_logp=big)
                     for k, ds in test_sets.items()}
             check(got == want, f"cli test {workload} {extra}: {got} != in-memory "
@@ -2591,6 +2713,13 @@ def phase_path_b(torch, np, dev):
                   f"{len(test_sets)} eval set(s), {seconds:.1f} s with the build of "
                   f"the datasets): {got}, equal to the in-memory model's")
             results[f"{workload} {label}"] = got
+            if workload == "lrw1000":
+                # K13: a launch a decoder layer and step of each eval batch
+                want13 = cfg.dims.n_dec_layers * cfg.decoder.maxlen * len(test_sets)
+                print(f"phase 8 lrw1000 {label} K13 launches: {k13_launches} "
+                      f"(expected {want13})")
+                check(k13_launches == want13, f"K13 launches {k13_launches} != {want13}")
+                k13_counts[label] = k13_launches
             if workload == "lrw1000" and not extra:
                 launches = counts
                 expected = {k: v * len(test_sets)
@@ -2631,6 +2760,7 @@ def phase_path_b(torch, np, dev):
         del model, tr
         torch.cuda.empty_cache()
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    results["k13_launches"] = k13_counts
     return launches, results
 
 
@@ -4432,12 +4562,22 @@ def phase_auto_avsr(torch, np, dev):
         video = device_ingest(clips, cfg.data.crop_size, model.frontend.dtype,
                               n_frames=lengths, mean=cfg.data.mean, std=cfg.data.std)
         ops.reset_launch_counts()
+        k13 = ops.cached_attention_step
+        k13.launches = k13.slots = 0
         toks, scores = beam(video, lengths)
         torch.cuda.synchronize()
         launches = {k: v for k, v in ops.launch_counts().items() if v}
         want = {"stack_frames": 1, "fused_mha": cfg.dims.n_enc_layers,
                 "small_mha_flat": cfg.dims.n_dec_layers * cfg.decoder.maxlen}
         check(launches == want, f"11a {dtype}: launches {launches}, want {want}")
+        # K13: a launch a decoder layer and step, each over the N hypotheses'
+        # slots 0..step
+        steps, N = cfg.decoder.maxlen, len(lengths) * beam.K
+        want13 = (cfg.dims.n_dec_layers * steps,
+                  cfg.dims.n_dec_layers * N * steps * (steps + 1) // 2)
+        check((k13.launches, k13.slots) == want13,
+              f"11a {dtype}: K13 launches, slots {(k13.launches, k13.slots)}, want {want13}")
+        out["k13_launches"] = k13.launches
         check(bool((scores[:, 1:] <= scores[:, :-1]).all()), f"11a {dtype}: order")
         model.ctc_log_probs = log_probs
         # the benchmark's judge, on the two utterances alone at their lengths
@@ -4499,8 +4639,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--auto-avsr"]:
         smi, name = phase_card(torch)
         phase_build()
+        k13 = phase_cached_attention(torch, dev)
         avsr = phase_auto_avsr(torch, np, dev)
-        print(json.dumps({"auto_avsr": avsr, "card": smi}))
+        print(json.dumps({"auto_avsr": avsr, "cached_attention_step": k13, "card": smi}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
         return 0
@@ -4525,6 +4666,7 @@ def main() -> int:
     train_kernels = timed("3b", phase_train_kernels, torch, dev)
     ingest, stats = timed("3c", phase_ingest_bn_kernels, torch, np, dev)
     twins = timed("3e", phase_twin_kernels, torch, dev)
+    k13 = timed("3f", phase_cached_attention, torch, dev)
     launches, rate = timed("4", phase_slice, torch, np, dev)
     tiny = timed("4b", phase_tiny, torch, np, dev)
     train_launches, train = timed("5", phase_train, torch, np, dev)
@@ -4532,6 +4674,7 @@ def main() -> int:
     k9, k10, k11 = timed("3d", phase_eval_kernels, torch, np, dev)
     a_launches, path_a = timed("7", phase_path_a, torch, np, dev)
     b_launches, path_b = timed("8", phase_path_b, torch, np, dev)
+    b_k13 = {f"uni_eval {k}": v for k, v in path_b["k13_launches"].items()}
     c_launches, path_c = timed("9", phase_path_c, torch, np, dev)
     d_launches, path_d = timed("10", phase_path_d, torch, np, dev)
     path_e = dict(remat=timed("E1", phase_remat, torch, np, dev),
@@ -4699,7 +4842,22 @@ def main() -> int:
         rows.append(row(kernel, source, replaces, head,
                         max(r["max_abs_err"] for r in rs if r["dtype"] == "bfloat16"),
                         rs, on_main_path=False))
-    check(len(rows) == 17, "seventeen kernels")
+    # K13: not in ops.KERNELS, so its launches are its own count, read by
+    # phase 8 (the lrw1000 decoders) and 11a (the CTC beam); the headline
+    # row is the CTC beam's at step L // 2 in bf16
+    head = next(r for r in k13["rows"] if r["case"] == K13_SHAPES[0][0]
+                and r["dtype"] == "bfloat16" and r["step"] == K13_SHAPES[0][2] // 2)
+    rows.append({"name": "cached_attention_step", "route": "cuda",
+                 "source": csrc + "decode_attention.cu",
+                 "replaces": "none: MultiHeadAttention.decode_step's einsums",
+                 "launches": max(b_k13.values()),
+                 "launches_by_path": dict(b_k13, ctc_beam=avsr["k13_launches"]),
+                 "max_abs_err": max(r["max_abs_err"] for r in k13["rows"]
+                                    if r["dtype"] == "bfloat16"),
+                 **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "library_call", "case")},
+                 "per_batch": k13["per_batch"], "cases": k13["rows"]})
+    check(len(rows) == 18, "eighteen kernels")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     check(all(k in r for r in rows for k in keys), "a kernel row lacks a key")

@@ -57,8 +57,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import (MASK_FILL, BatchRows, small_mha_dropout_flat,
-                             small_mha_flat, small_mha_flat_plain)
+from ..ops.attention import (BatchRows, cached_attention_step,
+                             cached_attention_step_plain,
+                             small_mha_dropout_flat, small_mha_flat,
+                             small_mha_flat_plain)
 from ..parallel.tensor import (copy_to_model, gather_from_model,
                                gather_heads, reduce_from_model)
 
@@ -535,22 +537,15 @@ class MultiHeadAttention(_Sharded, nn.Module):
         (this process's heads under tensor parallelism).
         Slot ``step`` is written IN PLACE (JAX returns updated copies; the
         callers here own their caches).  Returns (out (B, 1, d_model),
-        k_cache, v_cache).  Deterministic path only."""
-        h = self.n_head
+        k_cache, v_cache).  Deterministic path only.  The attention core is
+        K13 (``ops.cached_attention_step``, plain on CPU tensors) with
+        ``use_kernels``, its plain version (the JAX einsums) otherwise."""
         B, L, HD = k_cache.shape
-        d = HD // h
-        f32 = torch.float32
-        q2 = self.w_qs(x)
-        k_cache[:, step] = self.w_ks(x)[:, 0]
-        v_cache[:, step] = self.w_vs(x)[:, 0]
-        qh = q2.reshape(B, h, d).to(f32)
-        kh = k_cache.reshape(B, L, h, d).to(f32)
-        vh = v_cache.reshape(B, L, h, d).to(f32)
-        logits = torch.einsum("bhd,bkhd->bhk", qh, kh) / math.sqrt(d)
-        invalid = torch.arange(L, device=x.device) > step
-        logits = torch.where(invalid[None, None, :], MASK_FILL, logits)
-        attn = torch.softmax(logits, dim=-1).to(self.dtype)
-        ctx = torch.einsum("bhk,bkhd->bhd", attn.to(f32), vh).to(self.dtype)
+        attend_step = (cached_attention_step if self.use_kernels
+                       else cached_attention_step_plain)
+        ctx = attend_step(self.w_qs(x)[:, 0], self.w_ks(x)[:, 0],
+                          self.w_vs(x)[:, 0], k_cache, v_cache, step,
+                          self.n_head)
         out = self.fc(self._exit(ctx.reshape(B, 1, HD)))
         return _post_ln(self.layer_norm, out, x, self.dtype), k_cache, v_cache
 

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version, plus the mask helpers.  Kernels build at first use (``_build``)."""
-from .attention import (MASK_FILL, BatchRows, dropout_keep_mask, dropout_keep_mask_flat,
+from .attention import (MASK_FILL, BatchRows, cached_attention_step,
+                        cached_attention_step_plain, dropout_keep_mask,
+                        dropout_keep_mask_flat,
                         dropout_keep_mask_flat_plain,
                         fused_mha, fused_mha_plain, fused_small_mha,
                         fused_small_mha_plain, mask_to_bias, small_mha,
@@ -22,7 +24,8 @@ from .stem import (stack_frames, stack_frames_plain, stack_frames_u8,
                    stack_frames_u8_plain)
 
 # K1 ... K11, in the order they were ported, then the layout twins of K1 and
-# K3-K5 (the flat kernels on views) and K12
+# K3-K5 (the flat kernels on views) and K12.  K13 (cached_attention_step)
+# keeps its own counts (.launches, .slots) outside this tuple.
 KERNELS = (small_mha_flat, stack_frames, small_mha_dropout_fwd_flat,
            small_mha_dropout_bwd_flat, dropout_keep_mask_flat, ingest_train,
            channel_sums, channel_sums_pair, stack_frames_u8, fused_resblock,

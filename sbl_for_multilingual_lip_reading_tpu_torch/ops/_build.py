@@ -79,6 +79,9 @@ _SIGNATURES = {
     # stream
     "sbl_stack_frames_u8": [_P, _P, _LL, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
                             _P],
+    # q, k_new, v_new, k_cache, v_cache, out, N, L, H, D, step, scale, dtype,
+    # device, stream
+    "sbl_cached_attention_step": [_P] * 6 + [_I] * 5 + [_F, _I, _I, _P],
     # x, w1, w2, aff, out, N, C, S, Bt, BH, dtype, device, stream
     "sbl_fused_resblock": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, wq, wk, wv, fc, wq2, fc2, w1, w2, vecs, b1, ck, cv, bias, out, dirs,

@@ -22,6 +22,13 @@ split and merge done inside the kernel and the softmax in f32:
   path calls (JAX ``small_mha_dropout_grad_flat``, a custom VJP): K3 forward,
   K4 backward, saving only q, k, v and the bias.
 
+* K13 ``cached_attention_step``: one autoregressive self-attention step
+  over the flat (N, L, H·d) K/V caches of a KV-cached decoder, the new
+  slot written in place (``MultiHeadAttention.decode_step``; the JAX
+  package's is plain einsums, not a kernel).  CUDA source
+  ``csrc/decode_attention.cu``.  It is not in ``ops.KERNELS``: its counts
+  are ``.launches`` and ``.slots`` (rows x valid slots read).
+
 The JAX package also kept two layouts that no model path of either package
 calls (its tests and probes do); each has its counterpart here:
 
@@ -930,3 +937,91 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 fused_mha.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K13: one cached self-attention step over the flat K/V caches.
+# ---------------------------------------------------------------------------
+
+def _check_step(q, k_new, v_new, k_cache, v_cache, step, n_head):
+    """Refuse shapes that neither K13 nor its plain version takes, on any
+    device: q, k_new, v_new (N, H*d), caches (N, L, H*d), H dividing H*d,
+    0 <= step < L."""
+    if k_cache.dim() != 3 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"caches must be two (N, L, H*d); got {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)}")
+    N, L, D = k_cache.shape
+    if any(t.shape != (N, D) for t in (q, k_new, v_new)):
+        raise ValueError(f"q/k_new/v_new must be ({N}, {D}); got {tuple(q.shape)}, "
+                         f"{tuple(k_new.shape)}, {tuple(v_new.shape)}")
+    if n_head <= 0 or D % n_head:
+        raise ValueError(f"width {D} does not split over n_head={n_head}")
+    if not 0 <= step < L:
+        raise ValueError(f"step {step} outside the caches' {L} slots")
+    return N, L, D
+
+
+def cached_attention_step_plain(q: torch.Tensor, k_new: torch.Tensor,
+                                v_new: torch.Tensor, k_cache: torch.Tensor,
+                                v_cache: torch.Tensor, step: int, n_head: int,
+                                scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version of K13, the einsums of ``MultiHeadAttention.decode_step``
+    (JAX's): slot ``step`` of the caches written in place, the caches
+    upcast to f32, the logits divided by sqrt(d) (or multiplied by
+    ``scale``), slots after ``step`` filled with MASK_FILL, the f32 softmax
+    rounded to q's dtype before P V.  Any shapes and head widths the
+    einsums take; returns (N, H*d) in q's dtype."""
+    N, L, D = k_cache.shape
+    d = D // n_head
+    f32 = torch.float32
+    k_cache[:, step] = k_new
+    v_cache[:, step] = v_new
+    qh = q.reshape(N, n_head, d).to(f32)
+    kh = k_cache.reshape(N, L, n_head, d).to(f32)
+    vh = v_cache.reshape(N, L, n_head, d).to(f32)
+    logits = torch.einsum("bhd,bkhd->bhk", qh, kh)
+    logits = logits / math.sqrt(d) if scale is None else logits * scale
+    invalid = torch.arange(L, device=q.device) > step
+    logits = torch.where(invalid[None, None, :], MASK_FILL, logits)
+    attn = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhk,bkhd->bhd", attn.to(f32), vh).to(q.dtype).reshape(N, D)
+
+
+def cached_attention_step(q: torch.Tensor, k_new: torch.Tensor,
+                          v_new: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, step: int, n_head: int,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """K13 (no TPU kernel: the JAX ``decode_step`` is plain einsums): one
+    cached self-attention step.  q, k_new, v_new: (N, H*d), this step's
+    projections; k_cache, v_cache: (N, L, H*d), slot ``step`` written with
+    k_new and v_new in place; scale None for 1/sqrt(d).  Returns
+    softmax(q K^T * scale) V over slots 0..step, (N, H*d) in q's dtype.
+
+    CUDA tensors launch the kernel (``csrc/decode_attention.cu``), which
+    reads the valid slots of the caches once in their own dtype and keeps
+    the probabilities in f32 (the plain version rounds them to q's dtype
+    before P V); it refuses (never copies) what it does not take: mixed or
+    other dtypes than f32 and bf16, non-contiguous operands, d outside
+    HEAD_DIMS.  CPU tensors take the plain version.  Either way ``step``
+    must lie inside the caches.  ``.launches`` counts the launches and
+    ``.slots`` the rows x valid slots they read."""
+    N, L, D = _check_step(q, k_new, v_new, k_cache, v_cache, step, n_head)
+    if q.device.type == "cpu":
+        return cached_attention_step_plain(q, k_new, v_new, k_cache, v_cache,
+                                           step, n_head, scale)
+    _check_cuda("cached_attention_step", (q, k_new, v_new, k_cache, v_cache),
+                None, D // n_head)
+    out = torch.empty_like(q)
+    err = _build.library().sbl_cached_attention_step(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), out.data_ptr(), N, L, n_head, D // n_head, step,
+        float(_scale(scale, D, n_head)), _DTYPE_CODES[q.dtype], q.device.index,
+        _stream(q.device))
+    _build.check(err, "cached_attention_step")
+    cached_attention_step.launches += 1
+    cached_attention_step.slots += N * (step + 1)
+    return out
+
+
+cached_attention_step.launches = 0
+cached_attention_step.slots = 0
