@@ -52,8 +52,7 @@ line (phase 2 adds nvcc's per-kernel register report):
      max-pool tie gradients, card vs CPU;
   4. recognize slice at the full config.sbl() width with seeded random
      weights: kernel path vs plain path at B=32 in f32 (TF32 off) and bf16,
-     then the bf16 recognize path at B=512: launch counts, output checks,
-     stage split, clips/s;
+     then the bf16 recognize path at B=512: launch counts, output checks;
   4b. the tiny preset (d_k = 16) through recognize (f32, bf16, f32 with
      the fused decoder layer, and f32 and bf16 with both eval-side switches,
      K10 at C = 8, S = 8) and one f32 train step, each against the plain
@@ -76,8 +75,8 @@ line (phase 2 adds nvcc's per-kernel register report):
      for one step at B=TRAIN_CHECK_BATCH, f32 and bf16 (loss, every
      gradient, BN running statistics); the bf16 step at B=240 through
      training.trainer.train_steps (launch counts, finite loss, every
-     parameter moved), then TRAIN_WARMUP + TRAIN_TIMED timed steps: ms/step,
-     clips/s, peak memory, stage split;
+     parameter moved), then TRAIN_WARMUP + TRAIN_STEPS steps on one resident
+     batch: finite losses, peak memory;
   6. the training entry point at the full width with PALLAS_INGEST=1 and
      PALLAS_BN=1: kernel path vs plain path for one step at
      B=TRAIN_CHECK_BATCH (phase 5's tolerances); `cli train` for two B=240
@@ -85,8 +84,8 @@ line (phase 2 adds nvcc's per-kernel register report):
      checkpoint and its _best mirror); `cli test` on that checkpoint (its
      WER/PER equal the in-memory model's); a stage-2 transfer step with
      frontend and encoder frozen (bit-identical) and the decoder moving; the
-     B=240 step with the switches off and on, one turn each: ms/step,
-     clips/s, peak memory;
+     B=240 step with the switches off and on, one turn each: finite losses,
+     peak memory;
   3d. the eval-side kernels vs their plain versions: K9 stack_frames_u8 at
      (512,30,96,96), bit-exact in f32 and bf16, and against
      device_ingest + K2; K10 fused_resblock on the four shape classes of
@@ -104,13 +103,13 @@ line (phase 2 adds nvcc's per-kernel register report):
   7. path A, `sbl` recognize at the full width with both eval-side switches
      on and K9 as the ingest: switches on vs off at B=SWITCH_CHECK_BATCH
      (first-step logits, token agreement), then B=512: launches per batch
-     (K9 1, K10 5, K11 96, K1 in the encoder only), clips/s and stage split;
+     (K9 1, K10 5, K11 96, K1 in the encoder only) and output checks;
   8. path B, the unidirectional workloads through `cli test` at the full
      width: a seeded lrw1000 model saved as a checkpoint, evaluated greedily
      and with --beam-size 5 --bigram-lm at the preset's batch (WER/PER equal
      to the in-memory model's; K13 launched a decoder layer and step of each
-     eval batch), beam 1 == greedy tokens, `lrw` greedy, `sbl`
-     --beam-size 5; clips/s of greedy and beam 5;
+     eval batch), beam 1 == greedy tokens and beam 5's scores finite and
+     sorted, `lrw` greedy, `sbl` --beam-size 5;
   3e. the layout twins and K12 vs their plain versions, d = 64, f32 and
      bf16: fused_small_mha at (1024,17,8,64) causal, bit-identical to K1 on
      the flat view and within K1_TOL of its plain version; small_mha's
@@ -137,13 +136,13 @@ line (phase 2 adds nvcc's per-kernel register report):
      tolerances); `cli train --workload lrw1000` for two steps and a
      validation (launches per step of K3 and K4 as expected_launches counts
      them), `cli test` on its checkpoint (WER/PER equal to the in-memory
-     model's), `lrw` for one step; ms/step, clips/s and peak memory of the
+     model's), `lrw` for one step; finite losses and peak memory of the
      B=240 step;
   10. path D, `classify` at the full width, bf16, B=120, 31 frames: kernel
      path vs plain path for one step; `cli train --workload classify` for
      two steps and `cli test --workload classify` (word and language
-     accuracy equal to the in-memory model's); ms/step, clips/s, peak
-     memory; then the three-stage recipe at the full width and depth with
+     accuracy equal to the in-memory model's); finite losses and peak
+     memory of the B=120 step; then the three-stage recipe at the full width and depth with
      one step per stage on seeded synthetic data: the frozen stages'
      frontend and encoder bit-identical, the transferred counts equal to the
      frontend and encoder parameters of the classify checkpoint;
@@ -152,7 +151,7 @@ line (phase 2 adds nvcc's per-kernel register report):
      B=TRAIN_CHECK_BATCH with PALLAS_BN=1, f32 and bf16 (phase 5's
      tolerances; the running statistics moved once; K7 launched once more
      per recomputed BatchNorm, as counted), then the bf16 B=240 step with
-     remat on and off (ms/step, peak memory); E2 a step with grad_clip
+     remat on and off (finite losses, peak memory); E2 a step with grad_clip
      against optax's rule applied by hand to the unclipped gradients; E3
      the data-parallel step at W = 1 under NCCL against the plain step; E4
      W = 2 processes on the one card over gloo (``--dp-worker``), each with
@@ -160,7 +159,7 @@ line (phase 2 adds nvcc's per-kernel register report):
      dropout on, gold fed at every decode step (DP_USE_GOLD), against the
      one-process step on the whole batch, and with per-process
      BatchNorm the kept running statistics against local BatchNorm on
-     process 0's half (ms/step printed as a check only); E5 `cli train
+     process 0's half; E5 `cli train
      --mesh-data 1 --remat-frontend --profile-dir --tensorboard-dir`, two
      steps with PALLAS_INGEST=1 PALLAS_BN=1 (launches as counted: path E's
      column of the kernels line; the trace names K3's, K4's, K7's and K8's
@@ -178,7 +177,7 @@ line (phase 2 adds nvcc's per-kernel register report):
      the gradients gathered over the model group (E4's comparison in f32,
      TP_BF16_TOL in bf16), the gathered parameters after the update (within
      2 lr) and the BN running statistics; K3/K4 launched on the local heads
-     in every process; ms/step a process printed as a check; E8 a Trainer on
+     in every process; peak memory a process printed; E8 a Trainer on
      a (1, 2) grid (``sbl`` f32 at the full width, K11 on, B=E8_BATCH): two
      steps, a validation batch, a checkpoint written whole; the checkpoint
      loads at model = 1, whose greedy tokens equal the grid's decode (a
@@ -186,18 +185,16 @@ line (phase 2 adds nvcc's per-kernel register report):
      layer, 96 launches a decode;
   E9. the epoch-fused cached route (``cache_on_device``; the whole step
      one CUDA graph, replayed once a step) at the full ``sbl`` width,
-     B=240, PALLAS_INGEST=1 PALLAS_BN=1, remat on, profile_fused.CLIPS
-     clips resident on the card: f32 (TF32 off, deterministic algorithms)
+     B=240, PALLAS_INGEST=1 PALLAS_BN=1, remat on, E9_CLIPS clips resident
+     on the card: f32 (TF32 off, deterministic algorithms)
      E9_CHECK_STEPS steps graphed vs the
      per-step route (SBL_NO_EPOCH_FUSED=1; losses within E9_LOSS_RTOL, each
      parameter's update within E9_UPDATE_TOL, Adam's step counts equal),
      the per-step route's step 0 vs the host batch route's, the graph
      captured once and replayed once a step with the kernels' captured
-     counts equal to expected_launches; bf16
-     (``profile_fused.compare_routes``): each route's peak memory and the
-     capture's seconds, ms/step in turns, a traced window of each (kernels
-     and host-side launches a step, the idle share), the two routes' 12
-     losses bit for bit; one NCCL W = 1 graphed run (its collectives
+     counts equal to expected_launches; bf16: each route in a fresh Trainer
+     for two epochs, the graph's captured counts equal to
+     expected_launches and the two routes' 12 losses bit for bit; one NCCL W = 1 graphed run (its collectives
      captured) against the run without a mesh; a checkpoint written on the
      CPU resumed on the card for two graphed steps against the CPU's own;
   F1-F3. the last slice's switches and host runtime: F1 FusedBNAct
@@ -215,8 +212,8 @@ line (phase 2 adds nvcc's per-kernel register report):
      F2_FLOOR_FACTOR times PALLAS_BN's distance, the noise floor of a
      BatchNorm whose statistics differ in their last bits, medians within
      F2_MEDIAN_TOL; grad_accum_bf16's loss bit for bit and its gradients
-     within JAX's 0.05), K2/K3/K4 launched by each, ms/step (median of
-     F2_TIMED after a warm-up) and peak GB allocated and reserved; then the graphed
+     within JAX's 0.05), K2/K3/K4 launched by each, and peak GB allocated
+     and reserved over a step after a warm-up; then the graphed
      epoch-fused route at the tiny preset with grad_accum_bf16 and
      FUSED_BN_ACT, and with all three switches, against the per-step
      route (E9's loss tolerance); F3 the native runtime built with g++,
@@ -265,15 +262,12 @@ reference's and on the served log-probabilities, the frontier rule,
 duplicates and order), f32 within AVSR_F32_TOL, bf16 within the cell's
 limits (``port_bench/limits/auto_avsr_vsr.ctcbeam40.b64.json``); the
 launches a batch (K2 1, K12 12, K1 6 x 32, K13 6 x 32 over the
-hypotheses' slots 0..step); then the bf16 search's ms a
-batch at B = 64 (AVSR_TIMED batches after a warm-up) and its peak memory.
-Phase 11a also runs after F3 in the full run.
+hypotheses' slots 0..step).  Phase 11a also runs after F3 in the full run.
 
-With --compare-eval it runs instead phase 3d and phase 7 (the eval-side
-kernels K9-K11 against their plain versions, with their device times, and
-path A), with --compare-bn phase 3c and phase 6 (K6-K8 against their plain
-versions, with their device times, and the training entry point with
-PALLAS_INGEST=1 PALLAS_BN=1), with --compare-ingest-mask phase 3b and
+With --compare-eval it runs instead phase 3d (the eval-side kernels
+K9-K11 against their plain versions, with their device times), with
+--compare-bn phase 3c (K6-K8 against their plain versions, with their
+device times), with --compare-ingest-mask phase 3b and
 phase 3c's K6 rows (K3-K6 checked and timed: K5's and K6's times, K3's and
 K4's beside them), in the checkout PARENT_DIR and in this one, in
 turns (parent, change, change, parent), each in a process of its own with
@@ -281,12 +275,15 @@ that checkout first on sys.path and by that checkout's own chip_smoke.py,
 so one card and one host serve both trees; each turn's lines go to
 chiprun_out/compare_<set>_<label><turn>.log (set: eval, bn or
 ingest_mask), and every turn's numbers with a summary (--compare-eval: the
-K10/K11 times and path A's rates; --compare-bn: the K7/K8 times per shape
-and per bf16 step, and the entry point's B=240 ms/step with the switches
-off and on; --compare-ingest-mask: K6's times per dtype and K5's, K3's and
+K10/K11 times; --compare-bn: the K7/K8 times per shape and per bf16 step;
+--compare-ingest-mask: K6's times per dtype and K5's, K3's and
 K4's per train-step case with this tree's bounds, K5 queued back to back
 and the launch floor split, both trees by this file's timers) and the
 card's nvidia-smi name and power limit to chiprun_out/compare_<set>.json.
+Whole paths (clips/s, ms/step, a batch's latency) are timed by the
+benchmark, ``port_bench/run.py``, in pairs of runs on one card, and where a
+call's time goes by ``python3 -m
+sbl_for_multilingual_lip_reading_tpu_torch.profile_paths recognize|train``.
 """
 from __future__ import annotations
 
@@ -322,7 +319,6 @@ SLICE_BATCH = 512
 SLICE_CHECK_BATCH = 32
 # the tiny preset's check on the card (phase 4b)
 TINY_BATCH = 8
-RATE_BATCHES = 5
 # training kernels against their plain versions on the same inputs and
 # mask.  f32: summation order only (forward ~1e-6, gradients sum up to 30
 # products of O(10) terms).  bf16: both round one f32 result, so they may
@@ -346,8 +342,10 @@ MASK_TIMED = {"encoder (240,30,512)": (240, 8, 30, 30),
               "cross (480,17)x(480,30)": (480, 8, 17, 30)}
 TRAIN_BATCH = 240
 TRAIN_CHECK_BATCH = 16
+# a step's run on one resident batch: warm-up steps, then the steps whose
+# losses must be finite and whose peak memory is read
 TRAIN_WARMUP = 2
-TRAIN_TIMED = 5
+TRAIN_STEPS = 3
 # one train step, kernel path vs plain path: same weights, batch and seeds,
 # so the same masks.  f32 (TF32 off): attention sums in another order;
 # bf16: one-ulp flips in K3/K4 move the LayerNorms after them.  Gradients
@@ -379,25 +377,22 @@ BN_SCALAR_CASES = (("unaligned 45x45", (3, 1, 45, 45), 0),
                    ("unaligned 5x11x11", (480, 5, 11, 11), 0),
                    ("offset layer4", (480, 512, 3, 3), 1))
 ENTRY_STEPS = 2
-TURN_STEPS = 3
 # path E: the data-parallel processes of the two-process check (on the one
-# card, over gloo), the batch of the traced `cli train` run, the timed steps
-# of a data-parallel process (a check that it runs, not a rate), and the
-# step budget of convergence_check's default mode here: twice the tool's
+# card, over gloo), the batch of the traced `cli train` run, and the step
+# budget of convergence_check's default mode here: twice the tool's
 # --steps default of 800, which the JAX tool itself misses at some seeds
 # (on the CPU JAX memorized at 450-900 steps over six seeds, the port at
 # 350-950 over five seeds and past 800 at three of five thread counts of
 # one seed; on the card one run stood at one clip off at step 800)
 DP_WORLD = 2
 TRACE_BATCH = TRAIN_CHECK_BATCH
-DP_TIMED = 2
 MEMORIZE_STEPS = 1600
-# E9: profile_fused.CLIPS (1,440) SyntheticPatternDataset clips (0.40 GB of
-# uint8) resident on the card, 6 steps an epoch at B=240; the f32 routes'
-# losses agree to E9_LOSS_RTOL (with the deterministic algorithms below,
-# bit for bit)
+# E9: E9_CLIPS SyntheticPatternDataset clips (0.40 GB of uint8, 24 a word)
+# resident on the card, 6 steps an epoch at B=240; the f32 routes' losses
+# agree to E9_LOSS_RTOL (with the deterministic algorithms below, bit for
+# bit)
+E9_CLIPS = 1440
 E9_CHECK_STEPS = 3
-E9_ROUNDS = 1
 E9_LOSS_RTOL = 1e-5
 # the f32 routes' updates (parameters after minus before) agree per
 # parameter to E3's gradient tolerance, with cuDNN's and torch's
@@ -489,14 +484,12 @@ F1_RUNNING_TOL = 1e-5
 # 0.004, 0.022, 0.0045).  So FUSED_BN_ACT and DOT_BN are held to
 # F2_FLOOR_FACTOR times the PALLAS_BN step's distance measured in the same
 # run (or the kernel-vs-plain step's F2_GRAD_TOL), their medians to
-# F2_MEDIAN_TOL; grad_accum_bf16 to JAX's 0.05 of its own test.  ms/step
-# is the median of F2_TIMED steps after a warm-up; the graphed route at
-# the tiny preset runs F2_FUSED_STEPS steps.
+# F2_MEDIAN_TOL; grad_accum_bf16 to JAX's 0.05 of its own test.  The
+# graphed route at the tiny preset runs F2_FUSED_STEPS steps.
 F2_LOSS_TOL = TRAIN_LOSS_TOL["bfloat16"]
 F2_GRAD_TOL = TRAIN_GRAD_TOL["bfloat16"]
 F2_FLOOR_FACTOR = 2.0
 F2_MEDIAN_TOL = 0.01
-F2_TIMED = 3
 F2_FUSED_STEPS = 3
 # F3: random token pairs for levenshtein_native, clips for load_clip_batch
 F3_PAIRS = 2000
@@ -1615,8 +1608,6 @@ def phase_slice(torch, np, dev):
     from sbl_for_multilingual_lip_reading_tpu_torch import config as C
     from sbl_for_multilingual_lip_reading_tpu_torch import ops
     from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
-    from sbl_for_multilingual_lip_reading_tpu_torch.profile_recognize import (
-        stage_split)
     from sbl_for_multilingual_lip_reading_tpu_torch.recognize import (
         expected_launches, recognize_batch)
     from sbl_for_multilingual_lip_reading_tpu_torch.vocab import decode_ids
@@ -1664,7 +1655,6 @@ def phase_slice(torch, np, dev):
     batch = clips(SLICE_BATCH)
     recognize_batch(model, batch, crop)          # warm-up
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     out = recognize_batch(model, batch, crop)
     torch.cuda.synchronize()
@@ -1680,25 +1670,10 @@ def phase_slice(torch, np, dev):
     for lg in (out.logits_l2r, out.logits_r2l):
         check(tuple(lg.shape) == (SLICE_BATCH, maxlen, V), "logits shape")
         check(bool(torch.isfinite(lg).all()), "non-finite logits")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-    # stage split of one batch (CUDA events at the stage boundaries)
-    stages = stage_split(model, batch, crop)
-    print("phase 4 bf16 stage split (device timeline, ms per batch): "
-          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
-
-    t0 = time.perf_counter()
-    for _ in range(RATE_BATCHES):
-        recognize_batch(model, batch, crop)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    rate = RATE_BATCHES * SLICE_BATCH / dt
     words = [" ".join(decode_ids(out.ys_l2r[i].tolist())) for i in (0, 1)]
-    print(f"phase 4 bf16 B={SLICE_BATCH}: {rate:.1f} clips/s "
-          f"({dt / RATE_BATCHES * 1e3:.1f} ms per batch over {RATE_BATCHES} "
-          f"batches), peak memory {peak_gb:.2f} GB; clip 0 l2r: "
-          f"[{words[0]}]; clip 1 l2r: [{words[1]}]")
-    return launches, rate
+    print(f"phase 4 bf16 B={SLICE_BATCH}: clip 0 l2r: [{words[0]}]; clip 1 "
+          f"l2r: [{words[1]}]")
+    return launches
 
 
 def _grad_errors(kern, plain):
@@ -1765,42 +1740,32 @@ def kernel_vs_plain_step(torch, dev, cfg, small, label):
     torch.cuda.empty_cache()
 
 
-def time_train_step(torch, np, step, batch, B, label):
-    """TRAIN_WARMUP + TRAIN_TIMED steps on one resident batch: ms/step,
-    clips/s, peak memory and the stage split of one more step."""
-    from sbl_for_multilingual_lip_reading_tpu_torch.training.steps import TRAIN_STAGES
-    from sbl_for_multilingual_lip_reading_tpu_torch.utils.profiler import stage_split
+def run_train_steps(torch, np, step, batch, B, label):
+    """TRAIN_WARMUP + TRAIN_STEPS steps on one resident batch: the losses
+    finite, and the peak memory of the last TRAIN_STEPS."""
     gen = torch.Generator().manual_seed(3)
     for _ in range(TRAIN_WARMUP):
         step(batch, gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    losses = [step(batch, gen)["loss"] for _ in range(TRAIN_TIMED)]
+    losses = [step(batch, gen)["loss"] for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / TRAIN_TIMED
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [x.item() for x in losses]
     check(all(np.isfinite(losses)), f"{label}: non-finite losses {losses}")
-    stages = stage_split(lambda: step(batch, gen), TRAIN_STAGES)
-    print(f"{label} bf16 B={B}: {dt * 1e3:.1f} ms/step, {B / dt:.1f} clips/s over "
-          f"{TRAIN_TIMED} steps, peak memory {peak_gb:.2f} GB; losses "
-          f"{', '.join(f'{x:.4f}' for x in losses)}; stage split (device ms "
-          f"of the kernels each train.* span launched): "
-          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
-    return dict(ms_per_step=dt * 1e3, clips_per_s=B / dt, peak_gb=peak_gb,
-                stages=stages)
+    print(f"{label} bf16 B={B}: {TRAIN_STEPS} steps after {TRAIN_WARMUP}, peak "
+          f"memory {peak_gb:.2f} GB; losses {', '.join(f'{x:.4f}' for x in losses)}")
+    return dict(peak_gb=peak_gb, losses=losses)
 
 
 def _cli_train(torch, cli, ops, argv):
     """`cli train` with the launch counts set to 0 just before and read just
-    after: (trainer, fit's result, counts, seconds)."""
+    after: (trainer, fit's result, counts)."""
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    t0 = time.perf_counter()
     tr, out = cli.run_train(argv)
     torch.cuda.synchronize()
-    return tr, out, ops.launch_counts(), time.perf_counter() - t0
+    return tr, out, ops.launch_counts()
 
 
 def phase_tiny(torch, np, dev):
@@ -1900,7 +1865,7 @@ def phase_tiny(torch, np, dev):
 
 def phase_train(torch, np, dev):
     """The train slice: kernel path vs plain path, then the B=240 bf16 step
-    through the entry point, then its timing."""
+    through the entry point, then its run on one resident batch."""
     from sbl_for_multilingual_lip_reading_tpu_torch import config as C
     from sbl_for_multilingual_lip_reading_tpu_torch import ops
     from sbl_for_multilingual_lip_reading_tpu_torch.data import SyntheticLipDataset
@@ -1945,10 +1910,10 @@ def phase_train(torch, np, dev):
           f"statistics moved")
     del before, state
 
-    # timing: the train step on one resident batch
+    # the train step on one resident batch
     step = make_sbl_train_step(model, result.optimizer, cfg)
     step.state.step = len(result.history)
-    return launches, time_train_step(torch, np, step, device_batch(TRAIN_BATCH, 2),
+    return launches, run_train_steps(torch, np, step, device_batch(TRAIN_BATCH, 2),
                                      TRAIN_BATCH, "phase 5")
 
 
@@ -2187,7 +2152,7 @@ def phase_entry(torch, np, dev):
     stage1, stage2 = str(CKPT_DIR / "stage1"), str(CKPT_DIR / "stage2")
     common = ["--workload", "sbl", "--synthetic", "--synthetic-size",
               str(ENTRY_STEPS * TRAIN_BATCH), "--max-eval-batches", "1"]
-    tr, out, launches, seconds = _cli_train(torch, cli, ops, common + [
+    tr, out, launches = _cli_train(torch, cli, ops, common + [
         "--epochs", "1", "--max-steps-per-epoch", str(ENTRY_STEPS),
         "--save-dir", stage1])
     n_eval = len(tr.valid_datasets)
@@ -2195,7 +2160,7 @@ def phase_entry(torch, np, dev):
     expected = {k: ENTRY_STEPS * per_step[k] + n_eval * v
                 for k, v in recognize_launches(cfg).items()}
     print(f"phase 6 cli train: {ENTRY_STEPS} steps of B={TRAIN_BATCH} and "
-          f"{n_eval} eval batches in {seconds:.1f} s; launches {launches} "
+          f"{n_eval} eval batches; launches {launches} "
           f"(expected {expected}; per step {per_step})")
     check(launches == expected, f"launch counts {launches} != {expected}")
     check((per_step["ingest_train"], per_step["channel_sums"],
@@ -2240,7 +2205,7 @@ def phase_entry(torch, np, dev):
     torch.cuda.empty_cache()
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
-    # the B=240 step with the switches off and on, in turns
+    # the B=240 step with the switches off and on
     models = {}
     for on in (False, True):
         _set_switches(on)
@@ -2256,19 +2221,15 @@ def phase_entry(torch, np, dev):
         step(batch, gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        losses = [step(batch, gen)["loss"] for _ in range(TURN_STEPS)]
+        losses = [step(batch, gen)["loss"] for _ in range(TRAIN_STEPS)]
         torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) / TURN_STEPS
         check(all(torch.isfinite(x).item() for x in losses), "non-finite loss")
-        turns.append(dict(switches=on, ms_per_step=dt * 1e3,
-                          clips_per_s=TRAIN_BATCH / dt,
+        turns.append(dict(switches=on,
                           peak_gb=torch.cuda.max_memory_allocated() / 1e9))
         print(f"phase 6 B={TRAIN_BATCH} bf16 switches {'on ' if on else 'off'}: "
-              f"{dt * 1e3:.1f} ms/step, {TRAIN_BATCH / dt:.1f} clips/s, peak "
-              f"{turns[-1]['peak_gb']:.2f} GB")
+              f"{TRAIN_STEPS} steps, peak {turns[-1]['peak_gb']:.2f} GB")
     _set_switches(False)
-    return launches, dict(seconds=seconds, turns=turns, loss=out["train_loss"])
+    return launches, dict(turns=turns, loss=out["train_loss"])
 
 
 def _layer_for_check(torch, dev, dtype, seed, n_head=None, d_model=None):
@@ -2564,23 +2525,13 @@ def phase_path_a(torch, np, dev):
         return torch.from_numpy(rng.integers(0, 256, size=(batch, T, raw, raw),
                                              dtype=np.uint8)).to(dev)
 
-    def recognize_stacked(model, clips_u8, events=None):
+    def recognize_stacked(model, clips_u8):
         """recognize_batch with K9 in place of device_ingest + K2."""
-        def mark(i):
-            if events is not None:
-                events[i].record()
         model.eval()
         with torch.inference_mode(), cast_dense_weights(model):
-            mark(0)
             xs = ops.stack_frames_u8(clips_u8, crop, model.frontend.dtype)
-            mark(1)
             feats = model.frontend.forward_stacked(xs)
-            mark(2)
-            enc = model.encoder(feats)
-            mark(3)
-            out = Recognition(*model.decoder.decode(enc))
-            mark(4)
-        return out
+            return Recognition(*model.decoder.decode(model.encoder(feats)))
 
     on = build_model(cfg, dev, seed=0, use_pallas_resblock=True)
     off = build_model(base, dev, seed=0)
@@ -2606,7 +2557,6 @@ def phase_path_a(torch, np, dev):
     batch = clips(SLICE_BATCH)
     recognize_stacked(on, batch)                 # warm-up
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     out = recognize_stacked(on, batch)
     torch.cuda.synchronize()
@@ -2625,33 +2575,9 @@ def phase_path_a(torch, np, dev):
     for lg in (out.logits_l2r, out.logits_r2l):
         check(tuple(lg.shape) == (SLICE_BATCH, maxlen, V), "logits shape")
         check(bool(torch.isfinite(lg).all()), "non-finite logits")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-    rates = {}
-    for label, fn in (("on", lambda: recognize_stacked(on, batch)),
-                      ("off", lambda: recognize_batch(off, batch, crop))):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        rates[label] = 2 * SLICE_BATCH / (time.perf_counter() - t0)
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-    recognize_stacked(on, batch, events)
-    torch.cuda.synchronize()
-    stages = {n: events[i].elapsed_time(events[i + 1])
-              for i, n in enumerate(("ingest+stack (K9)", "frontend", "encoder",
-                                     "decoder"))}
-    print(f"phase 7 bf16 B={SLICE_BATCH}: switches on {rates['on']:.1f} clips/s, "
-          f"off {rates['off']:.1f} clips/s (same call), peak memory {peak_gb:.2f} "
-          f"GB; stage split with the switches on (ms per batch): "
-          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items()))
     del on, off
     torch.cuda.empty_cache()
-    return launches, dict(clips_per_s_on=rates["on"], clips_per_s_off=rates["off"],
-                          stages=stages, first_step_logit_diff=first,
-                          token_agreement=agree)
+    return launches, dict(first_step_logit_diff=first, token_agreement=agree)
 
 
 def phase_path_b(torch, np, dev):
@@ -2695,10 +2621,8 @@ def phase_path_b(torch, np, dev):
             torch.cuda.synchronize()
             ops.reset_launch_counts()
             ops.cached_attention_step.launches = 0
-            t0 = time.perf_counter()
             got = cli.run_test(common + ["--checkpoint", path] + extra)
             torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
             counts = ops.launch_counts()
             k13_launches = ops.cached_attention_step.launches
             want = {k: tr.validate_seq2seq(ds, 1, beam_size=beam, bigram_logp=big)
@@ -2710,8 +2634,8 @@ def phase_path_b(torch, np, dev):
                       f"non-finite score in {scores}")
             label = " ".join(extra) if extra else "greedy"
             print(f"phase 8 cli test --workload {workload} {label} (B={B}, "
-                  f"{len(test_sets)} eval set(s), {seconds:.1f} s with the build of "
-                  f"the datasets): {got}, equal to the in-memory model's")
+                  f"{len(test_sets)} eval set(s)): {got}, equal to the in-memory "
+                  f"model's")
             results[f"{workload} {label}"] = got
             if workload == "lrw1000":
                 # K13: a launch a decoder layer and step of each eval batch
@@ -2728,7 +2652,7 @@ def phase_path_b(torch, np, dev):
                       f"{expected})")
                 check(launches == expected, f"launch counts {launches} != {expected}")
         if workload == "lrw1000":
-            # beam 1 == greedy, and the rates, on one resident batch
+            # beam 1 == greedy, and beam 5's scores, on one resident batch
             T, raw, crop = cfg.data.frames, cfg.data.raw_size, cfg.data.crop_size
             clips = torch.from_numpy(np.random.default_rng(9).integers(
                 0, 256, size=(B, T, raw, raw), dtype=np.uint8)).to(dev)
@@ -2741,21 +2665,8 @@ def phase_path_b(torch, np, dev):
             check(bool(torch.isfinite(scores5).all())
                   and bool((scores5[:, :-1] >= scores5[:, 1:]).all()),
                   "beam scores not finite and sorted")
-            rates = {}
-            for label, fn in (("greedy", lambda: recognize_batch(model, clips, crop)),
-                              ("beam", lambda: beam5(device_ingest(
-                                  clips, crop, model.frontend.dtype)))):
-                fn()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(3):
-                    fn()
-                torch.cuda.synchronize()
-                rates[label] = 3 * B / (time.perf_counter() - t0)
-            print(f"phase 8 lrw1000 bf16 B={B}: beam 1 == greedy tokens; greedy "
-                  f"{rates['greedy']:.1f} clips/s, beam {UNI_BEAM} "
-                  f"{rates['beam']:.1f} clips/s")
-            results["lrw1000 rates"] = rates
+            print(f"phase 8 lrw1000 bf16 B={B}: beam 1 == greedy tokens; beam "
+                  f"{UNI_BEAM}'s scores finite and sorted")
             del clips, video
         del model, tr
         torch.cuda.empty_cache()
@@ -2790,7 +2701,7 @@ def phase_path_c(torch, np, dev):
     path = str(CKPT_DIR / "lrw1000")
     common = ["--workload", "lrw1000", "--synthetic", "--synthetic-size",
               str(ENTRY_STEPS * B), "--max-eval-batches", "1"]
-    tr, out, launches, seconds = _cli_train(torch, cli, ops, common + [
+    tr, out, launches = _cli_train(torch, cli, ops, common + [
         "--epochs", "1", "--max-steps-per-epoch", str(ENTRY_STEPS),
         "--save-dir", path])
     n_eval = len(tr.valid_datasets)
@@ -2798,7 +2709,7 @@ def phase_path_c(torch, np, dev):
     expected = {k: ENTRY_STEPS * per_step[k] + n_eval * v
                 for k, v in eval_launches(cfg).items()}
     print(f"phase 9 cli train --workload lrw1000: {ENTRY_STEPS} steps of B={B} and "
-          f"{n_eval} eval batch(es) in {seconds:.1f} s; launches {launches} "
+          f"{n_eval} eval batch(es); launches {launches} "
           f"(expected {expected}; per step {per_step})")
     check(launches == expected, f"launch counts {launches} != {expected}")
     check((per_step["small_mha_dropout_fwd_flat"], per_step["small_mha_dropout_bwd_flat"])
@@ -2816,13 +2727,13 @@ def phase_path_c(torch, np, dev):
     del tr
     torch.cuda.empty_cache()
 
-    lrw, lrw_out, _, lrw_s = _cli_train(torch, cli, ops, [
+    lrw, lrw_out, _ = _cli_train(torch, cli, ops, [
         "--workload", "lrw", "--synthetic", "--synthetic-size",
         str(C.lrw_seq2seq().batch_size), "--max-eval-batches", "1", "--epochs",
         "1", "--max-steps-per-epoch", "1", "--save-dir", str(CKPT_DIR / "lrw")])
     check(np.isfinite(lrw_out["train_loss"]) and lrw.state.step == 1,
           f"lrw training: loss {lrw_out['train_loss']}")
-    print(f"phase 9 cli train --workload lrw: 1 step in {lrw_s:.1f} s, loss "
+    print(f"phase 9 cli train --workload lrw: 1 step, loss "
           f"{lrw_out['train_loss']:.4f}, eval {lrw_out['lrw']}")
     del lrw
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
@@ -2830,12 +2741,12 @@ def phase_path_c(torch, np, dev):
 
     model = build_model(cfg, dev, seed=0)
     step = make_uni_train_step(model, make_optimizer(model, cfg.optim), cfg)
-    timing = time_train_step(torch, np, step, train_batch(
+    steps = run_train_steps(torch, np, step, train_batch(
         torch, np, dev, cfg, data, B, 2), B, "phase 9 lrw1000")
     del model, step
     torch.cuda.empty_cache()
-    return launches, dict(cli_seconds=seconds, loss=out["train_loss"],
-                          eval=out, per_step_launches=per_step, **timing)
+    return launches, dict(loss=out["train_loss"], eval=out,
+                          per_step_launches=per_step, **steps)
 
 
 def phase_path_d(torch, np, dev):
@@ -2863,7 +2774,7 @@ def phase_path_d(torch, np, dev):
     path = str(CKPT_DIR / "classify")
     common = ["--workload", "classify", "--synthetic", "--synthetic-size",
               str(ENTRY_STEPS * B), "--max-eval-batches", "1"]
-    tr, out, launches, seconds = _cli_train(torch, cli, ops, common + [
+    tr, out, launches = _cli_train(torch, cli, ops, common + [
         "--epochs", "1", "--max-steps-per-epoch", str(ENTRY_STEPS),
         "--save-dir", path])
     n_eval = len(tr.valid_datasets)
@@ -2874,7 +2785,7 @@ def phase_path_d(torch, np, dev):
     expected = {k: ENTRY_STEPS * per_step[k] + n_eval * per_eval[k]
                 for k in per_step}
     print(f"phase 10 cli train --workload classify: {ENTRY_STEPS} steps of B={B} "
-          f"and {n_eval} eval batch(es) in {seconds:.1f} s; launches {launches} "
+          f"and {n_eval} eval batch(es); launches {launches} "
           f"(expected {expected})")
     check(launches == expected, f"launch counts {launches} != {expected}")
     check(np.isfinite(out["train_loss"]) and tr.state.step == ENTRY_STEPS,
@@ -2892,14 +2803,13 @@ def phase_path_d(torch, np, dev):
 
     model = build_model(cfg, dev, seed=0)
     step = make_classify_train_step(model, make_optimizer(model, cfg.optim), cfg)
-    timing = time_train_step(torch, np, step, train_batch(
+    steps = run_train_steps(torch, np, step, train_batch(
         torch, np, dev, cfg, data, B, 2), B, "phase 10 classify")
     del model, step
     torch.cuda.empty_cache()
 
     # the three-stage recipe at the full width and depth, one step a stage
     sbl = C.sbl()
-    t0 = time.perf_counter()
     records = run_three_stage_recipe(
         cfg, sbl, SyntheticLipDataset(size=B, frames=T, raw_size=raw, seed=1),
         SyntheticLipDataset(size=sbl.batch_size, frames=sbl.data.frames,
@@ -2909,7 +2819,6 @@ def phase_path_d(torch, np, dev):
         str(CKPT_DIR / "recipe"), classify_steps=1, stage_steps=1,
         max_eval_batches=1, device=dev)
     torch.cuda.synchronize()
-    recipe_s = time.perf_counter() - t0
     stage1 = checkpoint.load(str(CKPT_DIR / "recipe" / "stage1_classify"))["model"]
     frozen = [k for k in stage1 if k.startswith(("frontend.", "encoder."))
               and "running" not in k]
@@ -2930,14 +2839,13 @@ def phase_path_d(torch, np, dev):
           "recipe: the finetune moved no frontend or encoder parameter")
     summary = [{k: r[k] for k in ("stage", "loss", "wer", "transferred") if k in r}
                for r in records]
-    print(f"phase 10 recipe (full width and depth, 1 step a stage) in "
-          f"{recipe_s:.1f} s: {summary}; {len(frozen)} frozen tensors "
-          f"bit-identical through stage 2")
+    print(f"phase 10 recipe (full width and depth, 1 step a stage): "
+          f"{summary}; {len(frozen)} frozen tensors bit-identical through "
+          f"stage 2")
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
-    return launches, dict(cli_seconds=seconds, loss=out["train_loss"], eval=out,
-                          per_step_launches=per_step, recipe_seconds=recipe_s,
-                          recipe=summary, **timing)
+    return launches, dict(loss=out["train_loss"], eval=out,
+                          per_step_launches=per_step, recipe=summary, **steps)
 
 
 # ---------------------------------------------------------------------------
@@ -3046,7 +2954,7 @@ def phase_remat(torch, np, dev):
     cfg, batch = _path_e_setup(torch, np, dev, TRAIN_BATCH)
     for remat in (False, True):
         step = _new_step(torch, dev, dataclasses.replace(cfg, remat_frontend=remat))
-        out[f"b240_remat_{'on' if remat else 'off'}"] = time_train_step(
+        out[f"b240_remat_{'on' if remat else 'off'}"] = run_train_steps(
             torch, np, step, batch, TRAIN_BATCH,
             f"phase E1 PALLAS_BN=1 remat {'on' if remat else 'off'}")
         del step
@@ -3120,7 +3028,7 @@ DP_USE_GOLD = [True] * 16
 def dp_worker(torch, np, dev, rank: int, port: int, outdir: str) -> int:
     """One process of phase E4: its half of the B=240 batch (``_dp_config``,
     PALLAS_BN=1), synchronised BatchNorm then per process; one checked step
-    each, then DP_TIMED steps timed."""
+    each."""
     from sbl_for_multilingual_lip_reading_tpu_torch import config as C
     from sbl_for_multilingual_lip_reading_tpu_torch.parallel import (
         make_mesh, shutdown)
@@ -3137,18 +3045,11 @@ def dp_worker(torch, np, dev, rank: int, port: int, outdir: str) -> int:
         step = _new_step(torch, dev, c, mesh)
         loss, grads, stats = _step_record(torch, step, local,
                                           use_gold=DP_USE_GOLD)
-        gen = torch.Generator().manual_seed(9)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(DP_TIMED):
-            step(local, gen, use_gold=DP_USE_GOLD)
-        torch.cuda.synchronize()
         out[sync] = dict(
             loss=loss, stats={k: v.cpu() for k, v in stats.items()},
             grads=({k: v.cpu() for k, v in grads.items()} if rank == 0 and sync
                    else None),
-            grad_norms={k: v.float().norm().item() for k, v in grads.items()},
-            ms_per_step=(time.perf_counter() - t0) / DP_TIMED * 1e3)
+            grad_norms={k: v.float().norm().item() for k, v in grads.items()})
         del step, grads
         torch.cuda.empty_cache()
     torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
@@ -3216,13 +3117,8 @@ def phase_dp_two(torch, np, dev):
         check(err <= TRAIN_BN_TOL["float32"],
               f"E4 no-sync: kept running statistics differ by {err}")
     print(f"phase E4 no-sync: every process keeps process 0's running "
-          f"statistics, within {err:.3g} of local BatchNorm on its half; ms/step "
-          f"(a check that it runs, not a rate: two processes share the card "
-          f"and gloo copies through the host): sync "
-          f"{[round(r[True]['ms_per_step'], 1) for r in ranks]}, no-sync "
-          f"{[round(r[False]['ms_per_step'], 1) for r in ranks]}")
+          f"statistics, within {err:.3g} of local BatchNorm on its half")
     _set_switches(False)
-    out["ms_per_step_check"] = [r[True]["ms_per_step"] for r in ranks]
     return out
 
 
@@ -3275,18 +3171,14 @@ def tp_worker(torch, np, dev, phase: str, rank: int, port: int,
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        t0 = time.perf_counter()
         loss = step(local, torch.Generator().manual_seed(5),
                     use_gold=DP_USE_GOLD)["loss"].item()
         torch.cuda.synchronize()
-        # the checked step itself, first launches included: a check, not a rate
-        ms = (time.perf_counter() - t0) * 1e3
         launches = ops.launch_counts()
         grads = {n: gather_from_model(p.grad, mesh, plan[n][0]) if n in plan
                  else p.grad.detach().clone() for n, p in m.named_parameters()}
         after = gather_state_dict(m.state_dict(), m)    # every process gathers
-        res = dict(loss=loss, launches=launches, ms_per_step=ms,
-                   sharded=len(plan),
+        res = dict(loss=loss, launches=launches, sharded=len(plan),
                    peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                    grad_norms={k: v.float().norm().item() for k, v in grads.items()})
         if rank == 0:
@@ -3334,7 +3226,7 @@ def phase_tp(torch, np, dev):
     card -- model = 2 in f32 and bf16, data 2 x model 2 in f32 -- against
     the one-process step on the whole batch: loss, the gathered gradients
     (E4's comparison), the gathered parameters after the update and the BN
-    running statistics.  ms/step a process is printed as a check."""
+    running statistics.  Peak memory a process is printed."""
     import tempfile
     from sbl_for_multilingual_lip_reading_tpu_torch.training.schedule import noam_lr
 
@@ -3410,13 +3302,9 @@ def phase_tp(torch, np, dev):
                   f"E7 {name}: K3/K4 not launched")
         print(f"phase E7 {name}: {r0['sharded']} tensors sharded a process; "
               f"parameters after the update within {param_err:.3g} (2 lr = "
-              f"{2 * lr:.3g}); launches a process {r0['launches']}; ms/step a "
-              f"process (its checked step, a check that it runs, not a rate: the "
-              f"processes share the card and gloo copies through the host) "
-              f"{[round(r['ms_per_step'], 1) for r in ranks]}; peak GB a process "
-              f"{[round(r['peak_gb'], 2) for r in ranks]}")
-        res.update(param_err=param_err, ms_per_step_check=[
-            r["ms_per_step"] for r in ranks], peak_gb=[r["peak_gb"] for r in ranks])
+              f"{2 * lr:.3g}); launches a process {r0['launches']}; peak GB a "
+              f"process {[round(r['peak_gb'], 2) for r in ranks]}")
+        res.update(param_err=param_err, peak_gb=[r["peak_gb"] for r in ranks])
         out[name] = res
         if launches is None:
             launches = r0["launches"]
@@ -3608,7 +3496,7 @@ def phase_path_e_cli(torch, np, dev):
     _set_switches(True)
     with tempfile.TemporaryDirectory() as tmp:
         trace_dir, log_dir = os.path.join(tmp, "trace"), os.path.join(tmp, "tb")
-        tr, out, launches, seconds = _cli_train(torch, cli, ops, [
+        tr, out, launches = _cli_train(torch, cli, ops, [
             "--workload", "sbl", "--synthetic", "--synthetic-size",
             str(ENTRY_STEPS * TRACE_BATCH), "--batch-size", str(TRACE_BATCH),
             "--epochs", "1", "--max-steps-per-epoch", str(ENTRY_STEPS),
@@ -3635,28 +3523,26 @@ def phase_path_e_cli(torch, np, dev):
               f"E5 train/loss at steps {loss_steps}")
         size = os.path.getsize(os.path.join(trace_dir, "trace.json"))
     print(f"phase E5 cli train --mesh-data 1 --remat-frontend --profile-dir: "
-          f"{ENTRY_STEPS} steps of B={TRACE_BATCH} in {seconds:.1f} s, launches "
+          f"{ENTRY_STEPS} steps of B={TRACE_BATCH}, launches "
           f"{launches} (expected {expected}); trace of {size / 1e6:.1f} MB with "
           f"{len(names)} kernel names, K3/K4/K7/K8 among them; train/loss at "
           f"steps {loss_steps}; loss {out['train_loss']:.4f}")
     _set_switches(False)
     del tr
     torch.cuda.empty_cache()
-    return launches, dict(seconds=seconds, loss=out["train_loss"])
+    return launches, dict(loss=out["train_loss"])
 
 
 def phase_memorize(torch, np, dev):
     """E6: convergence_check's default mode on the card, within its budget."""
     from sbl_for_multilingual_lip_reading_tpu_torch import convergence_check
-    t0 = time.perf_counter()
     out = convergence_check.memorize(MEMORIZE_STEPS, dev,
                                      log=lambda s: print(f"phase E6 {s}"))
-    seconds = time.perf_counter() - t0
     print(f"phase E6 convergence_check default mode: "
           f"{'MEMORIZED' if out['memorized'] else 'NOT memorized'} at step "
-          f"{out['step']} of {MEMORIZE_STEPS} ({seconds:.1f} s)")
+          f"{out['step']} of {MEMORIZE_STEPS}")
     check(out["memorized"], "E6: the default mode did not memorize")
-    return dict(step=out["step"], seconds=seconds)
+    return dict(step=out["step"])
 
 
 def _release(torch):
@@ -3668,19 +3554,47 @@ def _release(torch):
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def _route(fused: bool):
+    """The environment that selects a cached Trainer's route: the
+    epoch-fused one (the whole step one CUDA graph, replayed once a step),
+    or with SBL_NO_EPOCH_FUSED=1 the per-step one (JAX's switch)."""
+    old = os.environ.pop("SBL_NO_EPOCH_FUSED", None)
+    if not fused:
+        os.environ["SBL_NO_EPOCH_FUSED"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("SBL_NO_EPOCH_FUSED", None)
+        if old is not None:
+            os.environ["SBL_NO_EPOCH_FUSED"] = old
+
+
+def _e9_dataset(cfg):
+    """E9_CLIPS SyntheticPatternDataset clips (24 a word), built once."""
+    from sbl_for_multilingual_lip_reading_tpu_torch.data import (
+        SyntheticPatternDataset)
+    spw = 24
+    ds = SyntheticPatternDataset(n_words=E9_CLIPS // spw, samples_per_word=spw,
+                                 frames=cfg.data.frames,
+                                 raw_size=cfg.data.raw_size)
+    for i in range(len(ds)):
+        ds[i]
+    return ds
+
+
 def _fused_run(torch, ops, tr, fused, steps, epoch=0):
     """``steps`` steps of a cached Trainer on a route, the launch counts set
     to 0 just before and read just after: a dict of the losses, each
     parameter's update (after minus before: exact in f32, the two within a
     factor 2), Adam's first moments, the set of Adam's step counts, and the
     counts."""
-    from sbl_for_multilingual_lip_reading_tpu_torch import profile_fused
     params = dict(tr.model.named_parameters())
     before = {n: p.detach().clone() for n, p in params.items()}
     history = []
     torch.cuda.synchronize()
     ops.reset_launch_counts()
-    with profile_fused.route(fused):
+    with _route(fused):
         tr.train_epoch(epoch, max_steps=steps, history=history)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
@@ -3796,20 +3710,19 @@ def _fused_resume(torch, np, dev):
 def phase_fused(torch, np, dev):
     """E9: the epoch-fused cached route (``cache_on_device``, the Trainer's
     default for a cached dataset) at the full ``sbl`` width, B=240,
-    PALLAS_INGEST=1 PALLAS_BN=1, remat on, on profile_fused.CLIPS clips resident on
+    PALLAS_INGEST=1 PALLAS_BN=1, remat on, on E9_CLIPS clips resident on
     the card (6 steps an epoch): f32 (TF32 off, deterministic algorithms)
     E9_CHECK_STEPS steps of the graphed route against the per-step route (SBL_NO_EPOCH_FUSED=1; losses
     within E9_LOSS_RTOL, each parameter's update within E9_UPDATE_TOL,
     Adam's step counts equal to the steps) and the per-step route's first
     step against the host batch route's; the graph captured once, replayed
-    once a step, its captured launches as counted; then bf16 through
-    ``profile_fused.compare_routes`` (each route's peak memory and capture
-    seconds, ms/step in turns, a traced window of each: launches a step and
-    the idle share; the routes' losses bit for bit), one NCCL W = 1 fused
+    once a step, its captured launches as counted; then bf16, each route in
+    a fresh Trainer for two epochs (the fused route's captured launches as
+    counted, the routes' losses bit for bit), one NCCL W = 1 fused
     run against the one without a mesh (E3's tolerance), and a CPU
     checkpoint resumed on the card (``_fused_resume``)."""
     from sbl_for_multilingual_lip_reading_tpu_torch import config as C
-    from sbl_for_multilingual_lip_reading_tpu_torch import ops, profile_fused
+    from sbl_for_multilingual_lip_reading_tpu_torch import ops
     from sbl_for_multilingual_lip_reading_tpu_torch.data import (
         SyntheticPatternDataset)
     from sbl_for_multilingual_lip_reading_tpu_torch.parallel import (
@@ -3820,9 +3733,7 @@ def phase_fused(torch, np, dev):
     _set_switches(True)
     base = dataclasses.replace(C.sbl(), batch_size=TRAIN_BATCH,
                                remat_frontend=True)
-    t0 = time.perf_counter()
-    ds = profile_fused.dataset(base)
-    print(f"phase E9 {len(ds)} clips built in {time.perf_counter() - t0:.1f} s")
+    ds = _e9_dataset(base)
     out = {}
     cfg = dataclasses.replace(base, compute_dtype="float32")
     runs, undetermined = {}, set()
@@ -3835,8 +3746,7 @@ def phase_fused(torch, np, dev):
         undetermined |= seen
         want = expected_launches(cfg)
         if name == "fused":
-            out["f32_capture_s"] = _check_graphed(
-                tr, cfg, "E9 f32", E9_CHECK_STEPS - 1).capture_seconds
+            _check_graphed(tr, cfg, "E9 f32", E9_CHECK_STEPS - 1)
             # the eager warm-up step and the capture ran the wrappers
             check(runs[name]["counts"] == {k: 2 * v for k, v in want.items()},
                   f"E9 f32 fused: launches {runs[name]['counts']}")
@@ -3877,19 +3787,30 @@ def phase_fused(torch, np, dev):
     del runs, rf, rp
     _release(torch)
     bf16 = base
-    routes = profile_fused.compare_routes(
-        bf16, ds, dev, E9_ROUNDS, log=lambda x: print(f"phase E9 bf16 B=240 {x}"))
-    mem = routes["memory"]
-    lf, lp = mem["fused"]["losses"], mem["per_step"]["losses"]
-    check(mem["fused"]["captured_launches"] == expected_launches(bf16),
+    routes = {}
+    for name, fused in (("fused", True), ("per_step", False)):
+        # a fresh Trainer for two epochs: the first builds, warms up and
+        # captures
+        tr = Trainer(bf16, ds, device=dev, cache_on_device=True)
+        history = []
+        with _route(fused):
+            for epoch in range(2):
+                tr.train_epoch(epoch, history=history)
+        routes[name] = dict(losses=[h["loss"] for h in history])
+        if fused:
+            routes[name]["captured_launches"] = tr.fused_step.captured_launches
+        del tr
+        _release(torch)
+    lf, lp = routes["fused"]["losses"], routes["per_step"]["losses"]
+    check(routes["fused"]["captured_launches"] == expected_launches(bf16),
           "E9 bf16: captured launches differ from expected_launches")
-    check(all(np.isfinite(x) for m in mem.values() for x in m["losses"]),
+    check(all(np.isfinite(x) for m in routes.values() for x in m["losses"]),
           "E9 bf16: a non-finite loss")
     # the same kernels on the same inputs, in bf16 with no order-dependent
     # sum: every step's loss bit for bit (each run so far)
-    print(f"phase E9 bf16 {len(lf)} losses graphed vs per-step: "
-          f"{'bit-equal' if lf == lp else f'{lf} vs {lp}'}; step 0 "
-          f"{lf[0]:.6f}; capture {mem['fused']['capture_s']:.2f} s")
+    print(f"phase E9 bf16 B={bf16.batch_size} {len(lf)} losses graphed vs "
+          f"per-step: {'bit-equal' if lf == lp else f'{lf} vs {lp}'}; step 0 "
+          f"{lf[0]:.6f}")
     check(len(lf) == len(lp) == 2 * (len(ds) // bf16.batch_size) and lf == lp,
           "E9 bf16: the routes' losses differ")
     out["bf16"] = routes
@@ -4055,8 +3976,7 @@ def phase_bn_variants(torch, np, dev):
 def _switch_step(torch, np, dev, cfg, batch, switches, coins):
     """F2's one variant: the model built under ``switches``, one step under
     deterministic algorithms (loss, gradients, launch counts), a warm-up
-    step, then F2_TIMED timed steps (median ms/step, peak GB allocated and
-    reserved over them)."""
+    step, then one more step (peak GB allocated and reserved over it)."""
     from sbl_for_multilingual_lip_reading_tpu_torch import ops
     from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model
     from sbl_for_multilingual_lip_reading_tpu_torch.training.schedule import (
@@ -4081,16 +4001,11 @@ def _switch_step(torch, np, dev, cfg, batch, switches, coins):
     step(batch, gen, use_gold=coins)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(F2_TIMED):
-        t0 = time.perf_counter()
-        step(batch, gen, use_gold=coins)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    step(batch, gen, use_gold=coins)
+    torch.cuda.synchronize()
     kinds = sorted({type(m).__name__ for m in model.frontend.modules()
                     if hasattr(m, "running_mean")})
     out = dict(loss=loss, grads=grads, counts=counts, kinds=kinds,
-               ms_per_step=statistics.median(times), ms_all=times,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
     del model, step
@@ -4109,8 +4024,8 @@ def phase_switch_steps(torch, np, dev):
     JAX's bound of 0.05; FUSED_BN_ACT and DOT_BN at most F2_FLOOR_FACTOR
     times as far as the PALLAS_BN step (K7/K8's statistics, exact sums) is
     from the off step, or F2_GRAD_TOL, with the median within
-    F2_MEDIAN_TOL; each step's K2/K3/K4 launches, and ms/step (median of
-    F2_TIMED after a warm-up) with peak memory allocated and reserved.
+    F2_MEDIAN_TOL; each step's K2/K3/K4 launches, and peak memory allocated
+    and reserved over a step after a warm-up.
     Then the graphed epoch-fused route at the tiny preset with the
     switches on (``_switched_fused``)."""
     from sbl_for_multilingual_lip_reading_tpu_torch import config as C
@@ -4143,8 +4058,7 @@ def phase_switch_steps(torch, np, dev):
         launches[name] = r["counts"]
         errs = _grad_errors(r["grads"], off["grads"]) if name != "off" else {}
         worst = max(errs, key=errs.get) if errs else None
-        rec = {k: r[k] for k in ("loss", "ms_per_step", "ms_all", "peak_gb",
-                                 "peak_reserved_gb", "kinds")}
+        rec = {k: r[k] for k in ("loss", "peak_gb", "peak_reserved_gb", "kinds")}
         rec.update(grad_err=errs[worst] if worst else 0.0, grad_err_at=worst)
         out[name] = rec
         tol = (0.05 if name == "grad_accum_bf16" else
@@ -4155,9 +4069,8 @@ def phase_switch_steps(torch, np, dev):
               + (f"{errs[worst]:.3g} at {worst}, median "
                  f"{statistics.median(errs.values()):.3g} (tol {tol})"
                  if worst else "-")
-              + f"; {r['ms_per_step']:.1f} ms/step (median of {F2_TIMED}: "
-              f"{', '.join(f'{t:.1f}' for t in r['ms_all'])}), peak "
-              f"{r['peak_gb']:.2f} GB allocated, {r['peak_reserved_gb']:.2f} GB "
+              + f"; peak {r['peak_gb']:.2f} GB allocated, "
+              f"{r['peak_reserved_gb']:.2f} GB "
               f"reserved; K2 {r['counts']['stack_frames']}, K3 "
               f"{r['counts']['small_mha_dropout_fwd_flat']}, K4 "
               f"{r['counts']['small_mha_dropout_bwd_flat']}")
@@ -4292,23 +4205,17 @@ def _bf16_rows(rows):
 
 
 def _eval_turn(target, torch, np, dev) -> dict:
-    """Phase 3d and phase 7: K9-K11 checked and timed, path A's rates."""
+    """Phase 3d: K9-K11 checked and timed."""
     _, k10, k11 = target.phase_eval_kernels(torch, np, dev)
-    _, path_a = target.phase_path_a(torch, np, dev)
-    return dict(fused_resblock=_bf16_rows(k10), fused_decoder_layer=_bf16_rows(k11),
-                path_a=path_a)
+    return dict(fused_resblock=_bf16_rows(k10), fused_decoder_layer=_bf16_rows(k11))
 
 
 def _bn_turn(target, torch, np, dev) -> dict:
-    """Phase 3c and phase 6: K6-K8 checked and timed at the entry point's
-    shapes, the entry point run, its B=240 step with the switches off and
-    on."""
+    """Phase 3c: K6-K8 checked and timed at the entry point's shapes."""
     _, stats = target.phase_ingest_bn_kernels(torch, np, dev)
-    _, entry = target.phase_entry(torch, np, dev)
     keys = ("k7_ms", "k8_ms", "k7_bound", "k8_bound", "k7_lib_ms", "k8_lib_ms",
             "k7_err", "k8_err", "per_step")
-    return dict(bn={f"{r['case']} {r['dtype']}": {k: r[k] for k in keys} for r in stats},
-                entry=entry["turns"])
+    return dict(bn={f"{r['case']} {r['dtype']}": {k: r[k] for k in keys} for r in stats})
 
 
 def _ingest_mask_turn(target, torch, np, dev) -> dict:
@@ -4337,20 +4244,16 @@ def _ingest_mask_turn(target, torch, np, dev) -> dict:
 
 # phase sets of the A/B turns: (the turn's phases, the summary of its runs)
 def _eval_summary(runs):
-    summary = {f"{kernel} {case}": {lab: [r[kernel][case]["ms"] for r in runs
-                                          if r["label"] == lab]
-                                    for lab in ("parent", "change")}
-               for kernel in ("fused_resblock", "fused_decoder_layer")
-               for case in runs[0][kernel]}
-    for key in ("clips_per_s_on", "clips_per_s_off"):
-        summary[f"path_a {key}"] = {lab: [r["path_a"][key] for r in runs if r["label"] == lab]
-                                    for lab in ("parent", "change")}
-    return summary
+    return {f"{kernel} {case}": {lab: [r[kernel][case]["ms"] for r in runs
+                                       if r["label"] == lab]
+                                 for lab in ("parent", "change")}
+            for kernel in ("fused_resblock", "fused_decoder_layer")
+            for case in runs[0][kernel]}
 
 
 def _bn_summary(runs):
-    """Each kernel's ms per case both trees time (bf16 and f32), the bf16
-    sums per B=240 step, and the entry point's ms/step."""
+    """Each kernel's ms per case both trees time (bf16 and f32), and the
+    bf16 sums per B=240 step."""
     def side(lab, fn):
         return [fn(r) for r in runs if r["label"] == lab]
     summary = {}
@@ -4365,11 +4268,6 @@ def _bn_summary(runs):
             lab: side(lab, lambda r: sum(v[f"{kernel}_ms"] * v["per_step"]
                                          for c, v in r["bn"].items()
                                          if c.endswith("bfloat16")))
-            for lab in ("parent", "change")}
-    for on in (False, True):
-        summary[f"entry B=240 ms/step switches {'on' if on else 'off'}"] = {
-            lab: side(lab, lambda r: next(t["ms_per_step"] for t in r["entry"]
-                                          if t["switches"] == on))
             for lab in ("parent", "change")}
     return summary
 
@@ -4460,7 +4358,6 @@ AVSR_LENGTHS = (155, 38, 97, 120)
 AVSR_F32_TOL = {"ctc_logit_err": 2e-3, "step_logit_err": 2e-3, "ctc_prefix_err": 2e-2,
                 "ctc_prefix_self": 2e-2, "frontier_self": 1e-3, "dup_hyps": 0,
                 "order_off": 0}
-AVSR_TIMED = 3
 AVSR_KERNEL_BATCH = 64
 
 
@@ -4591,26 +4488,6 @@ def phase_auto_avsr(torch, np, dev):
             check(err[k] <= t, f"11a {dtype}: {k} {err[k]:.3g} > {t}")
         out[dtype] = dict(err, launches=launches)
         print(f"11a {dtype}: {json.dumps(out[dtype])}", flush=True)
-        if dtype == "bfloat16":
-            beam.watch = None
-            del video, seen, ctc, utterances
-            lengths64 = np.random.default_rng(11).integers(38, 156, size=64).tolist()
-            clips, lengths = clips_of(lengths64)
-            torch.cuda.reset_peak_memory_stats()
-            ms = []
-            for i in range(1 + AVSR_TIMED):
-                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                a.record()
-                video = device_ingest(clips, cfg.data.crop_size, model.frontend.dtype,
-                                      n_frames=lengths, mean=cfg.data.mean, std=cfg.data.std)
-                beam(video, lengths)
-                b.record()
-                b.synchronize()
-                if i:
-                    ms.append(a.elapsed_time(b))
-            out["b64_ms"] = ms
-            out["b64_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-            print(f"11a bf16 B=64 ms {ms}, peak {out['b64_peak_gb']:.2f} GB", flush=True)
         del model, beam
         _release(torch)
     return out
@@ -4667,7 +4544,7 @@ def main() -> int:
     ingest, stats = timed("3c", phase_ingest_bn_kernels, torch, np, dev)
     twins = timed("3e", phase_twin_kernels, torch, dev)
     k13 = timed("3f", phase_cached_attention, torch, dev)
-    launches, rate = timed("4", phase_slice, torch, np, dev)
+    launches = timed("4", phase_slice, torch, np, dev)
     tiny = timed("4b", phase_tiny, torch, np, dev)
     train_launches, train = timed("5", phase_train, torch, np, dev)
     entry_launches, entry = timed("6", phase_entry, torch, np, dev)
@@ -4861,8 +4738,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     check(all(k in r for r in rows for k in keys), "a kernel row lacks a key")
-    print(json.dumps({"kernels": rows, "card": smi,
-                      "recognize_clips_per_s": rate, "train": train,
+    print(json.dumps({"kernels": rows, "card": smi, "train": train,
                       "entry_point": entry, "path_a": path_a, "path_b": path_b,
                       "path_c": path_c, "path_d": path_d, "path_e": path_e,
                       "tiny": tiny, "switches": switches, "auto_avsr": avsr}))

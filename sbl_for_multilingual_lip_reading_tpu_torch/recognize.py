@@ -72,8 +72,10 @@ def expected_launches(cfg, use_pallas_resblock: bool = False) -> Dict[str, int]:
     one frame stack, and one attention per encoder layer plus, per decoder
     layer and decode step, two for an SBL model (self and cross, both
     directions folded into one launch) or one for a unidirectional model
-    (the cross attention; its cached self attention is plain torch); none of
-    the training kernels (BatchNorm runs on its running statistics).  With
+    (the cross attention; its cached self attention runs on K13,
+    ``ops.cached_attention_step``, which is outside ``ops.KERNELS`` and so
+    not in these counts); none of the training kernels (BatchNorm runs on
+    its running statistics).  With
     ``cfg.use_fused_decoder_layer`` K11 takes the SBL decoder's layers, one
     launch each, in place of their two attentions; with
     ``use_pallas_resblock`` K10 takes the eligible ResNet blocks."""

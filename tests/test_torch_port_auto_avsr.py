@@ -1,7 +1,7 @@
 """The port's Auto-AVSR model (``models/conformer.py``, the ``ctc_attention``
 kind), its CTC prefix scorer (``decode/ctc_prefix.py``) and its joint
 CTC/attention beam (``decode/beam.py``) against the plain reference
-``torch_reference/auto_avsr_vsr.py`` (no JAX: the JAX package has no such
+``port_bench/reference/auto_avsr_vsr.py`` (no JAX: the JAX package has no such
 model), in float32 at a tiny size: d 64, 4 heads of 16, 2 Conformer blocks
 and 2 decoder layers, a depthwise conv of 7 taps, 50 ids, at most 40
 frames.
@@ -11,7 +11,7 @@ the prefix scorer and the reference's against a brute-force sum over every
 CTC alignment; the beam's frontier rule under its own numbers; a
 mixed-length batch equal, utterance by utterance, to each utterance alone;
 the benchmark's seeded weights drawing every entry of the model; the
-benchmark's copy of the reference byte-identical to this one; the kernel
+reference importing nothing of the program, of JAX or of flax; the kernel
 shape check split into the evaluation and the training kernels; the
 Trainer refusing the kind.
 """
@@ -34,11 +34,9 @@ from sbl_for_multilingual_lip_reading_tpu_torch.models import build_model, confo
 from sbl_for_multilingual_lip_reading_tpu_torch.models.layers import cast_dense_weights
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "torch_reference"))
-import auto_avsr_vsr as R  # noqa: E402
-
 sys.path.insert(0, str(ROOT))
 from port_bench.core.weights import _kind, seeded_state  # noqa: E402
+from port_bench.reference import auto_avsr_vsr as R  # noqa: E402
 
 TOL = 1e-5
 V, MAXLEN, K = 50, 6, 4
@@ -399,12 +397,10 @@ def test_the_seeded_weights_draw_every_entry(tiny):
         assert drawn[name].shape == t.shape
 
 
-def test_the_two_reference_copies_are_identical():
-    a = (ROOT / "torch_reference" / "auto_avsr_vsr.py").read_bytes()
-    b = (ROOT / "port_bench" / "reference" / "auto_avsr_vsr.py").read_bytes()
-    assert a == b
+def test_the_reference_imports_nothing_of_the_program():
+    text = (ROOT / "port_bench" / "reference" / "auto_avsr_vsr.py").read_text()
     for name in ("sbl_for_multilingual_lip_reading_tpu", "jax", "flax"):
-        assert f"import {name}" not in a.decode() and f"from {name}" not in a.decode()
+        assert f"import {name}" not in text and f"from {name}" not in text
 
 
 # ------------------------------------------------- kernel shapes, the Trainer

@@ -214,12 +214,13 @@ def test_port_config_builds_the_same_model_as_jax_config():
     assert all(torch.equal(a[k], b[k]) for k in a)
 
 
-def test_profile_recognize_refuses_without_a_card():
+@pytest.mark.parametrize("path", ["recognize", "train"])
+def test_profile_refuses_without_a_card(path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the profile runs for real")
     res = _run([sys.executable, "-m",
-                "sbl_for_multilingual_lip_reading_tpu_torch.profile_recognize",
-                "--batch", "2"], REPO)
+                "sbl_for_multilingual_lip_reading_tpu_torch.profile_paths",
+                path, "--batch", "2"], REPO)
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr
 
